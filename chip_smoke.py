@@ -1,7 +1,10 @@
 """GPU smoke run of modflow6_torch: builds the CUDA stencil kernel, checks
 it against its plain PyTorch version, checks the fused transient solve on
-the card against the CPU and a direct solve, and runs the bench
-configuration (4x1024x1024 cells, 3 steps) in ``mixed`` and ``f64``.
+the card against the CPU and a direct solve, runs the bench configuration
+(4x1024x1024 cells, 3 steps) in ``mixed`` and ``f64`` through the fused
+run, and runs the same model as an MF6 input deck through the deck path
+(the command-line entry, the loader, ``Simulation`` and the output files)
+in ``f64`` and ``mixed``, holding it against the fused run.
 
 Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          without one, and on any failed
@@ -12,16 +15,23 @@ Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
 
 Output of the smoke run, in order: the device, the kernel build,
 kernel-vs-plain checks with times, the small-model checks, the bench
-runs, one JSON line
+runs, the deck runs, one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
+import os
+import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -32,6 +42,7 @@ if not torch.cuda.is_available():
              "a CUDA device")
 
 from modflow6_torch import cuda_device                       # noqa: E402
+from modflow6_torch.__main__ import main as cli_main         # noqa: E402
 from modflow6_torch.models.discretization import DisGrid     # noqa: E402
 from modflow6_torch.models.gwf.builder import build_gwf      # noqa: E402
 from modflow6_torch.ops import stencil                       # noqa: E402
@@ -39,6 +50,9 @@ from modflow6_torch.ops.system import apply_dirichlet_structured  # noqa: E402
 from modflow6_torch.solution import ImsSettings              # noqa: E402
 from modflow6_torch.solution.fused import (make_fused_run,   # noqa: E402
                                            make_fused_step)
+from modflow6_torch.solution.ims import NumericalSolution    # noqa: E402
+from modflow6_torch.utils.binary import read_head_file       # noqa: E402
+from modflow6_torch.utils.mf6io import load_simulation       # noqa: E402
 
 BENCH_SHAPE = (4, 1024, 1024)
 KERNEL_SHAPES = (BENCH_SHAPE, (3, 37, 45), (1, 5, 129))
@@ -58,15 +72,26 @@ TIGHT = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
 BENCH = dict(outer_dvclose=1e-5, outer_maximum=50, inner_dvclose=1e-7,
              inner_rclose=1e-5, inner_maximum=400)
 SLOTS = ((2, +1), (2, -1), (1, -1), (1, +1), (0, -1), (0, +1))
+# heads of the deck path against the fused run of the same model: the
+# reference's fused-vs-loop bar is 1e-12 on a 12x10 model
+# (tests/test_fused.py:34-47); at 4M cells and ~1500 inner iterations a
+# step the two paths are held to the card-vs-CPU bar
+DECK_FUSED_ATOL = 1e-10
+# the card's published memory rate (H100 SXM data sheet), for the bound
+HBM_BYTES_PER_S = 3.35e12
+
+
+def flagship_kfield(nlay, nrow, ncol):
+    rng = np.random.default_rng(75)
+    return np.exp(rng.normal(0.0, 1.0, size=nlay * nrow * ncol))
 
 
 def flagship(nlay, nrow, ncol, device):
     """The model of bench.py and __graft_entry__._flagship, on ``device``."""
-    rng = np.random.default_rng(75)
     g = DisGrid.create(nlay, nrow, ncol, delr=10.0, delc=10.0, top=50.0,
                        botm=np.linspace(0.0, -50.0, nlay)[:, None, None]
                        * np.ones((nlay, nrow, ncol)))
-    kfield = np.exp(rng.normal(0.0, 1.0, size=nlay * nrow * ncol))
+    kfield = flagship_kfield(nlay, nrow, ncol)
     return build_gwf(
         "flagship", g, k=kfield, strt=40.0,
         storage={"ss": 1e-5, "iconvert": 0},
@@ -90,6 +115,15 @@ def median_ms(fn, reps=30, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def stencil_bound_ms(shape, dtype):
+    """The least time the card could take for one product: x, diag, the six
+    coefficient planes and y, each of N values, read or written once, over
+    the card's memory rate.  (The 13 N operations are far below that.)"""
+    n = shape[0] * shape[1] * shape[2]
+    nbytes = 9 * n * torch.empty((), dtype=dtype).element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def stencil_inputs(shape, dtype, device, seed, zero_borders=True):
@@ -130,12 +164,16 @@ def check_kernel(device):
         scale = float(y_plain.abs().max())
         bar = 1e-12 * scale if dtype == torch.float64 else 2e-5
         name = "f64" if dtype == torch.float64 else "f32"
-        ms = median_ms(lambda: stencil.stencil7(shape, diag, off, x))
+        # 200 repeats at the shape the main path gives the kernel
+        reps = 200 if shape == BENCH_SHAPE else 30
+        ms = median_ms(lambda: stencil.stencil7(shape, diag, off, x), reps)
         plain_ms = median_ms(
             lambda: stencil.spmv_structured(shape, diag, off, x))
+        bound_ms = stencil_bound_ms(shape, dtype)
         print(f"kernel {name} shape={shape} borders="
               f"{'zero' if zero_borders else 'nonzero'} max_abs_err={err!r} "
-              f"bar={bar!r} ms={ms!r} plain_ms={plain_ms!r}")
+              f"bar={bar!r} ms={ms!r} reps={reps} plain_ms={plain_ms!r} "
+              f"bound_ms={bound_ms!r} bound_share={bound_ms / ms!r}")
         if not err <= bar:
             raise AssertionError(f"stencil7 disagrees with the plain "
                                  f"version: {err} > {bar}")
@@ -234,7 +272,365 @@ def run_bench(device, precision):
     if launches < inner_total:
         raise AssertionError(f"{launches} kernel launches for "
                              f"{inner_total} inner iterations")
+    return launches, head, kiters, inners, elapsed
+
+
+# ------------------------------------------------------------ deck path
+
+def _write(ws, name, text):
+    with open(os.path.join(ws, name), "w") as f:
+        f.write(text)
+
+
+def write_deck(ws, *, name, shape, delr, top, botm, kfield, strt, icelltype,
+               ss, sy, sto_periods, chd, wel_period, wel, tdis, ims, acc,
+               rcha=None, oc_last=False):
+    """Write an MF6 input deck for one DIS GWF model into ``ws``.
+
+    ``kfield`` goes into an OPEN/CLOSE (BINARY) array file (a 52-byte
+    header, then float64 values) that NPF reads for K; ``botm`` is one
+    elevation per layer; ``chd`` and ``wel`` are 1-based (k, i, j, value)
+    rows, CHD given in period 1, WEL from ``wel_period``; ``tdis`` is
+    [(perlen, nstp, tsmult)]; ``sto_periods`` one keyword per period;
+    ``rcha`` a constant READASARRAYS recharge; ``oc_last`` saves heads and
+    budget at the last step of each period."""
+    nlay, nrow, ncol = shape
+    packages = ["DIS6 m.dis", "IC6 m.ic", "NPF6 m.npf", "STO6 m.sto",
+                "CHD6 m.chd", "WEL6 m.wel"]
+    _write(ws, "mfsim.nam", f"""BEGIN TIMING
+  TDIS6 sim.tdis
+END TIMING
+BEGIN MODELS
+  GWF6 m.nam {name}
+END MODELS
+BEGIN SOLUTIONGROUP 1
+  IMS6 sim.ims {name}
+END SOLUTIONGROUP
+""")
+    periods = "\n".join(f"  {p!r} {n} {m!r}" for p, n, m in tdis)
+    _write(ws, "sim.tdis", f"""BEGIN DIMENSIONS
+  NPER {len(tdis)}
+END DIMENSIONS
+BEGIN PERIODDATA
+{periods}
+END PERIODDATA
+""")
+    _write(ws, "sim.ims", f"""BEGIN NONLINEAR
+  OUTER_DVCLOSE {ims['outer_dvclose']!r}
+  OUTER_MAXIMUM {ims['outer_maximum']}
+END NONLINEAR
+BEGIN LINEAR
+  INNER_MAXIMUM {ims['inner_maximum']}
+  INNER_DVCLOSE {ims['inner_dvclose']!r}
+  INNER_RCLOSE {ims['inner_rclose']!r}
+  LINEAR_ACCELERATION {acc}
+END LINEAR
+""")
+    botm_lines = "\n".join(f"    CONSTANT {b!r}" for b in botm)
+    _write(ws, "m.dis", f"""BEGIN DIMENSIONS
+  NLAY {nlay}
+  NROW {nrow}
+  NCOL {ncol}
+END DIMENSIONS
+BEGIN GRIDDATA
+  DELR
+    CONSTANT {delr!r}
+  DELC
+    CONSTANT {delr!r}
+  TOP
+    CONSTANT {top!r}
+  BOTM LAYERED
+{botm_lines}
+END GRIDDATA
+""")
+    _write(ws, "m.ic", f"BEGIN GRIDDATA\n  STRT\n    CONSTANT {strt!r}\n"
+           "END GRIDDATA\n")
+    with open(os.path.join(ws, "k.bin"), "wb") as f:
+        f.write(struct.pack("<iidd16siii", 1, 1, 1.0, 1.0,
+                            b"K".rjust(16), ncol, nrow, 1))
+        np.asarray(kfield, "<f8").tofile(f)
+    _write(ws, "m.npf", f"""BEGIN GRIDDATA
+  ICELLTYPE
+    CONSTANT {icelltype}
+  K
+    OPEN/CLOSE k.bin (BINARY)
+END GRIDDATA
+""")
+    sto = "\n".join(f"BEGIN PERIOD {i}\n  {kw}\nEND PERIOD"
+                    for i, kw in enumerate(sto_periods, 1))
+    _write(ws, "m.sto", f"""BEGIN GRIDDATA
+  ICONVERT
+    CONSTANT {icelltype}
+  SS
+    CONSTANT {ss!r}
+  SY
+    CONSTANT {sy!r}
+END GRIDDATA
+{sto}
+""")
+    chd_lines = "\n".join(f"  {k} {i} {j} {v!r}" for k, i, j, v in chd)
+    _write(ws, "m.chd", f"""BEGIN DIMENSIONS
+  MAXBOUND {len(chd)}
+END DIMENSIONS
+BEGIN PERIOD 1
+{chd_lines}
+END PERIOD
+""")
+    wel_lines = "\n".join(f"  {k} {i} {j} {v!r}" for k, i, j, v in wel)
+    _write(ws, "m.wel", f"""BEGIN DIMENSIONS
+  MAXBOUND {len(wel)}
+END DIMENSIONS
+BEGIN PERIOD {wel_period}
+{wel_lines}
+END PERIOD
+""")
+    if rcha is not None:
+        packages.append("RCH6 m.rcha")
+        _write(ws, "m.rcha", f"""BEGIN OPTIONS
+  READASARRAYS
+END OPTIONS
+BEGIN PERIOD 1
+  RECHARGE
+    CONSTANT {rcha!r}
+END PERIOD
+""")
+    if oc_last:
+        packages.append("OC6 m.oc")
+        _write(ws, "m.oc", """BEGIN OPTIONS
+  HEAD FILEOUT m.hds
+  BUDGET FILEOUT m.cbc
+END OPTIONS
+BEGIN PERIOD 1
+  SAVE HEAD LAST
+  SAVE BUDGET LAST
+END PERIOD
+""")
+    _write(ws, "m.nam", "BEGIN PACKAGES\n"
+           + "".join(f"  {line}\n" for line in packages) + "END PACKAGES\n")
+
+
+def write_flagship_deck(ws, nlay, nrow, ncol):
+    """``flagship(nlay, nrow, ncol)`` as a deck: one period of three steps
+    of 5.0, bench.py's IMS settings with CG, heads and budget saved at the
+    last step."""
+    write_deck(
+        ws, name="FLAGSHIP", shape=(nlay, nrow, ncol), delr=10.0, top=50.0,
+        botm=[float(b) for b in np.linspace(0.0, -50.0, nlay)],
+        kfield=flagship_kfield(nlay, nrow, ncol), strt=40.0, icelltype=0,
+        ss=1e-5, sy=0.0, sto_periods=["TRANSIENT"],
+        chd=[(1, i + 1, 1, 45.0) for i in range(nrow)]
+        + [(1, i + 1, ncol, 35.0) for i in range(nrow)],
+        wel_period=1, wel=[(1, nrow // 2 + 1, ncol // 2 + 1, -500.0)],
+        rcha=1e-4, tdis=[(15.0, 3, 1.0)], ims=BENCH, acc="CG", oc_last=True)
+
+
+def write_npf01b_deck(ws, n=21):
+    """The confined npf01 deck of tests/test_regression_decks.py:286 (case
+    b) on an n x n grid: three periods (steady, ten transient steps with
+    tsmult 1.5, steady), CHD on both columns, a well from period 2."""
+    np.random.seed(9001)
+    hk = np.random.lognormal(5.0, 1.23, (n, n))
+    nc = (n - 1) // 2 + 1
+    write_deck(
+        ws, name="NPF01", shape=(1, n, n), delr=20000.0 / n, top=0.0,
+        botm=[-100.0], kfield=hk, strt=40.0, icelltype=0, ss=1e-4, sy=0.0,
+        sto_periods=["STEADY-STATE", "TRANSIENT", "STEADY-STATE"],
+        chd=[row for i in range(n)
+             for row in ((1, i + 1, 1, 48.0), (1, i + 1, n, 40.0))],
+        wel_period=2, wel=[(1, nc + 1, nc + 1, -1000.0)],
+        tdis=[(1.0, 1, 1.0), (1000.0, 10, 1.5), (1.0, 1, 1.0)],
+        ims=dict(outer_dvclose=1e-6, outer_maximum=100, inner_maximum=300,
+                 inner_dvclose=1e-6, inner_rclose=0.01), acc="CG")
+
+
+@contextlib.contextmanager
+def counted_deck_run():
+    """Counts of one deck run: the kernel's launches (set to 0 on entry) and
+    the calls of the kernel's plain version on a CUDA tensor, which the deck
+    path must not make."""
+    counts = {"plain_on_cuda": 0}
+    plain = stencil.spmv_structured
+
+    def counting_plain(shape, diag, off, x):
+        counts["plain_on_cuda"] += x.is_cuda
+        return plain(shape, diag, off, x)
+
+    stencil.spmv_structured = counting_plain
+    stencil.stencil7.launches = 0
+    try:
+        yield counts
+    finally:
+        stencil.spmv_structured = plain
+    counts["launches"] = stencil.stencil7.launches
+
+
+def check_deck_records(label, sim, counts, load_s, run_s):
+    """Print and check what every deck run must show; returns the records."""
+    recs = sim.records
+    inner_total = sum(r.inner for r in recs)
+    solve = [r.solve_seconds for r in recs]
+    output = [r.output_seconds for r in recs]
+    disc = sim.budget.percent_discrepancy()
+    print(f"deck {label} cells={sim.model.nodes} steps={len(recs)} "
+          f"inner_total={inner_total} inners={[r.inner for r in recs]} "
+          f"outers={[r.outer for r in recs]} "
+          f"converged={all(r.converged for r in recs)} load_s={load_s!r} "
+          f"run_s={run_s!r} grb_s={sim.grb_seconds!r} "
+          f"solve_s_per_step={solve!r} "
+          f"output_s_per_step={output!r} "
+          f"ims_cell_iters_per_s={sim.model.nodes * inner_total / sum(solve)!r} "
+          f"stencil7_launches={counts['launches']} "
+          f"plain_on_cuda={counts['plain_on_cuda']} "
+          f"budget_percent_discrepancy={disc!r}")
+    if not all(r.converged for r in recs):
+        raise AssertionError(f"deck run ({label}): a step did not converge")
+    if counts["launches"] < inner_total:
+        raise AssertionError(f"{counts['launches']} kernel launches for "
+                             f"{inner_total} inner iterations")
+    if counts["plain_on_cuda"]:
+        raise AssertionError("the deck path ran the plain stencil on a CUDA "
+                             "tensor")
+    if not (np.isfinite(disc) and abs(disc) < 1.0):
+        raise AssertionError(f"budget percent discrepancy {disc}")
+    return recs
+
+
+def check_hds(path, head, ibound0, shape, kstp, kper):
+    """The heads file read back equals ``head`` where ibound != 0."""
+    layers = read_head_file(path)
+    if [(r["kstp"], r["kper"], r["ilay"]) for r in layers] != [
+            (kstp, kper, k + 1) for k in range(shape[0])]:
+        raise AssertionError(f"{path}: unexpected records")
+    saved = np.stack([r["data"] for r in layers]).reshape(-1)
+    active = ibound0 != 0
+    if not np.array_equal(saved[active], head[active]):
+        raise AssertionError(f"{path}: heads differ from the run's")
+
+
+def listing_counts(path):
+    """[(outer, inner)] per step from a listing file's iteration summary."""
+    text = open(path).read()
+    outers = re.findall(r"^ (\d+) CALLS TO NUMERICAL SOLUTION", text, re.M)
+    inners = re.findall(r"^ (\d+) TOTAL ITERATIONS", text, re.M)
+    return [(int(o), int(i)) for o, i in zip(outers, inners)]
+
+
+def run_deck_bench(device, fused_head, fused_counts):
+    """The bench model as a deck at full width: in ``f64`` through the
+    command-line entry and through ``load_simulation``, in ``mixed`` through
+    ``load_simulation`` with the solution rebuilt; the ``f64`` runs held
+    against the fused ``f64`` run.  Returns the launches of the three."""
+    nlay, nrow, ncol = BENCH_SHAPE
+    launches = 0
+    with tempfile.TemporaryDirectory() as ws:
+        t0 = time.perf_counter()
+        write_flagship_deck(ws, nlay, nrow, ncol)
+        print(f"deck written in {time.perf_counter() - t0:.2f} s: "
+              f"{sorted(os.listdir(ws))}")
+
+        # the command-line entry, as a user runs it
+        lst = os.path.join(ws, "cli.lst")
+        out = io.StringIO()
+        with counted_deck_run() as counts, contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            code = cli_main([ws, "--lst", lst])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        launches += counts["launches"]
+        cli_counts = listing_counts(lst)
+        print(f"deck f64 cli exit={code} wall_s={cli_s!r} "
+              f"counts={cli_counts} stencil7_launches={counts['launches']} "
+              f"plain_on_cuda={counts['plain_on_cuda']} "
+              f"stdout={out.getvalue().strip()!r}")
+        if code != 0 or "Normal termination of simulation" not in \
+                out.getvalue():
+            raise AssertionError("the command-line run did not end normally")
+        if cli_counts != fused_counts:
+            raise AssertionError(f"deck counts {cli_counts} differ from the "
+                                 f"fused run's {fused_counts}")
+        if counts["plain_on_cuda"] or counts["launches"] < sum(
+                i for _, i in cli_counts):
+            raise AssertionError("the command-line run did not go through "
+                                 "the kernel")
+        fused = fused_head.cpu().numpy()
+        ibound0 = np.ones(fused.size, np.int32)
+        hds = os.path.join(ws, "m.hds")
+        cli_head = np.stack([r["data"] for r in read_head_file(hds)]
+                            ).reshape(-1)
+        err = float(np.abs(cli_head - fused).max())
+        sizes = {f: os.path.getsize(os.path.join(ws, f))
+                 for f in ("m.hds", "m.cbc", "m.grb", "cli.lst")}
+        print(f"deck f64 cli .hds vs fused f64: max|dh|={err!r} "
+              f"bar={DECK_FUSED_ATOL!r} file_bytes={sizes}")
+        if not err <= DECK_FUSED_ATOL:
+            raise AssertionError("the deck's saved heads differ from the "
+                                 "fused run's")
+
+        for precision in ("f64", "mixed"):
+            t0 = time.perf_counter()
+            sim = load_simulation(ws)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            if str(sim.model.device) != str(device):
+                raise AssertionError(f"the model is on {sim.model.device}")
+            if precision == "mixed":
+                # the loader never sets precision: rebuild the solution on
+                # the changed settings, as the reference rebuilds it
+                sim.solution = NumericalSolution(
+                    sim.model, dataclasses.replace(sim.solution.s,
+                                                   precision="mixed"))
+            with counted_deck_run() as counts:
+                t0 = time.perf_counter()
+                sim.run()
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+            launches += counts["launches"]
+            recs = check_deck_records(precision, sim, counts, load_s, run_s)
+            check_hds(hds, recs[-1].head, ibound0, BENCH_SHAPE, 3, 1)
+            err = float(np.abs(recs[-1].head - fused).max())
+            # mixed and f64 are two solves closed at outer_dvclose: they
+            # agree to that criterion, not to rounding
+            bar = (DECK_FUSED_ATOL if precision == "f64"
+                   else 10.0 * BENCH["outer_dvclose"])
+            print(f"deck {precision} vs fused f64: max|dh|={err!r} "
+                  f"bar={bar!r}")
+            if not err <= bar:
+                raise AssertionError(f"deck heads ({precision}) differ from "
+                                     "the fused run's")
+            if precision == "f64" and [(r.outer, r.inner) for r in recs] \
+                    != fused_counts:
+                raise AssertionError("deck counts differ from the fused "
+                                     "run's")
     return launches
+
+
+def check_small_deck(device):
+    """npf01b at 21x21 on the card and on the CPU: equal counts, heads
+    within 1e-10."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as ws:
+        write_npf01b_deck(ws, 21)
+        for name, dev in (("card", None), ("cpu", "cpu")):
+            with counted_deck_run() as counts:
+                sim = load_simulation(ws, device=dev)
+                runs[name] = sim.run()
+            if name == "card" and (counts["plain_on_cuda"]
+                                   or not counts["launches"]):
+                raise AssertionError("the small deck did not go through the "
+                                     "kernel on the card")
+    card, cpu = runs["card"], runs["cpu"]
+    err = max(float(np.abs(a.head - b.head).max())
+              for a, b in zip(card, cpu))
+    same = ([(r.outer, r.inner, r.converged) for r in card]
+            == [(r.outer, r.inner, r.converged) for r in cpu])
+    print(f"deck npf01b 21x21: card counts="
+          f"{[(r.outer, r.inner) for r in card]} cpu equal={same} "
+          f"converged={all(r.converged for r in card)} max|dh|={err!r} "
+          f"bar={CARD_CPU_ATOL!r}")
+    if not (same and len(card) == 12 and all(r.converged for r in card)
+            and err <= CARD_CPU_ATOL):
+        raise AssertionError("the small deck on the card disagrees with "
+                             "the CPU")
 
 
 def _device_us(evt, self_time=True):
@@ -336,9 +732,14 @@ def main():
 
     worst, times = check_kernel(device)
     check_small_model(device)
-    launches = sum(run_bench(device, p) for p in ("mixed", "f64"))
-    if launches == 0:
-        raise AssertionError("the main path launched no stencil7 kernel")
+    check_small_deck(device)
+    fused_launches = run_bench(device, "mixed")[0]
+    f64_launches, fused_head, kiters, inners, _ = run_bench(device, "f64")
+    fused_launches += f64_launches
+    deck_launches = run_deck_bench(device, fused_head,
+                                   list(zip(kiters, inners)))
+    if fused_launches == 0 or deck_launches == 0:
+        raise AssertionError("a main path launched no stencil7 kernel")
 
     ms, plain_ms = times["f64"]
     ms32, plain_ms32 = times["f32"]
@@ -346,9 +747,14 @@ def main():
         "name": "stencil7", "route": "cuda",
         "source": "modflow6_torch/csrc/stencil7.cu",
         "replaces": "modflow6_tpu/ops/pallas_stencil.py:29",
-        "launches": launches, "max_abs_err": worst,
+        "launches": fused_launches + deck_launches,
+        "launches_fused_path": fused_launches,
+        "launches_deck_path": deck_launches, "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
-        "ms_f32": ms32, "plain_ms_f32": plain_ms32}]}))
+        "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),
+        "bound_by": "bytes", "library_ms": None,
+        "ms_f32": ms32, "plain_ms_f32": plain_ms32,
+        "bound_ms_f32": stencil_bound_ms(BENCH_SHAPE, torch.float32)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

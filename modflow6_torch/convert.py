@@ -1,10 +1,14 @@
-"""Build the port's GwfModel from the reference model's state.
+"""Build the port's GwfModel and Simulation from the reference's state.
 
 ``from_reference`` takes the arrays of a ``modflow6_tpu`` GwfModel as
 numpy arrays (so this module needs no JAX) and puts them on a device.  The
 parity tests build one model both ways: through the reference's
 ``build_gwf`` and this function, and through this package's
-``build_gwf`` from the same arguments.
+``build_gwf`` from the same arguments.  ``simulation_from_reference`` does
+the same for what the reference's deck loader produced, so that loader
+and solver can be compared separately: (reference loader → convert →
+port's run), (port's loader → port's run) and (reference's run) must
+agree.  ``device=None`` is the CUDA device.
 
 Keys of ``arrays``:
 
@@ -25,17 +29,23 @@ from __future__ import annotations
 
 import torch
 
+from . import resolve_device
+from .models.discretization import DisGrid
 from .models.gwf import bnd, npf, sto
-from .models.gwf.model import GwfModel
+from .models.gwf.model import GwfModel, PackageData
+from .models.simulation import Simulation
+from .solution.ims import ImsSettings
+from .timing.tdis import StressPeriod, Tdis
+from .utils.oc import OutputControl
 
 _BOUNDS = (("chd", "head", bnd.ChdData), ("wel", "q", bnd.WelData),
            ("rch", "recharge", bnd.RchData))
 
 
 def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
-                   sto_options: dict = None, device="cpu",
-                   name: str = "converted") -> GwfModel:
-    device = torch.device(device)
+                   sto_options: dict = None, device=None,
+                   name: str = "converted", grid=None) -> GwfModel:
+    device = resolve_device(device)
 
     def tensor(key, dtype):
         return torch.tensor(arrays[key], dtype=dtype, device=device)
@@ -71,4 +81,43 @@ def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
         strt=f64("strt"), ibound0=i32("ibound0"), delr=delr, delc=delc,
         area=area, sto_opts=sto_opts, sto_arrays=sto_arrays,
         condsat3=(f64("condsat_x"), f64("condsat_y"), f64("condsat_z")),
+        grid=grid,
         **packages)
+
+
+def simulation_from_reference(state: dict, *, device=None, hds_path=None,
+                              cbc_path=None, lst_path=None) -> Simulation:
+    """The port's Simulation from a reference Simulation's state as numpy.
+
+    Keys of ``state``:
+
+    - ``name``; ``grid``: the keyword arguments of ``DisGrid.create``;
+    - ``arrays``, ``npf_options``, ``sto_options``: as ``from_reference``
+      takes them (``arrays`` holds the first period's packages);
+    - ``tdis``: [(perlen, nstp, tsmult)]; ``transient``: one flag per period;
+    - ``settings``: the fields of the reference's ``ImsSettings``;
+    - ``period_data``: {kper: {"chd"|"wel"|"rch": (node, value, mask)}};
+    - ``oc``: {kper: {(verb, what): spec}} or None; ``fail_fast``.
+    """
+    device = resolve_device(device)
+    grid = DisGrid.create(**state["grid"])
+    model = from_reference(
+        state["arrays"], grid_shape=grid.grid_shape,
+        npf_options=state["npf_options"], sto_options=state["sto_options"],
+        device=device, name=state["name"], grid=grid)
+    tdis = Tdis(tuple(StressPeriod(float(p), int(n), float(m))
+                      for p, n, m in state["tdis"]))
+    oc = None if state["oc"] is None else OutputControl(state["oc"])
+    sim = Simulation(tdis, model, ImsSettings(**state["settings"]),
+                     transient=list(state["transient"]), hds_path=hds_path,
+                     cbc_path=cbc_path, lst_path=lst_path, oc=oc)
+    sim.fail_fast = bool(state["fail_fast"])
+    classes = {pkg: cls for pkg, _, cls in _BOUNDS}
+    for kper, pkgs in state["period_data"].items():
+        sim.period_data[int(kper)] = PackageData(**{
+            pkg: classes[pkg](
+                torch.tensor(node, dtype=torch.int64, device=device),
+                torch.tensor(value, dtype=torch.float64, device=device),
+                torch.tensor(mask, dtype=torch.bool, device=device))
+            for pkg, (node, value, mask) in pkgs.items()})
+    return sim

@@ -1,10 +1,11 @@
 """DIS: structured (nlay, nrow, ncol) discretization, host numpy.
 
 A numpy copy of the geometry half of ``modflow6_tpu`` DisGrid
-(modflow6_tpu/models/discretization/dis.py:24-87).  The structured slice
-needs only the grid shape, not the edge ``Topology``, so that is not
-copied; a grid whose idomain < 0 passthrough cells connect non-adjacent
-layers is not structured and raises.
+(modflow6_tpu/models/discretization/dis.py:24-87).  The structured solve
+needs only the grid shape; ``build_topology`` gives the connection layout
+that the output files use (see ``topology.DisTopology``).  A grid whose
+idomain < 0 passthrough cells connect non-adjacent layers is not
+structured and raises.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from .topology import DisTopology
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +55,17 @@ class DisGrid:
     @property
     def nodes(self) -> int:
         return self.nlay * self.nrow * self.ncol
+
+    def node_number(self, k, i, j):
+        """0-based node number from 0-based (layer, row, col)."""
+        return (np.asarray(k) * self.nrow + np.asarray(i)) * self.ncol + np.asarray(j)
+
+    def build_topology(self) -> DisTopology:
+        """The 7-point connection layout in the reference's edge and CSR
+        order; raises for a grid that is not structured."""
+        shape = self.grid_shape     # raises unless structured
+        conn = DisTopology.connections(self.idomain)
+        return DisTopology(shape, conn)
 
     @property
     def top(self) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Stress packages of the slice: CHD, WEL, RCH.
 
-Port of modflow6_tpu/models/gwf/bnd.py:111-240 (reference
+Port of modflow6_tpu/models/gwf/bnd.py:111-246 (reference
 BoundaryPackage.f90 bnd_cf + bnd_fc, gwf-chd.f90, gwf-wel.f90,
 gwf-rch.f90).  Entries are padded to a fixed ``maxbound`` with
 ``mask=False``.  Node indices are int64 tensors, as ``index_add_`` and
@@ -70,3 +70,9 @@ def scatter_terms(diag, rhs_vec, node, mask, hcof, rhs):
     diag = diag.index_add(0, node, torch.where(mask, hcof, DZERO))
     rhs_vec = rhs_vec.index_add(0, node, torch.where(mask, rhs, DZERO))
     return diag, rhs_vec
+
+
+def bound_flows(node, mask, hcof, rhs, head, ibound):
+    """Per-entry flow rate q = hcof*h - rhs (reference bnd_cq)."""
+    q = hcof * head[node] - rhs
+    return torch.where(mask & (ibound[node] > 0), q, DZERO)

@@ -1,8 +1,12 @@
 """Convenience builder: construct a GwfModel from plain arrays.
 
 Port of modflow6_tpu/models/gwf/builder.py:93 ``build_gwf`` with the same
-keyword arguments plus ``device``.  Arguments that would turn on a feature
-outside the structured confined slice raise ``NotImplementedError``.
+keyword arguments plus ``device``, and of the ``chd_data``/``wel_data``/
+``rch_data`` makers (builder.py:23-52) that pad a stress period's entries
+to a static ``maxbound``.  ``device=None`` is the CUDA device
+(``modflow6_torch.cuda_device()``, which raises without one); the CPU is
+used only when asked for.  Arguments that would turn on a feature outside
+the structured slice raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ... import resolve_device
 from . import bnd, npf, sto
 from .model import GwfModel
 
@@ -24,13 +29,36 @@ def _full(val, n, dtype, device, np_dtype=np.float64):
     return torch.as_tensor(arr.copy(), dtype=dtype, device=device)
 
 
-def _pack_bound(entries, device):
-    """(node, value) boundary entries → (node i64, value f64, mask) tensors."""
+def _pack_bound(entries, device, maxbound=None):
+    """(node, value) boundary entries → (node i64, value f64, mask) tensors,
+    padded to ``maxbound`` rows (at least one) with ``mask=False``."""
     arr = np.asarray(entries, np.float64).reshape(-1, 2)
-    return (torch.as_tensor(arr[:, 0].astype(np.int64), dtype=torch.int64,
-                            device=device),
-            torch.as_tensor(arr[:, 1], dtype=torch.float64, device=device),
-            torch.ones(arr.shape[0], dtype=torch.bool, device=device))
+    b = arr.shape[0]
+    mb = maxbound or max(b, 1)
+    node = np.zeros(mb, np.int64)
+    value = np.zeros(mb, np.float64)
+    mask = np.zeros(mb, bool)
+    node[:b] = arr[:, 0].astype(np.int64)
+    value[:b] = arr[:, 1]
+    mask[:b] = True
+    return (torch.as_tensor(node, dtype=torch.int64, device=device),
+            torch.as_tensor(value, dtype=torch.float64, device=device),
+            torch.as_tensor(mask, dtype=torch.bool, device=device))
+
+
+def chd_data(entries, maxbound=None, device=None):
+    return bnd.ChdData(*_pack_bound(entries, resolve_device(device),
+                                    maxbound))
+
+
+def wel_data(entries, maxbound=None, device=None):
+    return bnd.WelData(*_pack_bound(entries, resolve_device(device),
+                                    maxbound))
+
+
+def rch_data(entries, maxbound=None, device=None):
+    return bnd.RchData(*_pack_bound(entries, resolve_device(device),
+                                    maxbound))
 
 
 def build_gwf(
@@ -66,7 +94,7 @@ def build_gwf(
     angle2=0.0,
     angle3=0.0,
     rewetting=None,
-    device="cpu",
+    device=None,
 ) -> GwfModel:
     given = dict(newton=newton, drn=drn, riv=riv, ghb=ghb, evt=evt,
                  wel_auto_flow_reduce=wel_auto_flow_reduce, buy=buy,
@@ -77,7 +105,7 @@ def build_gwf(
     if any(np.any(np.asarray(a) != 0.0) for a in (angle1, angle2, angle3)):
         raise NotImplementedError("rotated anisotropy is not ported")
 
-    device = torch.device(device)
+    device = resolve_device(device)
     f64 = torch.float64
     shape = grid.grid_shape
     N = grid.nodes
@@ -112,7 +140,7 @@ def build_gwf(
             top=top, bot=bot, area=area)
 
     model = GwfModel(
-        name=name, dtopo=npf.DeviceTopology(shape),
+        name=name, grid=grid, dtopo=npf.DeviceTopology(shape),
         npf_opts=opts, npf_arrays=arrays,
         strt=_full(strt, N, f64, device), ibound0=ibound0,
         delr=torch.as_tensor(grid.delr, dtype=f64, device=device),

@@ -74,13 +74,14 @@ def structured_condsat(shape, delr, delc, opts, icelltype, k11, k22, k33,
     return cx, cy, cz
 
 
-def assemble_structured(shape, delr, delc, opts, arrays, head, ibound, sat,
-                        condsat3):
-    """npf_fc on dense per-direction slices → (diag, off[N,6], rhs).
+def structured_conductance(shape, delr, delc, opts, arrays, head, ibound,
+                           sat, condsat3):
+    """Conductances at the current head on the three structured planes
+    (cond_x, cond_y, cond_z): the body of npf_fc's connection loop, and the
+    counterpart of the reference's per-edge ``npf.edge_conductance``.
 
     ``condsat3``: (cx, cy, cz) from structured_condsat.
     """
-    nlay, nrow, ncol = shape
     t3 = arrays.top.reshape(shape)
     b3 = arrays.bot.reshape(shape)
     h3 = head.reshape(shape)
@@ -110,6 +111,23 @@ def assemble_structured(shape, delr, delc, opts, arrays, head, ibound, sat,
         ib3[ns], ib3[ms], ict3[ns], ict3[ms], opts.ivarcv, opts.idewatcv,
         cz0, h3[ns], h3[ms], k33_3[ns], k33_3[ms], s3[ns], s3[ms],
         t3[ns], t3[ms], b3[ns], b3[ms], area)
+    return cond_x, cond_y, cond_z
+
+
+def assemble_structured(shape, delr, delc, opts, arrays, head, ibound, sat,
+                        condsat3):
+    """npf_fc on dense per-direction slices → (diag, off[N,6], rhs).
+
+    ``condsat3``: (cx, cy, cz) from structured_condsat.
+    """
+    nlay, nrow, ncol = shape
+    cond_x, cond_y, cond_z = structured_conductance(
+        shape, delr, delc, opts, arrays, head, ibound, sat, condsat3)
+    t3 = arrays.top.reshape(shape)
+    b3 = arrays.bot.reshape(shape)
+    h3 = head.reshape(shape)
+    ict3 = arrays.icelltype.reshape(shape)
+    ns, ms = _SLICES["z"]
 
     rhs3 = torch.zeros(shape, dtype=head.dtype, device=head.device)
 

@@ -1,18 +1,21 @@
-"""Krylov accelerators: preconditioned CG and mixed-precision refinement.
+"""Krylov accelerators: preconditioned CG, BiCGSTAB and mixed-precision
+refinement.
 
 Port of modflow6_tpu/ops/solvers/krylov.py (reference ImsLinearBase.f90
-ims_base_cg, ims_base_testcnvg, ims_base_epfact).  The exit semantics are
-the reference's, so iteration counts agree: the iterate update's signed
-infinity norm against DVCLOSE, the residual norm against RCLOSE per
-ICNVGOPT, and stagnation of rho to within 100 machine epsilons.
+ims_base_cg, ims_base_bcgs, ims_base_testcnvg, ims_base_epfact).  The
+exit semantics are the reference's, so iteration counts agree: the iterate
+update's signed infinity norm against DVCLOSE, the residual norm against
+RCLOSE per ICNVGOPT, and stagnation of rho to within 100 machine epsilons.
 
 The JAX version runs each loop as one ``lax.while_loop`` on the device.
 Here the loop is a Python ``while`` whose scalars (rho, alpha, the norms,
 the exit flag) stay 0-d device tensors; the host reads the exit flag once
 per iteration, which is one device synchronisation per iteration.
+``trace=True`` keeps each iteration's (dvmax, rmax, l2norm) on the device
+and returns them stacked, without a further host read per iteration.
 The reference's injectable ``dot``/``absmax`` (for its sharded psum/pmax
-path) and ``solver``/``max_passes`` knobs are left out until a sharded
-or BiCGSTAB slice needs them; ``bicgstab`` waits for the Newton slice.
+path) and ``max_passes`` knob are left out until the sharded slice needs
+them.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ class KrylovResult(NamedTuple):
     dvmax: torch.Tensor        # signed max dependent-variable change of last iter
     rmax: torch.Tensor         # signed max residual of last iter
     l2norm: torch.Tensor       # residual L2 norm of last iter
+    # (dvmax[iters], rmax[iters], l2norm[iters]) when traced
+    trace: tuple = None
 
 
 def _signed_absmax(v):
@@ -107,14 +112,19 @@ def cg(
     north: int = 0,
     l2norm0=0.0,
     epfact_val=1.0,
+    trace: bool = False,
 ) -> KrylovResult:
-    """Preconditioned conjugate gradient, IMS semantics."""
+    """Preconditioned conjugate gradient, IMS semantics.
+
+    ``trace=True`` records (dvmax, rmax, l2norm) per inner iteration
+    (CSV_INNER_OUTPUT role)."""
     x = x0
     d = b - matvec(x0)
     p = torch.zeros_like(b)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     rho0, dvmax, rmax, l2norm = zero, zero, zero, zero
     icnvg = torch.zeros((), dtype=torch.int64, device=b.device)
+    rows = [] if trace else None
     iiter = 0
     done = False
     while not done and iiter < itmax:
@@ -138,12 +148,97 @@ def cg(
                            epfact_val, dvclose, rclose)
         icnvg = torch.where(rcnvg == 0.0, 1, icnvg)
         stagnant = _is_close(rho, rho0)
+        if trace:
+            rows.append(torch.stack((dvmax, rmax, l2norm)))
         done = bool((icnvg != 0) | stagnant | (rho == 0.0))
         if north > 0 and (iiter + 2) % north == 0 and not done:
             d = b - matvec(x)
         rho0 = rho
         iiter += 1
-    return KrylovResult(x, iiter, icnvg == 1, dvmax, rmax, l2norm)
+    return KrylovResult(x, iiter, icnvg == 1, dvmax, rmax, l2norm,
+                        _stack_trace(rows, b))
+
+
+def _stack_trace(rows, b):
+    """Per-iteration (dvmax, rmax, l2norm) rows → three [iters] tensors."""
+    if rows is None:
+        return None
+    if not rows:
+        empty = torch.zeros(0, dtype=b.dtype, device=b.device)
+        return empty, empty, empty
+    return tuple(torch.stack(rows).unbind(dim=1))
+
+
+def bicgstab(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    precond: Callable,
+    *,
+    itmax: int,
+    dvclose: float,
+    rclose: float,
+    icnvgopt: int = 0,
+    north: int = 0,
+    l2norm0=0.0,
+    epfact_val=1.0,
+    trace: bool = False,
+) -> KrylovResult:
+    """Preconditioned BiCGSTAB, IMS semantics (for systems that are not
+    symmetric); two matvecs per iteration."""
+    x = x0
+    d = b - matvec(x0)
+    dhat = d
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    rho0, alpha0, omega0 = zero, zero, zero
+    dvmax, rmax, l2norm = zero, zero, zero
+    icnvg = torch.zeros((), dtype=torch.int64, device=b.device)
+    rows = [] if trace else None
+    iiter = 0
+    done = False
+    while not done and iiter < itmax:
+        rho = vector_dot(dhat, d)
+        if iiter == 0:
+            p = d
+        else:
+            beta = ((rho / torch.where(rho0 != 0.0, rho0, 1.0))
+                    * (alpha0 / torch.where(omega0 != 0.0, omega0, 1.0)))
+            p = d + beta * (p - omega0 * v)
+        phat = precond(p)
+        v = matvec(phat)
+        denom = vector_dot(dhat, v)
+        denom = denom + _sign_dprec(denom)
+        alpha = rho / denom
+        q = d - alpha * v
+        qhat = precond(q)
+        t = matvec(qhat)
+        numer = vector_dot(t, q)
+        denom2 = vector_dot(t, t)
+        denom2 = denom2 + _sign_dprec(denom2)
+        omega = numer / denom2
+        tv = alpha * phat + omega * qhat
+        x = x + tv
+        dvmax = _signed_absmax(tv)
+        d = q - omega * t
+        rmax = _signed_absmax(d)
+        l2norm = torch.sqrt(vector_dot(d, d))
+        rcnvg = l2norm if icnvgopt in (2, 3, 4) else rmax
+        icnvg = _test_cnvg(icnvgopt, iiter, dvmax, rcnvg, l2norm0,
+                           epfact_val, dvclose, rclose)
+        icnvg = torch.where(rcnvg == 0.0, 1, icnvg)
+        if trace:
+            rows.append(torch.stack((dvmax, rmax, l2norm)))
+        stagnant = (_is_close(rho, rho0) | _is_close(alpha, alpha0)
+                    | _is_close(omega, omega0))
+        done = bool((icnvg != 0) | stagnant | (rho * omega == 0.0))
+        if north > 0 and (iiter + 2) % north == 0 and not done:
+            d = b - matvec(x)
+        rho0, alpha0, omega0 = rho, alpha, omega
+        iiter += 1
+    return KrylovResult(x, iiter, icnvg == 1, dvmax, rmax, l2norm,
+                        _stack_trace(rows, b))
 
 
 def refined_solve(
@@ -160,6 +255,7 @@ def refined_solve(
     north: int = 0,
     l2norm0=0.0,
     epfact_val=1.0,
+    solver: Callable = cg,
 ) -> KrylovResult:
     """Mixed-precision linear solve: f32 Krylov + f64 iterative refinement.
 
@@ -168,9 +264,9 @@ def refined_solve(
                  x += d; r = b - A x   (f64)
         until IMS convergence criteria hold in f64
 
-    Each f32 pass (``cg``) only contracts its own residual by 1e-5
-    (icnvgopt=3) before handing back to the f64 refinement; at most
-    ``MAX_PASSES`` passes run.  The result reports
+    Each f32 pass (``solver``: ``cg`` or ``bicgstab``) only contracts its
+    own residual by 1e-5 (icnvgopt=3) before handing back to the f64
+    refinement; at most ``MAX_PASSES`` passes run.  The result reports
     IMS-semantics convergence measured in f64, so the outer loop behaves
     as on the f64 path.
     """
@@ -191,7 +287,7 @@ def refined_solve(
     while not done and npass < MAX_PASSES and iters < itmax:
         r32 = r.to(f32)
         l2r0 = torch.sqrt(vector_dot(r32, r32))
-        res = cg(matvec32, r32, torch.zeros_like(r32), precond32,
+        res = solver(matvec32, r32, torch.zeros_like(r32), precond32,
                  itmax=itmax, dvclose=dvclose, rclose=1.0e-5, icnvgopt=3,
                  north=north, l2norm0=l2r0, epfact_val=1.0)
         d = res.x.to(f64)

@@ -24,16 +24,18 @@ def make_matvec(dtopo, diag, off):
     return bind_stencil7(dtopo.grid_shape, diag, off)
 
 
-def apply_dirichlet_structured(shape, active, diag, off, rhs, x):
+def apply_dirichlet_structured(shape, active, diag, off, rhs, x,
+                               symmetric=True):
     """Row/column fixups before the linear solve (reference sln_ls
     NumericalSolution.f90:2404-2475):
 
     - active rows with a tiny diagonal get diag=-1 and rhs -= x;
     - inactive / Dirichlet rows (active <= 0) become identity rows with
       rhs = x;
-    - coefficients coupling an active row to a Dirichlet column move to
-      the rhs and are zeroed, so the matrix stays symmetric for CG (the
-      reference's ``symmetric=True``, the only case the CG slice runs).
+    - with ``symmetric`` (the CG path), coefficients coupling an active
+      row to a Dirichlet column move to the rhs and are zeroed, so the
+      matrix stays symmetric; BiCGSTAB leaves them in the matrix, where
+      the identity row of the Dirichlet cell gives the same solution.
     """
     row_active = active > 0
 
@@ -44,6 +46,8 @@ def apply_dirichlet_structured(shape, active, diag, off, rhs, x):
     diag = torch.where(row_active, diag, 1.0)
     off = torch.where(row_active[:, None], off, 0.0)
     rhs = torch.where(row_active, rhs, x)
+    if not symmetric:
+        return diag, off, rhs
 
     nlay, nrow, ncol = shape
     act3 = row_active.reshape(shape)

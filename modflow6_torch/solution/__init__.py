@@ -1,1 +1,1 @@
-from .ims import ImsSettings
+from .ims import ImsSettings, NumericalSolution, SolveInfo

@@ -1,15 +1,36 @@
-"""IMS settings and the preconditioner factory of the fused path.
+"""IMS-equivalent numerical solution: the Picard outer loop around the
+Krylov solvers, with per-iteration diagnostics.
 
-Port of ``ImsSettings`` and ``_make_precond`` from
-modflow6_tpu/solution/ims.py:38-106.  The diagnostic ``NumericalSolution``
-belongs to the deck slice and is not ported yet.
+Port of modflow6_tpu/solution/ims.py (reference
+src/Solution/NumericalSolution.f90: solve :1482-1837, sln_ls :2404-2475,
+sln_underrelax :2989-3114, sln_backtracking :2680-2776, complexity presets
+sln_setouter :2623-2671): ``ImsSettings``, ``SolveInfo`` and
+``NumericalSolution`` for the structured model.  Pseudo-transient
+continuation, the Newton under-relaxation and the wetting/drying sweep
+need the Newton formulation or rewetting, which are not ported; models
+that would reach them cannot be built.
+
+The reference runs each outer iteration as one jitted device computation
+and reads ``converged``, ``inner`` and ``dxmax`` on the host once per outer
+iteration.  Here each outer iteration is a sequence of PyTorch calls on the
+model's device; the host reads the Krylov loop's exit flag once per inner
+iteration (see ops.solvers.krylov) and ``(converged, dxmax)`` once per
+outer iteration.  The matvec is bound to the assembled system once per
+outer iteration and precision (``make_matvec``), not per product.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
+import torch
+
+from ..constants import DONE, DZERO
+from ..ops.solvers.krylov import (_signed_absmax, bicgstab, cg, epfact,
+                                  refined_solve)
 from ..ops.solvers.precond import make_preconditioner
+from ..ops.system import apply_dirichlet_structured, make_matvec
 
 
 @dataclasses.dataclass
@@ -32,7 +53,8 @@ class ImsSettings:
     inner_rclose: float = 0.1
     icnvgopt: int = 0                    # rclose option
     linear_acceleration: str = "cg"      # cg|bicgstab
-    relaxation_factor: float = 0.0
+    relaxation_factor: float = 0.0       # MILU(0) relax in the reference —
+    # meaningless without ILU; the deck loader warns when it is set
     preconditioner: str = "jacobi"       # jacobi|neumann|chebyshev|mg|none
     preconditioner_order: int = 2
     north: int = 0                       # reorthogonalization frequency
@@ -41,9 +63,289 @@ class ImsSettings:
     ptcdel0: float = 0.0
     precision: str = "f64"               # f64 | mixed (f32 Krylov + f64
     # iterative refinement; see ops.solvers.krylov.refined_solve)
-    csv_inner_path: str = None
+    csv_inner_path: str = None           # CSV_INNER_OUTPUT FILEOUT: write
+    # one row per inner iteration (dvmax/rmax/l2norm traces)
+
+    @staticmethod
+    def from_complexity(complexity: str = "simple") -> "ImsSettings":
+        c = complexity.strip().lower()
+        if c == "simple":
+            return ImsSettings()
+        if c == "moderate":
+            return ImsSettings(
+                outer_dvclose=1e-2, outer_maximum=50, under_relaxation="dbd",
+                theta=0.9, akappa=1e-4, gamma=0.0, amomentum=0.0,
+                inner_maximum=100, inner_dvclose=1e-2, inner_rclose=0.1,
+                linear_acceleration="bicgstab")
+        if c == "complex":
+            return ImsSettings(
+                outer_dvclose=1e-1, outer_maximum=100, under_relaxation="dbd",
+                theta=0.8, akappa=1e-4, gamma=0.0, amomentum=0.0,
+                backtracking_number=20, backtracking_tolerance=1.05,
+                backtracking_reduction_factor=0.1,
+                backtracking_residual_limit=0.002,
+                inner_maximum=500, inner_dvclose=1e-1, inner_rclose=0.1,
+                linear_acceleration="bicgstab")
+        raise ValueError(f"unknown complexity {complexity!r}")
 
 
 def _make_precond(s, matvec, diag):
-    """Preconditioner for the fused path (Jacobi or none in this port)."""
+    """Preconditioner shared by the diagnostic and fused paths (Jacobi or
+    none in this port; the others raise)."""
     return make_preconditioner(s.preconditioner, matvec, diag)
+
+
+class SolveInfo(NamedTuple):
+    converged: bool
+    outer_iterations: int
+    inner_iterations: int
+    dvmax_outer: float
+    dvmax_history: list
+    # [(kiter, n_inner, dvmax[], rmax[], l2norm[])] per outer iteration
+    # when csv_inner_path is set (CSV_INNER_OUTPUT role)
+    inner_traces: object = None
+
+
+class NumericalSolution:
+    """Drives one GWF model through a time step."""
+
+    def __init__(self, model, settings: ImsSettings):
+        s = settings
+        if s.linear_acceleration not in ("cg", "bicgstab"):
+            raise ValueError(
+                f"unknown linear_acceleration {s.linear_acceleration!r}")
+        if s.under_relaxation not in ("none", "simple", "cooley", "dbd"):
+            raise ValueError(
+                f"unknown under_relaxation {s.under_relaxation!r}")
+        if s.precision not in ("f64", "mixed"):
+            raise ValueError(f"unknown precision {s.precision!r}")
+        if s.precision == "mixed" and s.csv_inner_path is not None:
+            raise NotImplementedError(
+                "CSV_INNER_OUTPUT traces the f64 Krylov loop; it is not "
+                "available with precision='mixed'")
+        self.model = model
+        self.s = settings
+
+    # ------------------------------------------------------- one outer it
+
+    def _outer_iter(self, head, head_old, ibound, delt, kstp, ur_state,
+                    pkgs, iss: bool, kiter_is_first: bool):
+        """Assemble + fix up + linear solve + convergence bookkeeping.
+
+        Returns (x, converged, dxmax, inner, ur_state); ``converged`` and
+        ``dxmax`` are 0-d tensors."""
+        s = self.s
+        model = self.model
+        dtopo = model.dtopo
+
+        diag, off, rhs = model.assemble(head, head_old, ibound, delt, iss,
+                                        pkgs)
+        xtemp = head
+        active = torch.sign(ibound)
+        diag, off, rhs = apply_dirichlet_structured(
+            dtopo.grid_shape, active, diag, off, rhs, head,
+            symmetric=(s.linear_acceleration == "cg"))
+
+        matvec = make_matvec(dtopo, diag, off)
+        r0 = rhs - matvec(head)
+        l2norm0 = torch.sqrt(torch.sum(r0 * r0))
+        solver = cg if s.linear_acceleration == "cg" else bicgstab
+        kw = dict(itmax=s.inner_maximum, dvclose=s.inner_dvclose,
+                  rclose=s.inner_rclose, icnvgopt=s.icnvgopt, north=s.north,
+                  l2norm0=l2norm0, epfact_val=epfact(s.icnvgopt, kstp))
+        if s.precision == "mixed":
+            diag32 = diag.to(torch.float32)
+            off32 = off.to(torch.float32)
+            matvec32 = make_matvec(dtopo, diag32, off32)
+            precond32 = _make_precond(s, matvec32, diag32)
+            res = refined_solve(matvec, matvec32, rhs, head, precond32,
+                                solver=solver, **kw)
+        else:
+            precond = _make_precond(s, matvec, diag)
+            res = solver(matvec, rhs, head, precond,
+                         trace=s.csv_inner_path is not None, **kw)
+        x = res.x
+
+        # outer convergence: max dependent-variable change over active cells
+        dx = torch.where(active > 0, x - xtemp, DZERO)
+        dxmax = _signed_absmax(dx)
+        converged = dxmax.abs() <= s.outer_dvclose
+
+        # under-relaxation (only applied when not converged)
+        x_ur, ur_state_new = self._under_relax(x, xtemp, active, dxmax,
+                                               ur_state, kiter_is_first)
+        x = torch.where(converged, x, x_ur)
+
+        if res.trace is not None:
+            ur_state_new = {**ur_state_new, "inner_trace": res.trace}
+        return x, converged, dxmax, res.iters, ur_state_new
+
+    # ----------------------------------------------------- backtracking
+
+    def _residual_l2(self, head, head_old, ibound, delt, iss, pkgs):
+        """‖A·x − b‖₂ over active rows of the *raw* assembled system
+        (sln_l2norm + sln_calc_residual, NumericalSolution.f90:2845-2872)."""
+        model = self.model
+        diag, off, rhs = model.assemble(head, head_old, ibound, delt, iss,
+                                        pkgs)
+        matvec = make_matvec(model.dtopo, diag, off)
+        r = torch.where(ibound > 0, matvec(head) - rhs, DZERO)
+        return torch.sqrt(torch.sum(r * r))
+
+    def _backtrack(self, head, head_prev, head_old, ibound, delt, res_prev,
+                   pkgs, iss: bool, kiter_is_first: bool):
+        """One backtracking pass before an outer iteration
+        (sln_backtracking, NumericalSolution.f90:2680-2776).
+
+        Returns (head', res_prev').  At the first outer iteration only the
+        reference residual is recorded.  Otherwise, while the new residual
+        exceeds res_prev*btol, the iterate is pulled back toward the
+        previous outer iterate by breduc, up to numtrack times, stopping
+        early when the remaining step is below dvclose
+        (get_backtracking_flag:2800-2826) or the residual drops below
+        res_lim.  The host reads two flags per backtracking pass.
+        """
+        s = self.s
+
+        def l2(x):
+            return self._residual_l2(x, head_old, ibound, delt, iss, pkgs)
+
+        if kiter_is_first:
+            return head, l2(head)
+
+        active = ibound > 0
+        x = head
+        res_new = l2(head)
+        done = bool(res_new <= res_prev * s.backtracking_tolerance)
+        nb = 0
+        while not done and nb < s.backtracking_number:
+            dxmax = torch.where(active, x - head_prev, DZERO).abs().max()
+            # dependent-variable change already below dvclose → stop
+            stop_small = bool(s.backtracking_reduction_factor * dxmax
+                              < s.outer_dvclose)
+            if stop_small:
+                break
+            x = torch.where(
+                active,
+                head_prev + s.backtracking_reduction_factor * (x - head_prev),
+                x)
+            res_new = l2(x)
+            done = bool((res_new < res_prev * s.backtracking_tolerance)
+                        | (res_new < s.backtracking_residual_limit))
+            nb += 1
+        return x, res_new
+
+    # ------------------------------------------------------ under-relax
+
+    def _under_relax(self, x, xtemp, active, dxmax, ur_state, kiter_is_first):
+        s = self.s
+        mode = s.under_relaxation
+        if mode == "none":
+            return x, ur_state
+        delx = torch.where(active > 0, x - xtemp, DZERO)
+        if mode == "simple":
+            xnew = torch.where(active > 0, xtemp + s.gamma * delx, x)
+            return xnew, ur_state
+        if mode == "cooley":
+            bigch = dxmax
+            if kiter_is_first:
+                relax = torch.ones_like(dxmax)
+                bigchold = bigch
+            else:
+                es = bigch / (ur_state["bigchold"] * ur_state["relaxold"])
+                aes = es.abs()
+                relax = torch.where(es < -DONE, 0.5 / aes,
+                                    (3.0 + es) / (3.0 + aes))
+                bigchold = ((DONE - s.gamma) * bigch
+                            + s.gamma * ur_state["bigchold"])
+            xnew = torch.where((active > 0) & (relax < DONE),
+                               xtemp + relax * delx, x)
+            return xnew, {**ur_state, "relaxold": relax, "bigchold": bigchold}
+        if mode == "dbd":
+            if kiter_is_first:
+                wsave = torch.ones_like(x)
+                hchold = torch.full_like(x, 1e-20)
+                deold = torch.zeros_like(x)
+            else:
+                wsave = ur_state["wsave"]
+                hchold = ur_state["hchold"]
+                deold = ur_state["deold"]
+            ww = torch.where(deold * delx < DZERO, s.theta * wsave,
+                             wsave + s.akappa)
+            ww = torch.clamp(ww, max=DONE)
+            if kiter_is_first:
+                hchold_new = delx
+            else:
+                hchold_new = (DONE - s.gamma) * delx + s.gamma * hchold
+            kiter = ur_state["kiter"]
+            amom = s.amomentum if kiter > 4 else DZERO
+            delx_adj = delx * ww + amom * hchold_new
+            xnew = torch.where(active > 0, xtemp + delx_adj, x)
+            return xnew, {**ur_state, "wsave": ww, "hchold": hchold_new,
+                          "deold": delx, "kiter": kiter + 1}
+        raise ValueError(f"unknown under_relaxation {mode!r}")
+
+    def _init_ur_state(self, head):
+        """Start-of-step under-relaxation state; ``kiter`` is a host int,
+        the rest 0-d or [N] tensors like ``head``."""
+        def scalar(v):
+            return torch.full((), v, dtype=head.dtype, device=head.device)
+        return dict(relaxold=scalar(1.0), bigchold=scalar(1e-20),
+                    wsave=torch.ones_like(head),
+                    hchold=torch.full_like(head, 1e-20),
+                    deold=torch.zeros_like(head), kiter=1)
+
+    # ----------------------------------------------------------- ca
+
+    def solve_timestep(self, head_old, delt, kstp=1, iss=False, pkgs=None,
+                       kper=1):
+        """One time step: Picard loop to convergence (sln_ca).
+
+        Returns (head, SolveInfo, aux) where aux carries (ibound, cond) for
+        the output phase; ``cond`` is the conductance on the structured
+        planes (see GwfModel.edge_conductances).
+        """
+        s = self.s
+        model = self.model
+        if pkgs is None:
+            pkgs = model.packages
+        ibound, head = model.boundary_state(head_old, pkgs)
+        head_old_adj = head  # CHD cells pinned in old head too (model_ad)
+        ur_state = self._init_ur_state(head)
+        use_bt = s.backtracking_number > 0
+        iss = bool(iss)
+        delt = float(delt)
+        kstp = int(kstp)
+
+        total_inner = 0
+        dv_hist = []
+        inner_traces = []
+        converged = False
+        kiter = 0
+        res_prev = torch.zeros((), dtype=head.dtype, device=head.device)
+        head_prev = head
+        for kiter in range(1, s.outer_maximum + 1):
+            if use_bt:
+                head, res_prev = self._backtrack(
+                    head, head_prev, head_old_adj, ibound, delt, res_prev,
+                    pkgs, iss=iss, kiter_is_first=(kiter == 1))
+            head_prev = head
+            head, conv, dxmax, inner, ur_state = self._outer_iter(
+                head, head_old_adj, ibound, delt, kstp, ur_state, pkgs,
+                iss=iss, kiter_is_first=(kiter == 1))
+            total_inner += inner
+            # the one host read of the outer iteration
+            conv, dxmax = torch.stack((conv.to(dxmax.dtype), dxmax)).tolist()
+            dv_hist.append(dxmax)
+            if s.csv_inner_path and "inner_trace" in ur_state:
+                inner_traces.append(
+                    (kiter, inner) + tuple(t.cpu().numpy() for t in
+                                           ur_state["inner_trace"]))
+            if conv:
+                converged = True
+                break
+        info = SolveInfo(converged, kiter, total_inner,
+                         dv_hist[-1] if dv_hist else 0.0, dv_hist,
+                         inner_traces if s.csv_inner_path else None)
+        cond = model.edge_conductances(head, ibound, pkgs)
+        return head, info, dict(ibound=ibound, cond=cond)

@@ -51,7 +51,7 @@ def _reference_and_args(name):
 def test_assembled_system_matches_reference(name, route):
     ref, (grid, kw), (h, h_old), delt = _reference_and_args(name)
     if route == "build_gwf":
-        port = build_gwf("port", DisGrid.create(**grid), **kw)
+        port = build_gwf("port", DisGrid.create(**grid), device="cpu", **kw)
     else:
         port = convert(ref)
     assert port.is_linear == ref.is_linear == (name != "convertible")
@@ -134,7 +134,8 @@ def test_passthrough_layers_are_not_structured():
 def test_build_gwf_raises_outside_the_slice(kw):
     grid, base = fused_model_args()
     with pytest.raises(NotImplementedError):
-        build_gwf("port", DisGrid.create(**grid), **{**base, **kw})
+        build_gwf("port", DisGrid.create(**grid), device="cpu",
+                  **{**base, **kw})
 
 
 @pytest.mark.parametrize("field", ["inewton", "iangle2"])
@@ -142,4 +143,4 @@ def test_from_reference_raises_outside_the_slice(field):
     arrays, kwargs = reference_arrays(make_model())
     kwargs["npf_options"] = {**kwargs["npf_options"], field: 1}
     with pytest.raises(NotImplementedError):
-        from_reference(arrays, **kwargs)
+        from_reference(arrays, device="cpu", **kwargs)

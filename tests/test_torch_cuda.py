@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA device: the stencil7 kernel against
-its plain version, and a fused step on the card against the CPU.
+its plain version, a fused step on the card against the CPU, and a small
+input deck run through the deck path on the card against the CPU.
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -10,7 +11,10 @@ Tolerances: the kernel adds its terms in the plain version's order with
 each product rounded (no FMA), so it agrees with the plain version to
 1e-12 of max|y| in float64 and 2e-5 in float32 (tests/test_fused.py:113);
 the fused step on the card and on the CPU differ only in the order of the
-reductions, so heads agree to 1e-10 with equal iteration counts.
+reductions, so heads agree to 1e-10 with equal iteration counts; the
+same holds for every step of the deck run in ``f64``, whose output files
+must hold the same records.  In ``mixed`` the deck run's heads agree to
+1e-7 and its inner counts to 10%.
 """
 
 import numpy as np
@@ -117,3 +121,63 @@ def test_fused_step_on_card_matches_cpu(cuda):
     assert counts_gpu == counts_cpu and counts_cpu[-1]
     np.testing.assert_allclose(h_gpu.cpu().numpy(), h_cpu.numpy(), rtol=0,
                                atol=1e-10)
+
+
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_deck_run_on_card_matches_cpu(cuda, tmp_path, precision):
+    """The deck path (loader, Simulation, NumericalSolution, output files)
+    on the confined npf01 deck at 21x21: the card through the kernel, the
+    CPU through the plain version."""
+    import dataclasses
+
+    from chip_smoke import write_npf01b_deck
+    from modflow6_torch.solution import NumericalSolution
+    from modflow6_torch.utils.binary import read_budget_file, read_head_file
+    from modflow6_torch.utils.mf6io import load_simulation
+
+    write_npf01b_deck(str(tmp_path), 21)
+    runs = {}
+    for name, device in (("card", None), ("cpu", "cpu")):
+        out = tmp_path / name
+        out.mkdir()
+        sim = load_simulation(str(tmp_path), hds_path=str(out / "o.hds"),
+                              cbc_path=str(out / "o.cbc"), device=device)
+        assert sim.model.device.type == ("cuda" if device is None else "cpu")
+        sim.solution = NumericalSolution(
+            sim.model, dataclasses.replace(sim.solution.s,
+                                           precision=precision))
+        stencil.stencil7.launches = 0
+        runs[name] = sim.run()
+        inner = sum(r.inner for r in runs[name])
+        if device is None:
+            assert stencil.stencil7.launches >= inner > 0
+        else:
+            assert stencil.stencil7.launches == 0
+    assert all(r.converged for r in runs["card"])
+    assert [r.outer for r in runs["card"]] == [r.outer for r in runs["cpu"]]
+    for a, b in zip(runs["card"], runs["cpu"]):
+        if precision == "f64":
+            assert a.inner == b.inner
+        else:
+            # the float32 passes sum in another order on the card, which
+            # moves their exit by a few iterations (105 and 110 in the
+            # first step on an H100)
+            assert abs(a.inner - b.inner) <= 0.1 * b.inner + 1
+    # f64: the same operations, summed in another order.  mixed: the two
+    # runs leave their float32 passes at different iterations, so they are
+    # two solves closed at the deck's OUTER_DVCLOSE and INNER_DVCLOSE of
+    # 1e-6 and agree to that criterion (1.06e-6 on an H100), not to
+    # rounding
+    atol = 1e-10 if precision == "f64" else 1e-5
+    for a, b in zip(runs["card"], runs["cpu"]):
+        np.testing.assert_allclose(a.head, b.head, rtol=0, atol=atol)
+    card = read_head_file(tmp_path / "card" / "o.hds")
+    cpu = read_head_file(tmp_path / "cpu" / "o.hds")
+    assert len(card) == len(cpu) == 12
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a["data"], b["data"], rtol=0, atol=atol)
+    assert [r["text"] for r in read_budget_file(tmp_path / "card" / "o.cbc")
+            ] == [r["text"]
+                  for r in read_budget_file(tmp_path / "cpu" / "o.cbc")]
+    assert (tmp_path / "card" / "o.grb").read_bytes() == (
+        tmp_path / "cpu" / "o.grb").read_bytes()

@@ -82,7 +82,7 @@ def convertible_args():
 def build_both(args):
     grid, kw = args
     return (jax_build_gwf("ref", JaxDisGrid.create(**grid), **kw),
-            build_gwf("port", DisGrid.create(**grid), **kw))
+            build_gwf("port", DisGrid.create(**grid), device="cpu", **kw))
 
 
 def reference_arrays(model):

@@ -324,7 +324,7 @@ from modflow6_torch.solution.fused import make_fused_step
 g = DisGrid.create(2, 6, 5, 10.0, 10.0, 20.0,
                    np.array([10.0, 0.0])[:, None, None] * np.ones((2, 6, 5)))
 m = build_gwf("nojax", g, k=2.0, strt=15.0, storage={"ss": 1e-5},
-              chd=[(0, 16.0), (59, 14.0)], wel=[(32, -1.0)])
+              chd=[(0, 16.0), (59, 14.0)], wel=[(32, -1.0)], device="cpu")
 h, kiter, inner, conv = make_fused_step(
     m, ImsSettings(outer_dvclose=1e-8, inner_dvclose=1e-10,
                    inner_rclose=1e-9, inner_maximum=500), iss=False)(
