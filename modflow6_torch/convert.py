@@ -19,10 +19,15 @@ Keys of ``arrays``:
   saturated conductances (``GwfModel.condsat3``);
 - optional ``sto_iconvert``, ``sto_ss``, ``sto_sy`` (with ``sto_options``);
 - optional ``{chd,wel,rch}_node``, ``_mask`` and the value ``chd_head``,
-  ``wel_q``, ``rch_recharge``.
+  ``wel_q``, ``rch_recharge``;
+- optional ``wetdry``: the REWET thresholds per cell.
 
 ``npf_options`` and ``sto_options`` hold the fields of the reference's
-``NpfOptions`` and ``StoOptions``.
+``NpfOptions`` and ``StoOptions`` (``inewton`` and ``satomega`` among
+them); ``model_options`` the reference GwfModel's ``inewton``,
+``inewtonur``, ``wel_iflowred``, ``wel_flowred`` and ``rewet_opts``.  The
+preconditioner settings travel in ``state["settings"]`` (the fields of
+``ImsSettings``).
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ _BOUNDS = (("chd", "head", bnd.ChdData), ("wel", "q", bnd.WelData),
 
 
 def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
-                   sto_options: dict = None, device=None,
-                   name: str = "converted", grid=None) -> GwfModel:
+                   sto_options: dict = None, model_options: dict = None,
+                   device=None, name: str = "converted",
+                   grid=None) -> GwfModel:
     device = resolve_device(device)
 
     def tensor(key, dtype):
@@ -82,7 +88,8 @@ def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
         area=area, sto_opts=sto_opts, sto_arrays=sto_arrays,
         condsat3=(f64("condsat_x"), f64("condsat_y"), f64("condsat_z")),
         grid=grid,
-        **packages)
+        wetdry=f64("wetdry") if "wetdry" in arrays else None,
+        **(model_options or {}), **packages)
 
 
 def simulation_from_reference(state: dict, *, device=None, hds_path=None,
@@ -92,8 +99,8 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
     Keys of ``state``:
 
     - ``name``; ``grid``: the keyword arguments of ``DisGrid.create``;
-    - ``arrays``, ``npf_options``, ``sto_options``: as ``from_reference``
-      takes them (``arrays`` holds the first period's packages);
+    - ``arrays``, ``npf_options``, ``sto_options``, ``model_options``: as
+      ``from_reference`` takes them (``arrays`` holds the first period's packages);
     - ``tdis``: [(perlen, nstp, tsmult)]; ``transient``: one flag per period;
     - ``settings``: the fields of the reference's ``ImsSettings``;
     - ``period_data``: {kper: {"chd"|"wel"|"rch": (node, value, mask)}};
@@ -104,7 +111,7 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
     model = from_reference(
         state["arrays"], grid_shape=grid.grid_shape,
         npf_options=state["npf_options"], sto_options=state["sto_options"],
-        device=device, name=state["name"], grid=grid)
+        model_options=state.get("model_options"), device=device, name=state["name"], grid=grid)
     tdis = Tdis(tuple(StressPeriod(float(p), int(n), float(m))
                       for p, n, m in state["tdis"]))
     oc = None if state["oc"] is None else OutputControl(state["oc"])

@@ -1,4 +1,4 @@
-"""Stress packages of the slice: CHD, WEL, RCH.
+"""Stress packages of the slice: CHD, WEL (with AUTO_FLOW_REDUCE), RCH.
 
 Port of modflow6_tpu/models/gwf/bnd.py:111-246 (reference
 BoundaryPackage.f90 bnd_cf + bnd_fc, gwf-chd.f90, gwf-wel.f90,
@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from ...constants import DZERO
+from ...ops.smoothing import sq_saturation, sq_saturation_derivative
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,11 +51,40 @@ def apply_chd(ibound, head, chd: ChdData):
     return ib, h
 
 
-def wel_terms(wel: WelData, ibound):
-    """WEL hcof/rhs (AUTO_FLOW_REDUCE is outside the slice)."""
+def _flowred_top(wel: WelData, top, bot, flowred: float):
+    """(tp, bt) of the AUTO_FLOW_REDUCE interval at each well's cell: the
+    lowest ``flowred`` fraction of the cell thickness."""
+    bt = bot[wel.node]
+    return bt + flowred * (top[wel.node] - bt), bt
+
+
+def wel_terms(wel: WelData, head, ibound, icelltype, top, bot,
+              iflowred: int = 0, flowred: float = 0.0):
+    """WEL hcof/rhs with optional AUTO_FLOW_REDUCE Newton smoothing
+    (wel_cf, gwf-wel.f90:296-332)."""
     act = wel.mask & (ibound[wel.node] > 0)
-    hcof = torch.zeros_like(wel.q)
-    rhs = torch.where(act, -wel.q, DZERO)
+    q = wel.q
+    if iflowred:
+        tp, bt = _flowred_top(wel, top, bot, flowred)
+        qmult = sq_saturation(tp, bt, head[wel.node])
+        q = torch.where((icelltype[wel.node] != 0) & (q < DZERO), q * qmult,
+                        q)
+    hcof = torch.zeros_like(q)
+    rhs = torch.where(act, -q, DZERO)
+    return hcof, rhs
+
+
+def wel_newton(wel: WelData, head, ibound, icelltype, top, bot,
+               iflowred: int, flowred: float):
+    """WEL Newton terms (hcof_add, rhs_add) for AUTO_FLOW_REDUCE (wel_fn,
+    gwf-wel.f90:378-424)."""
+    act = wel.mask & (ibound[wel.node] > 0)
+    tp, bt = _flowred_top(wel, top, bot, flowred)
+    drterm = sq_saturation_derivative(tp, bt, head[wel.node]) * wel.q
+    use = (act & (icelltype[wel.node] != 0) & (wel.q < DZERO) if iflowred
+           else torch.zeros_like(act))
+    hcof = torch.where(use, drterm, DZERO)
+    rhs = torch.where(use, drterm * head[wel.node], DZERO)
     return hcof, rhs
 
 

@@ -5,7 +5,10 @@ keyword arguments plus ``device``, and of the ``chd_data``/``wel_data``/
 ``rch_data`` makers (builder.py:23-52) that pad a stress period's entries
 to a static ``maxbound``.  ``device=None`` is the CUDA device
 (``modflow6_torch.cuda_device()``, which raises without one); the CPU is
-used only when asked for.  Arguments that would turn on a feature outside
+used only when asked for.  ``newton`` is False, True or
+"under_relaxation"; ``rewetting`` is dict(wetdry=f64[N], wetfct, iwetit,
+ihdwet), the NPF REWET option; ``wel_auto_flow_reduce`` the WEL
+AUTO_FLOW_REDUCE fraction.  Arguments that would turn on a feature outside
 the structured slice raise ``NotImplementedError``.
 """
 
@@ -96,9 +99,8 @@ def build_gwf(
     rewetting=None,
     device=None,
 ) -> GwfModel:
-    given = dict(newton=newton, drn=drn, riv=riv, ghb=ghb, evt=evt,
-                 wel_auto_flow_reduce=wel_auto_flow_reduce, buy=buy,
-                 csub=csub, vsc=vsc, hfb=hfb, xt3d=xt3d, rewetting=rewetting)
+    given = dict(drn=drn, riv=riv, ghb=ghb, evt=evt, buy=buy, csub=csub,
+                 vsc=vsc, hfb=hfb, xt3d=xt3d)
     for key, value in given.items():
         if not _is_off(value):
             raise NotImplementedError(f"build_gwf({key}=...) is not ported")
@@ -112,14 +114,19 @@ def build_gwf(
 
     ibound0 = torch.as_tensor((grid.idomain.reshape(-1) > 0).astype(np.int32),
                               dtype=torch.int32, device=device)
+    # newton: False | True | "under_relaxation"
+    newton_ur = (isinstance(newton, str)
+                 and newton.lower() == "under_relaxation")
+    newton = bool(newton)
+    satomega = 1e-6 if newton else 0.0
     k11 = _full(k, N, f64, device)
     top = torch.as_tensor(grid.top, dtype=f64, device=device)
     bot = torch.as_tensor(grid.bot, dtype=f64, device=device)
     area = torch.as_tensor(grid.area, dtype=f64, device=device)
     opts = npf.NpfOptions(
-        icellavg=icellavg, ivarcv=ivarcv, idewatcv=idewatcv,
-        iperched=iperched, ik22=k22 is not None, ik33=k33 is not None,
-        thickstrt=thickstrt)
+        icellavg=icellavg, inewton=int(newton), ivarcv=ivarcv,
+        idewatcv=idewatcv, iperched=iperched, ik22=k22 is not None,
+        ik33=k33 is not None, thickstrt=thickstrt, satomega=satomega)
     arrays = npf.NpfArrays(
         icelltype=_full(icelltype, N, torch.int32, device, np.int32),
         k11=k11,
@@ -131,7 +138,8 @@ def build_gwf(
     if storage is not None:
         sto_opts = sto.StoOptions(
             istor_coef=int(storage.get("istor_coef", 0)),
-            iconf_ss=int(storage.get("iconf_ss", 0)))
+            iconf_ss=int(storage.get("iconf_ss", 0)),
+            inewton=int(newton), satomega=satomega)
         sto_arrays = sto.StoArrays(
             iconvert=_full(storage.get("iconvert", 0), N, torch.int32,
                            device, np.int32),
@@ -148,6 +156,15 @@ def build_gwf(
         area=area, sto_opts=sto_opts, sto_arrays=sto_arrays,
         chd=bnd.ChdData(*_pack_bound(chd, device)) if chd else None,
         wel=bnd.WelData(*_pack_bound(wel, device)) if wel else None,
-        rch=bnd.RchData(*_pack_bound(rch, device)) if rch else None)
+        rch=bnd.RchData(*_pack_bound(rch, device)) if rch else None,
+        inewton=int(newton), inewtonur=int(newton_ur),
+        wel_iflowred=int(wel_auto_flow_reduce is not None),
+        wel_flowred=float(wel_auto_flow_reduce or 0.0),
+        wetdry=None if rewetting is None else _full(rewetting["wetdry"], N,
+                                                    f64, device),
+        rewet_opts=(1.0, 1, 0) if rewetting is None else (
+            float(rewetting.get("wetfct", 1.0)),
+            int(rewetting.get("iwetit", 1)),
+            int(rewetting.get("ihdwet", 0))))
     model.finalize_setup()
     return model

@@ -3,13 +3,13 @@ structured system assembly, and the flows of the output phase.
 
 Port of the structured branch of modflow6_tpu/models/gwf/model.py
 (``PackageData``, ``finalize_setup``, ``is_linear``, ``packages``,
-``boundary_state``, ``assemble``, ``edge_conductances``, ``edge_flows``,
-``boundary_budget``; model.py:32-52, 94-145, 211-492).  The port has only
-the structured 7-point path, so the reference's ``use_structured`` switch
-has no counterpart.  Features outside the slice (Newton, XT3D, HFB, BUY,
-VSC, CSUB, DRN/RIV/GHB/EVT, UZF, GNC, rotated anisotropy, TVS) are not
-fields of this class; options that would turn them on raise
-``NotImplementedError``.
+``boundary_state``, ``assemble`` with its Newton terms, ``edge_conductances``,
+``edge_flows``, ``boundary_budget``; model.py:32-52, 94-145, 211-492).  The
+port has only the structured 7-point path, so the reference's
+``use_structured`` switch has no counterpart.  Features outside the slice
+(XT3D and its Newton form, HFB, BUY, VSC, CSUB, DRN/RIV/GHB/EVT, UZF, GNC,
+rotated anisotropy, TVS) are not fields of this class; options that would
+turn them on raise ``NotImplementedError``.
 
 The port keeps no edge list on the device.  Conductances and face flows
 live on the three structured planes (x, y, z; each one shorter than the
@@ -59,11 +59,18 @@ class GwfModel:
     rch: Optional[bnd.RchData] = None
     condsat3: tuple = None       # (cx, cy, cz) saturated conductances
     grid: object = None          # host DisGrid (the output files need it)
+    inewton: int = 0
+    inewtonur: int = 0           # NEWTON UNDER_RELAXATION option (gwf_nur
+    # runs only when set, gwf.f90 gwf_nur: `this%inewtonur /= 0`)
+    wel_iflowred: int = 0        # WEL AUTO_FLOW_REDUCE
+    wel_flowred: float = 0.0
+    wetdry: Optional[torch.Tensor] = None   # f64[N] WETDRY thresholds (REWET)
+    rewet_opts: tuple = (1.0, 1, 0)         # (wetfct, iwetit, ihdwet)
 
     def __post_init__(self):
         o = self.npf_opts
-        if o.inewton or (self.sto_opts is not None and self.sto_opts.inewton):
-            raise NotImplementedError("the Newton formulation is not ported")
+        if bool(self.inewton) != bool(o.inewton):
+            raise ValueError("GwfModel.inewton and NpfOptions.inewton differ")
         if o.iangle1 or o.iangle2 or o.iangle3:
             raise NotImplementedError("rotated anisotropy is not ported")
         if self.sto_opts is not None and self.sto_opts.integratechanges:
@@ -90,8 +97,12 @@ class GwfModel:
     @property
     def is_linear(self) -> bool:
         """True when the assembled system does not depend on the current
-        head iterate: every cell confined and storage non-convertible.  The
-        fused solver then assembles once per time step."""
+        head iterate: no Newton terms, no head-switched well rates, no
+        rewetting (which changes ibound between outer iterations), every
+        cell confined and storage non-convertible.  The fused solver then
+        assembles once per time step."""
+        if self.inewton or self.wel_iflowred or self.wetdry is not None:
+            return False
         if bool(torch.any(self.npf_arrays.icelltype != 0)):
             return False
         if self.sto_arrays is not None and bool(
@@ -117,9 +128,17 @@ class GwfModel:
 
     # ---------------------------------------------------------- assembly
 
+    def _wel_terms(self, wel, head, ibound):
+        a = self.npf_arrays
+        return bnd.wel_terms(wel, head, ibound, a.icelltype, a.top, a.bot,
+                             self.wel_iflowred, self.wel_flowred)
+
     def assemble(self, head, head_old, ibound, delt, iss: bool,
-                 pkgs: PackageData = None):
-        """One full system build at the current head iterate → (diag, off, rhs)."""
+                 pkgs: PackageData = None, newton: bool = True):
+        """One full system build at the current head iterate → (diag, off,
+        rhs).  ``newton=False`` rebuilds with standard conductance only (the
+        backtracking pass, sln_buildsystem(kiter, inewton=0),
+        NumericalSolution.f90:2699)."""
         if pkgs is None:
             pkgs = self.packages
         opts, arrays = self.npf_opts, self.npf_arrays
@@ -135,13 +154,31 @@ class GwfModel:
             rhs = rhs + r_add
 
         if pkgs.wel is not None:
-            hcof, r = bnd.wel_terms(pkgs.wel, ibound)
+            hcof, r = self._wel_terms(pkgs.wel, head, ibound)
             diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.wel.node,
                                           pkgs.wel.mask, hcof, r)
         if pkgs.rch is not None:
             hcof, r = bnd.rch_terms(pkgs.rch, ibound, self.area)
             diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.rch.node,
                                           pkgs.rch.mask, hcof, r)
+
+        if self.inewton and newton:
+            diag, off, rhs = npf.newton_terms(
+                self.dtopo, opts, arrays, head, ibound, diag, off, rhs,
+                self.condsat3, self.ibound0)
+            if self.sto_arrays is not None and not iss:
+                d_add, r_add = sto.newton_terms(self.sto_opts,
+                                                self.sto_arrays, head,
+                                                ibound, delt)
+                diag = diag + d_add
+                rhs = rhs + r_add
+            if pkgs.wel is not None and self.wel_iflowred:
+                hcof, r = bnd.wel_newton(pkgs.wel, head, ibound,
+                                         arrays.icelltype, arrays.top,
+                                         arrays.bot, self.wel_iflowred,
+                                         self.wel_flowred)
+                diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.wel.node,
+                                              pkgs.wel.mask, hcof, r)
         return diag, off, rhs
 
     # ------------------------------------------------- flows (output phase)
@@ -233,7 +270,7 @@ class GwfModel:
         if pkgs.chd is not None:
             out["CHD"] = None
         if pkgs.wel is not None:
-            hcof, r = bnd.wel_terms(pkgs.wel, ibound)
+            hcof, r = self._wel_terms(pkgs.wel, head, ibound)
             out["WEL"] = bnd.bound_flows(pkgs.wel.node, pkgs.wel.mask, hcof,
                                          r, head, ibound)
         if pkgs.rch is not None:

@@ -1,8 +1,8 @@
 """STO: storage package — transient diagonal/rhs terms.
 
-Port of ``sto_fc`` from modflow6_tpu/models/gwf/sto.py:47 (reference
-gwf-sto.f90:226-345).  The Newton terms (``sto_fn``) wait for the Newton
-slice.
+Port of modflow6_tpu/models/gwf/sto.py: ``sto_fc`` (:47, reference
+gwf-sto.f90:226-345) and the Newton terms ``sto_fn`` (:82, reference
+gwf-sto.f90:353-440).
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ import dataclasses
 import torch
 
 from ...constants import DONE, DZERO
-from ...ops.smoothing import quadratic_saturation
+from ...ops.smoothing import (quadratic_saturation,
+                              quadratic_saturation_derivative)
 from ...ops.storage import ss_capacity, ss_terms, sy_capacity, sy_terms
 
 
@@ -65,3 +66,45 @@ def assemble(opts: StoOptions, arrays: StoArrays, head, head_old, ibound,
     active = ibound >= 1
     return (torch.where(active, aterm, DZERO),
             torch.where(active, rhsterm, DZERO))
+
+
+def newton_terms(opts: StoOptions, arrays: StoArrays, head, ibound, delt):
+    """sto_fn: storage Newton terms (diag_add, rhs_add).
+
+    Mirrors gwf-sto.f90:353-440: derivative of the SS (and SY when
+    convertible) storage volume w.r.t. head for partially saturated cells.
+    """
+    tled = DONE / delt
+    tp, bt = arrays.top, arrays.bot
+    tthk = tp - bt
+    h = head
+    # sto_fn uses the default smoothing width, not satomega (gwf-sto.f90:398)
+    snnew = quadratic_saturation(tp, bt, h)
+    derv = quadratic_saturation_derivative(tp, bt, h)
+
+    sc1 = ss_capacity(opts.istor_coef, tp, bt, arrays.area, arrays.ss)
+    rho1 = sc1 * tled
+    if opts.iconf_ss == 0:
+        if opts.iorig_ss == 0:
+            ss_drterm = -rho1 * derv * (h - bt) + rho1 * tthk * snnew * derv
+        else:
+            ss_drterm = -(rho1 * derv * h)
+        ss_diag = ss_drterm
+        ss_rhs = ss_drterm * h
+    else:
+        ss_diag = torch.zeros_like(h)
+        ss_rhs = torch.zeros_like(h)
+
+    sc2 = sy_capacity(arrays.area, arrays.sy)
+    rho2 = sc2 * tled
+    partially = (snnew < DONE) & (snnew > DZERO)
+    sy_rterm = -rho2 * tthk * snnew
+    sy_drterm = -rho2 * tthk * derv
+    sy_diag = torch.where(partially, sy_drterm + rho2, DZERO)
+    sy_rhs = torch.where(partially, -sy_rterm + sy_drterm * h + rho2 * bt,
+                         DZERO)
+
+    is_conv = (arrays.iconvert != 0) & (ibound > 0)
+    diag_add = torch.where(is_conv, ss_diag + sy_diag, DZERO)
+    rhs_add = torch.where(is_conv, ss_rhs + sy_rhs, DZERO)
+    return diag_add, rhs_add

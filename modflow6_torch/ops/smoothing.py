@@ -61,3 +61,11 @@ def sq_saturation(top, bot, x, c1=-2.0, c2=3.0):
     safe_b = torch.where(b != DZERO, b, DONE)
     s = torch.clamp((x - bot) / safe_b, DZERO, DONE)
     return c1 * s**3 + c2 * s**2
+
+
+def sq_saturation_derivative(top, bot, x, c1=-6.0, c2=6.0):
+    """Derivative of the cubic S-curve saturation."""
+    b = top - bot
+    safe_b = torch.where(b != DZERO, b, DONE)
+    s = torch.clamp((x - bot) / safe_b, DZERO, DONE)
+    return (c1 * s**2 + c2 * s) / safe_b

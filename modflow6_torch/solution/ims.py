@@ -5,10 +5,11 @@ Port of modflow6_tpu/solution/ims.py (reference
 src/Solution/NumericalSolution.f90: solve :1482-1837, sln_ls :2404-2475,
 sln_underrelax :2989-3114, sln_backtracking :2680-2776, complexity presets
 sln_setouter :2623-2671): ``ImsSettings``, ``SolveInfo`` and
-``NumericalSolution`` for the structured model.  Pseudo-transient
-continuation, the Newton under-relaxation and the wetting/drying sweep
-need the Newton formulation or rewetting, which are not ported; models
-that would reach them cannot be built.
+``NumericalSolution`` for the structured model, with pseudo-transient
+continuation (sln_ls :2484-2569 + gwf_ptc gwf.f90:625-687), the Newton
+under-relaxation with its convergence rescue (npf_nur +
+sln_nur_has_converged) and the wetting/drying sweep before each outer
+iteration (npf_cf).
 
 The reference runs each outer iteration as one jitted device computation
 and reads ``converged``, ``inner`` and ``dxmax`` on the host once per outer
@@ -27,8 +28,10 @@ from typing import NamedTuple
 import torch
 
 from ..constants import DONE, DZERO
-from ..ops.solvers.krylov import (_signed_absmax, bicgstab, cg, epfact,
-                                  refined_solve)
+from ..models.gwf import npf as npf_mod
+from ..ops.solvers.krylov import (_is_close, _signed_absmax, bicgstab, cg,
+                                  epfact, refined_solve)
+from ..ops.solvers.mg import make_mg_preconditioner
 from ..ops.solvers.precond import make_preconditioner
 from ..ops.system import apply_dirichlet_structured, make_matvec
 
@@ -89,10 +92,60 @@ class ImsSettings:
         raise ValueError(f"unknown complexity {complexity!r}")
 
 
-def _make_precond(s, matvec, diag):
-    """Preconditioner shared by the diagnostic and fused paths (Jacobi or
-    none in this port; the others raise)."""
-    return make_preconditioner(s.preconditioner, matvec, diag)
+def _make_precond(s, model, dtopo, matvec, diag, off):
+    """Preconditioner factory shared by the diagnostic and fused paths,
+    with the reference's signature (its structured switch lives on
+    ``model``; here the topology's grid shape says the same).  ``mg`` needs
+    the structured stencil form (a topology without a grid shape gets
+    Chebyshev instead, as in the reference); everything else goes through
+    ops.solvers.precond.make_preconditioner, Chebyshev with at least
+    order 4."""
+    if s.preconditioner == "mg" and dtopo.grid_shape is not None:
+        return make_mg_preconditioner(dtopo.grid_shape, diag, off)
+    kind = "chebyshev" if s.preconditioner == "mg" else s.preconditioner
+    return make_preconditioner(kind, matvec, diag,
+                               order=max(s.preconditioner_order,
+                                         4 if kind == "chebyshev" else 0))
+
+
+def use_ptc(model, s, iss, kper=1) -> bool:
+    """PTC applies to Newton models in steady-state periods (gwf_ptcchk,
+    gwf.f90:601-617), gated by the IMS NO_PTC option (sln_ls,
+    NumericalSolution.f90:2484-2497)."""
+    if not (iss and model.inewton):
+        return False
+    if s.no_ptc in (True, "all"):
+        return False
+    return not (s.no_ptc == "first" and kper == 1)
+
+
+def ptc_terms(model, s, diag, off, rhs, head, active, delt, prev):
+    """The PTC update shared by ``NumericalSolution._apply_ptc`` and the
+    fused step: (diag', rhs', ptcdel, l2norm).  ``prev`` is None at the
+    first outer iteration of a step, else the carried (ptcdel, l2norm) of
+    the iteration before, as 0-d tensors."""
+    matvec = make_matvec(model.dtopo, diag, off)
+    resid = torch.where(active > 0, matvec(head) - rhs, DZERO)
+    l2norm = torch.sqrt(torch.sum(resid * resid))
+    a = model.npf_arrays
+    vol = model.area * (a.top - a.bot)
+    vol = torch.where(vol > DZERO, vol, DONE)
+    ptcf = torch.where(active > 0, resid.abs() / vol, DZERO).max()
+    ptcf = torch.where(ptcf == DZERO, DONE / (delt * 10.0), ptcf)
+    if prev is None:
+        ptcdel = (torch.full_like(ptcf, s.ptcdel0) if s.ptcdel0 > 0
+                  else DONE / ptcf)
+        iptc_on = torch.ones_like(ptcf, dtype=torch.bool)
+    else:
+        ptcdel_prev, l2norm0 = prev
+        iptc_on = ~_is_close(l2norm, l2norm0)
+        # a zero residual norm gives inf here, which the where discards
+        ptcdel = torch.where(
+            l2norm > DZERO, ptcdel_prev * (l2norm0 / l2norm) ** s.ptcexp,
+            DZERO)
+    ptcval = torch.where(ptcdel > DZERO, DONE / ptcdel, DONE)
+    add = torch.where((active > 0) & iptc_on, ptcval, DZERO)
+    return diag - add, rhs - add * head, ptcdel, l2norm
 
 
 class SolveInfo(NamedTuple):
@@ -119,6 +172,9 @@ class NumericalSolution:
                 f"unknown under_relaxation {s.under_relaxation!r}")
         if s.precision not in ("f64", "mixed"):
             raise ValueError(f"unknown precision {s.precision!r}")
+        if s.preconditioner not in ("jacobi", "diag", "neumann", "chebyshev",
+                                    "mg", "none"):
+            raise ValueError(f"unknown preconditioner {s.preconditioner!r}")
         if s.precision == "mixed" and s.csv_inner_path is not None:
             raise NotImplementedError(
                 "CSV_INNER_OUTPUT traces the f64 Krylov loop; it is not "
@@ -128,8 +184,12 @@ class NumericalSolution:
 
     # ------------------------------------------------------- one outer it
 
+    def _use_ptc(self, iss, kper=1) -> bool:
+        return use_ptc(self.model, self.s, bool(iss), kper)
+
     def _outer_iter(self, head, head_old, ibound, delt, kstp, ur_state,
-                    pkgs, iss: bool, kiter_is_first: bool):
+                    pkgs, iss: bool, kiter_is_first: bool,
+                    use_ptc: bool = False):
         """Assemble + fix up + linear solve + convergence bookkeeping.
 
         Returns (x, converged, dxmax, inner, ur_state); ``converged`` and
@@ -146,6 +206,10 @@ class NumericalSolution:
             dtopo.grid_shape, active, diag, off, rhs, head,
             symmetric=(s.linear_acceleration == "cg"))
 
+        if use_ptc:
+            diag, rhs, ur_state = self._apply_ptc(
+                diag, off, rhs, head, active, delt, ur_state, kiter_is_first)
+
         matvec = make_matvec(dtopo, diag, off)
         r0 = rhs - matvec(head)
         l2norm0 = torch.sqrt(torch.sum(r0 * r0))
@@ -157,11 +221,12 @@ class NumericalSolution:
             diag32 = diag.to(torch.float32)
             off32 = off.to(torch.float32)
             matvec32 = make_matvec(dtopo, diag32, off32)
-            precond32 = _make_precond(s, matvec32, diag32)
+            precond32 = _make_precond(s, model, dtopo, matvec32, diag32,
+                                      off32)
             res = refined_solve(matvec, matvec32, rhs, head, precond32,
                                 solver=solver, **kw)
         else:
-            precond = _make_precond(s, matvec, diag)
+            precond = _make_precond(s, model, dtopo, matvec, diag, off)
             res = solver(matvec, rhs, head, precond,
                          trace=s.csv_inner_path is not None, **kw)
         x = res.x
@@ -176,18 +241,64 @@ class NumericalSolution:
                                                ur_state, kiter_is_first)
         x = torch.where(converged, x, x_ur)
 
+        # Newton under-relaxation on the model (npf_nur): only with the
+        # NEWTON UNDER_RELAXATION option (gwf.f90 gwf_nur gates on
+        # this%inewtonur)
+        if model.inewton and model.inewtonur:
+            if getattr(model, "n_grid", x.shape[0]) != x.shape[0]:
+                raise NotImplementedError(
+                    "Newton under-relaxation of an augmented model (rows "
+                    "beyond the grid's, n_grid) is not ported")
+            dxold = torch.where(active > 0, x - xtemp, DZERO)
+            x_nur, dx_nur, applied, _ = npf_mod.under_relax(
+                model.npf_arrays, ibound, x, xtemp, dxold,
+                model.npf_arrays.bot)
+            x = torch.where(converged, x, x_nur)
+            # NUR convergence rescue (sln_nur_has_converged,
+            # NumericalSolution.f90): BOTH the max change at unrelaxed
+            # cells AND the post-NUR recomputed dxmax must be <= dvclose
+            dxold_max = dx_nur.abs().max()
+            hncg = torch.where(active > 0, x_nur - xtemp, DZERO).abs().max()
+            nur_conv = (applied & (dxold_max <= s.outer_dvclose)
+                        & (hncg <= s.outer_dvclose))
+            converged = converged | (~converged & nur_conv)
+
         if res.trace is not None:
             ur_state_new = {**ur_state_new, "inner_trace": res.trace}
         return x, converged, dxmax, res.iters, ur_state_new
+
+    # ------------------------------------------------------------- ptc
+
+    def _apply_ptc(self, diag, off, rhs, head, active, delt, ur_state,
+                   kiter_is_first):
+        """Pseudo-transient continuation diagonal terms.
+
+        gwf_ptc (gwf.f90:625-687) computes the reciprocal pseudo-time step
+        ptcf = max |resid|/V over active cells (V = cell volume at full
+        saturation); sln_ls (NumericalSolution.f90:2499-2569) turns it into
+        ptcdel with the (l2norm0/l2norm)**ptcexp update and subtracts
+        1/ptcdel from active diagonals (the matrix is negative definite, so
+        this strengthens the diagonal) with the matching rhs shift.
+        ``ptcdel``, the last residual norm and the on/off flag stay 0-d
+        tensors: nothing is read on the host.
+        """
+        diag, rhs, ptcdel, l2norm = ptc_terms(
+            self.model, self.s, diag, off, rhs, head, active, delt,
+            None if kiter_is_first else (ur_state["ptcdel"],
+                                         ur_state["ptc_l2norm0"]))
+        return diag, rhs, {**ur_state, "ptcdel": ptcdel,
+                           "ptc_l2norm0": l2norm}
 
     # ----------------------------------------------------- backtracking
 
     def _residual_l2(self, head, head_old, ibound, delt, iss, pkgs):
         """‖A·x − b‖₂ over active rows of the *raw* assembled system
-        (sln_l2norm + sln_calc_residual, NumericalSolution.f90:2845-2872)."""
+        (sln_l2norm + sln_calc_residual, NumericalSolution.f90:2845-2872;
+        backtracking rebuilds without the Newton terms,
+        sln_backtracking:2699)."""
         model = self.model
         diag, off, rhs = model.assemble(head, head_old, ibound, delt, iss,
-                                        pkgs)
+                                        pkgs, newton=False)
         matvec = make_matvec(model.dtopo, diag, off)
         r = torch.where(ibound > 0, matvec(head) - rhs, DZERO)
         return torch.sqrt(torch.sum(r * r))
@@ -298,22 +409,37 @@ class NumericalSolution:
     # ----------------------------------------------------------- ca
 
     def solve_timestep(self, head_old, delt, kstp=1, iss=False, pkgs=None,
-                       kper=1):
+                       kper=1, ibound_in=None):
         """One time step: Picard loop to convergence (sln_ca).
 
         Returns (head, SolveInfo, aux) where aux carries (ibound, cond) for
         the output phase; ``cond`` is the conductance on the structured
-        planes (see GwfModel.edge_conductances).
+        planes (see GwfModel.edge_conductances).  ``ibound_in`` carries the
+        dry/wet cell status across steps when NPF rewetting is active (pass
+        the previous step's aux["ibound"]).  With rewetting the host reads
+        one more flag per outer iteration: whether the sweep changed a cell.
         """
         s = self.s
         model = self.model
         if pkgs is None:
             pkgs = model.packages
         ibound, head = model.boundary_state(head_old, pkgs)
+        wetdry = model.wetdry
+        if ibound_in is not None:
+            # keep cells that dried in earlier steps dry (but let CHD
+            # repinning from boundary_state win)
+            ibound = torch.where((ibound_in == 0) & (ibound > 0), 0, ibound)
+        if wetdry is not None:
+            # hold = bot at dry wettable cells so rewetted storage terms
+            # reference the cell bottom (gwf-npf.f90:395-400 irestore)
+            head = torch.where((ibound == 0) & (wetdry != 0.0),
+                               model.npf_arrays.bot, head)
+            wetfct, iwetit, ihdwet = model.rewet_opts
         head_old_adj = head  # CHD cells pinned in old head too (model_ad)
         ur_state = self._init_ur_state(head)
         use_bt = s.backtracking_number > 0
         iss = bool(iss)
+        use_ptc = self._use_ptc(iss, kper)
         delt = float(delt)
         kstp = int(kstp)
 
@@ -325,6 +451,13 @@ class NumericalSolution:
         res_prev = torch.zeros((), dtype=head.dtype, device=head.device)
         head_prev = head
         for kiter in range(1, s.outer_maximum + 1):
+            wd_changed = None
+            if wetdry is not None:
+                # npf_cf wetting/drying sweep before formulate
+                ibound, head, wd_changed = npf_mod.wetdry_update(
+                    model.dtopo, model.npf_arrays, wetdry, model.ibound0,
+                    ibound, head, kiter, iwetit=iwetit, ihdwet=ihdwet,
+                    wetfct=wetfct)
             if use_bt:
                 head, res_prev = self._backtrack(
                     head, head_prev, head_old_adj, ibound, delt, res_prev,
@@ -332,16 +465,19 @@ class NumericalSolution:
             head_prev = head
             head, conv, dxmax, inner, ur_state = self._outer_iter(
                 head, head_old_adj, ibound, delt, kstp, ur_state, pkgs,
-                iss=iss, kiter_is_first=(kiter == 1))
+                iss=iss, kiter_is_first=(kiter == 1), use_ptc=use_ptc)
             total_inner += inner
             # the one host read of the outer iteration
-            conv, dxmax = torch.stack((conv.to(dxmax.dtype), dxmax)).tolist()
+            flags = [conv.to(dxmax.dtype), dxmax]
+            if wd_changed is not None:
+                flags.append(wd_changed.to(dxmax.dtype))
+            conv, dxmax, *changed = torch.stack(flags).tolist()
             dv_hist.append(dxmax)
             if s.csv_inner_path and "inner_trace" in ur_state:
                 inner_traces.append(
                     (kiter, inner) + tuple(t.cpu().numpy() for t in
                                            ur_state["inner_trace"]))
-            if conv:
+            if conv and not any(changed):
                 converged = True
                 break
         info = SolveInfo(converged, kiter, total_inner,

@@ -6,15 +6,18 @@ src/Utilities/Idm/IdmLoad.f90, src/SimulationCreate.f90:200-729):
 ``load_tdis``, ``load_ims``, ``load_dis``, ``load_oc``, the list-package
 reader, the GWF model loader and ``load_simulation`` for one GWF6 model on
 a DIS grid with the packages DIS6, IC6, NPF6, STO6, CHD6, WEL6, RCH6 (list
-or READASARRAYS) and OC6, with MF6's stress-period persistence.
+or READASARRAYS) and OC6, with MF6's stress-period persistence; the GWF
+name-file option NEWTON [UNDER_RELAXATION], NPF REWET (WETFCT, IWETIT,
+IHDWET) with the WETDRY array, WEL AUTO_FLOW_REDUCE, and the IMS options
+NO_PTC and PRECONDITIONER_LEVELS/PRECONDITIONER_DROP_TOLERANCE (the
+reference program's ILU settings, mapped to a Chebyshev preconditioner of
+order 4 with a warning).
 
 Everything else a deck can ask for raises ``NotImplementedError`` naming
 the package or keyword: other model types, several models, exchanges,
-DISV6/DISU6, NEWTON, REWET, XT3D, rotated anisotropy, TVK6/TVS6,
-AUTO_FLOW_REDUCE, TS6/TAS6 series, DRN/RIV/GHB/EVT and the advanced
-packages, OBS6, NetCDF, ATS6, HPC6, and the ILU settings
-PRECONDITIONER_LEVELS/DROP_TOLERANCE (which the reference maps to a
-Chebyshev preconditioner).  Keywords that only select listing or output
+DISV6/DISU6, XT3D, rotated anisotropy, TVK6/TVS6, TS6/TAS6 series,
+DRN/RIV/GHB/EVT and the advanced packages, OBS6, NetCDF, ATS6 and HPC6.
+Keywords that only select listing or output
 detail and that the reference's loader reads past (PRINT_INPUT,
 PRINT_FLOWS, SAVE_FLOWS, SAVE_SPECIFIC_DISCHARGE, ...) are read past here
 too.
@@ -25,6 +28,7 @@ tensors go: ``None`` is the CUDA device, ``"cpu"`` the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import warnings
 
@@ -47,8 +51,7 @@ from .reader import BlockFile
 _SUPPORTED_PACKAGES = ("DIS6", "IC6", "NPF6", "STO6", "CHD6", "WEL6", "RCH6",
                        "OC6")
 # options of a list package that would change its flows and are not ported
-_UNPORTED_LIST_OPTIONS = ("AUTO_FLOW_REDUCE", "TS6", "OBS6", "MOVER",
-                          "AUXMULTNAME")
+_UNPORTED_LIST_OPTIONS = ("TS6", "OBS6", "MOVER", "AUXMULTNAME")
 
 
 def _f(tok):
@@ -151,19 +154,25 @@ def load_ims(path) -> ImsSettings:
             if s.relaxation_factor != 0.0:
                 # the reference program uses this as the MILU(0)/MILUT relax
                 # of its ILU factorization (ImsLinearBase.f90 ims_base_pcu);
-                # this package preconditions with Jacobi, where no such
-                # knob exists
+                # this package preconditions with Jacobi or Chebyshev
+                # polynomials, where no such knob exists
                 warnings.warn(
                     "IMS RELAXATION_FACTOR applies to an ILU preconditioner; "
-                    "this package preconditions with Jacobi and ignores it "
+                    "this package preconditions with Jacobi or polynomials "
+                    "and ignores it "
                     "(iteration counts may differ, results do not)",
                     stacklevel=2)
         if "NUMBER_ORTHOGONALIZATIONS" in kv:
             s.north = int(kv["NUMBER_ORTHOGONALIZATIONS"][0])
-        for key in ("PRECONDITIONER_LEVELS", "PRECONDITIONER_DROP_TOLERANCE"):
-            if key in kv:
-                raise _not_ported(
-                    f"{path}: {key} (the Chebyshev preconditioner it maps to)")
+        if "PRECONDITIONER_LEVELS" in kv or \
+                "PRECONDITIONER_DROP_TOLERANCE" in kv:
+            warnings.warn(
+                "IMS PRECONDITIONER_LEVELS/DROP_TOLERANCE configure the "
+                "reference program's ILUT; this package maps them to a "
+                "Chebyshev polynomial preconditioner of matching cost",
+                stacklevel=2)
+            s.preconditioner = "chebyshev"
+            s.preconditioner_order = 4
 
     # NO_PTC lives in the OPTIONS block (sln-ims.dfn:134-156)
     no_ptc = opts.get("NO_PTC")
@@ -296,8 +305,13 @@ def _load_gwf_model(ws, mfname, mname, device):
     mdir = os.path.dirname(os.path.join(ws, mfname))
     mopts = mnam.options()
     schema.check_options("gwf-nam", mopts, mfname)
-    _refuse(mopts, ("NEWTON", "NETCDF_STRUCTURED", "NETCDF_MESH2D", "NETCDF"),
-            mfname)
+    _refuse(mopts, ("NETCDF_STRUCTURED", "NETCDF_MESH2D", "NETCDF"), mfname)
+    newton = False
+    if "NEWTON" in mopts:
+        v = mopts["NEWTON"]
+        vals = ([str(x).upper() for x in (v if isinstance(v, list) else [v])]
+                if v is not True else [])
+        newton = "under_relaxation" if "UNDER_RELAXATION" in vals else True
 
     pkg_files = {}
     for toks in mnam.get("PACKAGES").lines:
@@ -321,11 +335,23 @@ def _load_gwf_model(ws, mfname, mname, device):
     nopts = npf_bf.options()
     schema.check_options("gwf-npf", nopts, npf_path)
     schema.check_griddata("gwf-npf", npf_bf, npf_path)
-    _refuse(nopts, ("REWET", "XT3D", "TVK6"), npf_path)
+    _refuse(nopts, ("XT3D", "TVK6"), npf_path)
     gd = npf_bf.get("GRIDDATA")
     for name in schema.griddata_names(gd.lines if gd is not None else []):
-        if name in ("ANGLE1", "ANGLE2", "ANGLE3", "WETDRY"):
+        if name in ("ANGLE1", "ANGLE2", "ANGLE3"):
             raise _not_ported(f"{npf_path}: griddata {name}")
+    rewetting = None
+    if "REWET" in nopts:
+        # REWET WETFCT <f> IWETIT <i> IHDWET <i> record (gwf-npf.dfn)
+        v = nopts["REWET"]
+        toks = [str(t).upper() for t in (v if isinstance(v, list) else [])]
+        kv = {toks[i]: toks[i + 1] for i in range(0, len(toks) - 1, 2)}
+        wetdry_arr = read_grid_array(npf_bf, "GRIDDATA", "WETDRY", shp, base,
+                                     default=0.0)
+        rewetting = dict(wetdry=np.asarray(wetdry_arr).reshape(-1),
+                         wetfct=float(kv.get("WETFCT", 1.0)),
+                         iwetit=int(kv.get("IWETIT", 1)),
+                         ihdwet=int(kv.get("IHDWET", 0)))
     icellavg = 0
     if "ALTERNATIVE_CELL_AVERAGING" in nopts:
         v = str(nopts["ALTERNATIVE_CELL_AVERAGING"]).upper()
@@ -376,12 +402,13 @@ def _load_gwf_model(ws, mfname, mname, device):
 
     # --- stress packages with period data
     pkg_periods = {}   # attr -> {kper: entries}
+    pkg_opts = {}      # attr -> options of the package's (last) file
     for ftype, (attr, ncols, _) in _LIST_PACKAGES.items():
         if ftype not in pkg_files:
             continue
         all_periods = {}
         for path in pkg_files[ftype]:   # multiple instances merge
-            _, _, periods = _load_period_lists(
+            pkg_opts[attr], _, periods = _load_period_lists(
                 path, grid, ncols, component="gwf-" + ftype[:-1].lower())
             for kper, entries in periods.items():
                 all_periods.setdefault(kper, []).extend(entries)
@@ -399,12 +426,16 @@ def _load_gwf_model(ws, mfname, mname, device):
         first_pkgs[attr] = mkmap[attr](periods.get(1, []), maxbound=mb,
                                        device=device)
 
+    wel_afr = None
+    if "AUTO_FLOW_REDUCE" in pkg_opts.get("wel", {}):
+        wel_afr = float(pkg_opts["wel"]["AUTO_FLOW_REDUCE"])
+
     model = builder.build_gwf(
         mname, grid,
         icelltype=icelltype.reshape(-1), k=k.reshape(-1),
         k22=k22.reshape(-1) if k22 is not None else None,
         k33=k33.reshape(-1) if k33 is not None else None,
-        strt=strt.reshape(-1),
+        strt=strt.reshape(-1), newton=newton,
         icellavg=icellavg,
         ivarcv=1 if "VARIABLECV" in nopts else 0,
         idewatcv=1 if (isinstance(nopts.get("VARIABLECV"), (list, str))
@@ -412,7 +443,8 @@ def _load_gwf_model(ws, mfname, mname, device):
         else 0,
         iperched=1 if "PERCHED" in nopts else 0,
         thickstrt="THICKSTRT" in nopts,
-        storage=storage, device=device)
+        storage=storage, wel_auto_flow_reduce=wel_afr, rewetting=rewetting,
+        device=device)
 
     # attach first-period package data
     for attr, data in first_pkgs.items():
@@ -512,6 +544,14 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
 
     mfname, mname = entries[0]
     bundle = _load_gwf_model(ws, mfname, mname, device)
+    # Newton Jacobians are asymmetric: CG diverges there (the reference
+    # program requires BICGSTAB for asymmetric systems); upgrade with a
+    # warning
+    if bundle["model"].inewton and settings.linear_acceleration == "cg":
+        warnings.warn("deck requests CG but the system is asymmetric "
+                      "(Newton); using BICGSTAB", stacklevel=2)
+        settings = dataclasses.replace(settings,
+                                       linear_acceleration="bicgstab")
     transient = _transient_flags(tdis, bundle["storage"],
                                  bundle["sto_periods"])
     simulation = Simulation(

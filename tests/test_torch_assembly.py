@@ -123,15 +123,19 @@ def test_passthrough_layers_are_not_structured():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(newton=True), dict(newton="under_relaxation"),
+    dict(newton=True, xt3d=1), dict(newton="under_relaxation", xt3d=2),
     dict(drn=[(1, 5.0, 1.0)]), dict(riv=[(1, 5.0, 1.0, 4.0)]),
     dict(ghb=[(1, 5.0, 1.0)]), dict(evt=[(1, 5.0, 1e-3, 2.0)]),
-    dict(wel_auto_flow_reduce=0.1), dict(buy={"denseref": 1000.0}),
+    dict(wel_auto_flow_reduce=0.1, angle2=10.0),
+    dict(buy={"denseref": 1000.0}),
     dict(csub={"sgm": 1.7}), dict(vsc={"viscref": 1.0}),
     dict(hfb=[(0, 1, 1e-3)]), dict(xt3d=1), dict(angle1=30.0),
-    dict(rewetting={"wetdry": 0.5}),
+    dict(rewetting={"wetdry": 0.5}, angle3=5.0),
 ])
 def test_build_gwf_raises_outside_the_slice(kw):
+    """Newton, AUTO_FLOW_REDUCE and rewetting are ported; together with a
+    feature that is not (XT3D-Newton, rotated anisotropy) they still
+    raise, as every other argument outside the slice does."""
     grid, base = fused_model_args()
     with pytest.raises(NotImplementedError):
         build_gwf("port", DisGrid.create(**grid), device="cpu",
@@ -140,7 +144,10 @@ def test_build_gwf_raises_outside_the_slice(kw):
 
 @pytest.mark.parametrize("field", ["inewton", "iangle2"])
 def test_from_reference_raises_outside_the_slice(field):
+    """Rotated anisotropy is not ported; Newton is, but the NPF flag and
+    the model's must agree."""
     arrays, kwargs = reference_arrays(make_model())
     kwargs["npf_options"] = {**kwargs["npf_options"], field: 1}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if field == "inewton"
+                       else NotImplementedError):
         from_reference(arrays, device="cpu", **kwargs)

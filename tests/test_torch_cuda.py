@@ -1,6 +1,8 @@
 """Tests of the port that need a CUDA device: the stencil7 kernel against
-its plain version, a fused step on the card against the CPU, and a small
-input deck run through the deck path on the card against the CPU.
+its plain version, a fused step on the card against the CPU (with each
+preconditioner), one multigrid application whose every level launches the
+kernel, a small input deck run through the deck path on the card against
+the CPU, and the small Newton, PTC and rewetting models of chip_smoke.py.
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -181,3 +183,68 @@ def test_deck_run_on_card_matches_cpu(cuda, tmp_path, precision):
                   for r in read_budget_file(tmp_path / "cpu" / "o.cbc")]
     assert (tmp_path / "card" / "o.grb").read_bytes() == (
         tmp_path / "cpu" / "o.grb").read_bytes()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 128), (3, 37, 45)])
+def test_mg_apply_on_card_launches_the_kernel_on_every_level(cuda, shape,
+                                                             dtype):
+    """One multigrid application on the card against the CPU: 4 kernel
+    launches on every level but the coarsest and 15 there, none of the
+    plain version, and the CPU's result to 1e-12 (float64) or 2e-5
+    (float32) of its largest entry."""
+    from modflow6_torch.ops.solvers.mg import make_mg_preconditioner
+    diag, off, r = _inputs(shape, dtype, "cpu")
+    # make the rows diagonally dominant, as the assembly gives them
+    diag = -(off.sum(dim=1) + 0.1)
+    want = make_mg_preconditioner(shape, diag, off)(r)
+    apply = make_mg_preconditioner(shape, diag.to(cuda), off.to(cuda))
+    plain_calls = []
+    real = stencil.spmv_structured
+    stencil.spmv_structured = lambda *a: plain_calls.append(1) or real(*a)
+    try:
+        before = stencil.stencil7.launches
+        got = apply(r.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        stencil.spmv_structured = real
+    levels = len(apply.levels)
+    assert levels >= 3 and not plain_calls
+    assert stencil.stencil7.launches - before == 4 * (levels - 1) + 15
+    bar = (1e-12 if dtype == torch.float64 else 2e-5) * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= bar
+
+
+@pytest.mark.parametrize("pc", ["neumann", "chebyshev", "mg"])
+def test_preconditioned_fused_step_on_card_matches_cpu(cuda, pc):
+    def model(device):
+        g = DisGrid.create(2, 21, 25, 10.0, 10.0, 20.0,
+                           np.array([10.0, 0.0])[:, None, None]
+                           * np.ones((2, 21, 25)))
+        k = np.exp(np.random.default_rng(1).normal(0.0, 1.0, 1050))
+        return build_gwf("card", g, k=k, strt=15.0, storage={"ss": 1e-4},
+                         chd=[(i * 25, 16.0) for i in range(21)],
+                         wel=[(700, -20.0)], device=device)
+
+    settings = ImsSettings(outer_dvclose=1e-6, outer_maximum=100,
+                           inner_dvclose=1e-8, inner_rclose=1e-6,
+                           inner_maximum=2000, preconditioner=pc)
+    results = []
+    for device in ("cpu", cuda):
+        m = model(device)
+        stencil.stencil7.launches = 0
+        results.append(make_fused_step(m, settings, iss=False)(m.strt, 1.0,
+                                                               1))
+        assert (stencil.stencil7.launches > results[-1][2]) == (
+            device != "cpu")
+    (h_cpu, *counts_cpu), (h_gpu, *counts_gpu) = results
+    assert counts_gpu == counts_cpu and counts_cpu[-1]
+    np.testing.assert_allclose(h_gpu.cpu().numpy(), h_cpu.numpy(), rtol=0,
+                               atol=1e-10)
+
+
+def test_small_newton_ptc_and_rewetting_on_card_match_cpu(cuda):
+    """chip_smoke.py's check of the small Newton model with PTC (through
+    NumericalSolution and the fused step) and of the rewetting scenario."""
+    from chip_smoke import check_small_newton
+    check_small_newton(cuda)

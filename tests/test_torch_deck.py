@@ -21,6 +21,7 @@ Tolerances:
   .grb files byte for byte; budget IN/OUT totals rtol 1e-9.
 """
 
+import contextlib
 import dataclasses
 import os
 import struct
@@ -37,6 +38,7 @@ import scipy.sparse.linalg as spla
 import torch
 
 from test_regression_decks import GOLDEN, build_npf01, ims_text, write
+from test_torch_parity import model_options
 from modflow6_tpu.ops.solvers import krylov as jkrylov
 from modflow6_tpu.utils.binary import read_budget_file as ref_read_budget
 from modflow6_tpu.utils.binary import read_head_file as ref_read_heads
@@ -78,6 +80,8 @@ def simulation_state(sim):
     if m.sto_arrays is not None:
         s = m.sto_arrays
         arrays.update(sto_iconvert=s.iconvert, sto_ss=s.ss, sto_sy=s.sy)
+    if m.wetdry is not None:
+        arrays["wetdry"] = m.wetdry
     for pkg in PACKAGES:
         data = getattr(m, pkg)
         if data is not None:
@@ -94,6 +98,7 @@ def simulation_state(sim):
         npf_options=dataclasses.asdict(m.npf_opts),
         sto_options=None if m.sto_opts is None
         else dataclasses.asdict(m.sto_opts),
+        model_options=model_options(m),
         tdis=[(p.perlen, p.nstp, p.tsmult) for p in sim.tdis.periods],
         transient=list(sim.transient), settings=vars(sim.solution.s),
         period_data={
@@ -108,8 +113,8 @@ def assert_same_state(got, want):
     """Exact equality of two simulation descriptions.  The condsat planes
     are computed, not loaded: they agree to rounding."""
     assert got.keys() == want.keys()
-    for key in ("name", "npf_options", "sto_options", "tdis", "transient",
-                "oc", "fail_fast"):
+    for key in ("name", "npf_options", "sto_options", "model_options", "tdis",
+                "transient", "oc", "fail_fast"):
         assert got[key] == want[key], key
     gs, ws = dict(got["settings"]), dict(want["settings"])
     for s in (gs, ws):
@@ -506,11 +511,31 @@ UNSUPPORTED = {
 }
 
 
+# keywords that raised until the nonlinear slice ported them: they now load,
+# with the same state as the reference's loader gives
+PORTED = ("NEWTON", "REWET", "AUTO_FLOW_REDUCE", "PRECONDITIONER_LEVELS",
+          "PRECONDITIONER_DROP_TOLERANCE")
+
+
 @pytest.mark.parametrize("key", sorted(UNSUPPORTED))
 def test_loader_raises_outside_the_slice(key, tmp_path):
     """Each unsupported package or keyword raises NotImplementedError that
-    names it; none is skipped silently."""
+    names it; none is skipped silently.  The keywords of ``PORTED`` load as
+    the reference loads them."""
     _deck_with(tmp_path, UNSUPPORTED[key])
+    if key in PORTED:
+        with pytest.warns(UserWarning) if key.startswith("PRECOND") \
+                else contextlib.nullcontext():
+            got = simulation_state(load(tmp_path))
+            want = simulation_state(ref_load(str(tmp_path)))
+        assert_same_state(got, want)
+        changed = {
+            "NEWTON": got["model_options"]["inewton"],
+            "REWET": "wetdry" in got["arrays"],
+            "AUTO_FLOW_REDUCE": got["model_options"]["wel_iflowred"],
+        }.get(key, got["settings"]["preconditioner"] == "chebyshev")
+        assert changed
+        return
     with pytest.raises(NotImplementedError, match=key):
         load(tmp_path)
 

@@ -253,7 +253,7 @@ def test_from_complexity_matches_reference(level):
 @pytest.mark.parametrize("kw", [dict(linear_acceleration="gmres"),
                                 dict(under_relaxation="line"),
                                 dict(precision="bf16"),
-                                dict(preconditioner="chebyshev"),
+                                dict(preconditioner="ilu"),
                                 dict(precision="mixed",
                                      csv_inner_path="inner.csv")])
 def test_numerical_solution_raises_outside_the_slice(kw):

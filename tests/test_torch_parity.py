@@ -102,11 +102,23 @@ def reference_arrays(model):
             out[f"{pkg}_node"] = data.node
             out[f"{pkg}_{value}"] = getattr(data, value)
             out[f"{pkg}_mask"] = data.mask
+    if model.wetdry is not None:
+        out["wetdry"] = model.wetdry
     kwargs = dict(grid_shape=model.dtopo.grid_shape,
                   npf_options=dataclasses.asdict(model.npf_opts),
                   sto_options=None if model.sto_opts is None
-                  else dataclasses.asdict(model.sto_opts))
+                  else dataclasses.asdict(model.sto_opts),
+                  model_options=model_options(model))
     return {k: np.asarray(v) for k, v in out.items()}, kwargs
+
+
+def model_options(model):
+    """The Newton, flow-reduce and rewetting settings of either package's
+    GwfModel: the ``model_options`` of from_reference."""
+    return dict(inewton=int(model.inewton), inewtonur=int(model.inewtonur),
+                wel_iflowred=int(model.wel_iflowred),
+                wel_flowred=float(model.wel_flowred),
+                rewet_opts=tuple(model.rewet_opts))
 
 
 def convert(model, device="cpu"):
@@ -114,24 +126,54 @@ def convert(model, device="cpu"):
     return from_reference(arrays, device=device, **kwargs)
 
 
-def jax_system(model, head, head_old, delt):
-    """(diag, off, rhs) of the reference after the Dirichlet fixup."""
+def jax_system(model, head, head_old, delt, iss=False, symmetric=True,
+               **kw):
+    """(diag, off, rhs) of the reference after the Dirichlet fixup; ``kw``
+    goes to ``assemble`` (``newton=False``)."""
     ib, h = model.boundary_state(jnp.asarray(head))
     _, h_old = model.boundary_state(jnp.asarray(head_old))
-    diag, off, rhs = model.assemble(h, h_old, ib, delt, False)
+    diag, off, rhs = model.assemble(h, h_old, ib, delt, iss, **kw)
     active = jnp.where(ib > 0, 1, jnp.where(ib < 0, -1, 0))
     return tuple(np.asarray(v) for v in jax_apply_dirichlet_structured(
-        model.dtopo.grid_shape, active, diag, off, rhs, h))
+        model.dtopo.grid_shape, active, diag, off, rhs, h,
+        symmetric=symmetric))
 
 
-def torch_system(model, head, head_old, delt):
+def torch_system(model, head, head_old, delt, iss=False, symmetric=True,
+                 **kw):
     """(diag, off, rhs) of the port after the Dirichlet fixup."""
     ib, h = model.boundary_state(torch.tensor(head, dtype=torch.float64))
     _, h_old = model.boundary_state(torch.tensor(head_old,
                                                  dtype=torch.float64))
-    diag, off, rhs = model.assemble(h, h_old, ib, delt, False)
+    diag, off, rhs = model.assemble(h, h_old, ib, delt, iss, **kw)
     return tuple(v.numpy() for v in apply_dirichlet_structured(
-        model.dtopo.grid_shape, torch.sign(ib), diag, off, rhs, h))
+        model.dtopo.grid_shape, torch.sign(ib), diag, off, rhs, h,
+        symmetric=symmetric))
+
+
+def reference_in_torch_sum_order(monkeypatch):
+    """Make the reference sum as PyTorch sums, for a run under
+    ``jax.disable_jit()``: the Krylov solvers' dot products and every
+    ``jnp.sum`` of a whole float64 vector go through ``torch.sum``.  Run so,
+    the reference differs from the port by no reduction order, and its
+    iteration counts can be held equal to the port's where BiCGSTAB or a
+    Newton loop would turn the last bits of a sum into other counts."""
+    from modflow6_tpu.ops.solvers import krylov as jkrylov
+
+    def torch_sum(a):
+        return jnp.asarray(torch.sum(torch.from_numpy(np.array(a))).numpy())
+
+    jnp_sum = jnp.sum
+
+    def vector_sum(a, *args, **kw):
+        if args or kw or getattr(a, "ndim", 0) != 1 or a.dtype != jnp.float64:
+            return jnp_sum(a, *args, **kw)
+        return torch_sum(a)
+
+    monkeypatch.setattr(jnp, "sum", vector_sum)
+    for solver in (jkrylov.cg, jkrylov.bicgstab):
+        monkeypatch.setitem(solver.__kwdefaults__, "dot",
+                            lambda a, b: torch_sum(a * b))
 
 
 def _same_reference_model(a, b):

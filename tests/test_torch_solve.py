@@ -279,9 +279,9 @@ def test_flagship_entry_step_matches_reference():
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("kw", [dict(linear_acceleration="bicgstab"),
+@pytest.mark.parametrize("kw", [dict(linear_acceleration="gmres"),
                                 dict(under_relaxation="dbd"),
-                                dict(preconditioner="chebyshev"),
+                                dict(preconditioner="ilu"),
                                 dict(precision="bf16")])
 def test_fused_step_raises_outside_the_slice(kw):
     port = convert(make_model())
