@@ -8,21 +8,29 @@ preconditioners, runs the same model as an MF6 input deck through the deck
 path (the command-line entry, the loader, ``Simulation`` and the output
 files) in ``f64`` and ``mixed`` and once with PRECONDITIONER_LEVELS,
 holding it against the fused run, runs the bench grid made unconfined as a
-NEWTON UNDER_RELAXATION deck, and holds small Newton, PTC and rewetting
-models on the card against the CPU.
+NEWTON UNDER_RELAXATION deck, holds small Newton, PTC and rewetting
+models on the card against the CPU, and drives the general (edge list +
+ELL gather) path: the bench model on a DISV grid of square cells against
+the structured run, a brick-pattern DISV grid of the same size with DRN,
+RIV, GHB and EVT through ``Simulation``, the bench grid with rotated
+anisotropy (edge-list assembly feeding the stencil kernel), and small DISV
+and DISU models with the four packages and a barrier against the CPU.
 
 Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          without one, and on any failed
                                          check)
        python3 chip_smoke.py --profile [--preconditioner jacobi|chebyshev|mg]
+                             [--grid dis|disv]
                                         (instead: where the time of the
                                          bench configuration's first step
-                                         goes, by op, under torch.profiler)
+                                         goes, by op, under torch.profiler;
+                                         ``--grid disv`` profiles the
+                                         general path)
 
 Output of the smoke run, in order: the device, the kernel build,
 kernel-vs-plain checks with times, the small-model checks, the bench
-runs, the preconditioner runs, the deck runs, the Newton runs, one JSON
-line ``{"kernels": [...]}``, and as the last line
+runs, the preconditioner runs, the deck runs, the Newton runs, the
+general-path runs, one JSON line ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -50,20 +58,25 @@ if not torch.cuda.is_available():
 
 from modflow6_torch import cuda_device                       # noqa: E402
 from modflow6_torch.__main__ import main as cli_main         # noqa: E402
-from modflow6_torch.models.discretization import DisGrid     # noqa: E402
+from modflow6_torch.models.discretization import (DisGrid,   # noqa: E402
+                                                  DisuGrid, DisvGrid)
 from modflow6_torch.models.gwf.builder import build_gwf      # noqa: E402
+from modflow6_torch.models.simulation import Simulation      # noqa: E402
 from modflow6_torch.ops import stencil                       # noqa: E402
 from modflow6_torch.ops.solvers.mg import make_mg_preconditioner  # noqa: E402
 from modflow6_torch.ops.solvers.precond import (             # noqa: E402
     chebyshev_precondition)
 from modflow6_torch.ops.system import (                      # noqa: E402
-    apply_dirichlet_structured, make_matvec)
+    apply_dirichlet, apply_dirichlet_structured, make_matvec, spmv,
+    to_scipy_csr)
 from modflow6_torch.solution import ImsSettings              # noqa: E402
 from modflow6_torch.solution.fused import (make_fused_run,   # noqa: E402
                                            make_fused_step)
 from modflow6_torch.solution.ims import NumericalSolution    # noqa: E402
 from modflow6_torch.utils.binary import read_head_file       # noqa: E402
+from modflow6_torch.timing.tdis import StressPeriod, Tdis     # noqa: E402
 from modflow6_torch.utils.mf6io import load_simulation       # noqa: E402
+from modflow6_torch.utils.oc import OutputControl            # noqa: E402
 
 BENCH_SHAPE = (4, 1024, 1024)
 KERNEL_SHAPES = (BENCH_SHAPE, (3, 37, 45), (1, 5, 129))
@@ -99,6 +112,14 @@ SLOTS = ((2, +1), (2, -1), (1, -1), (1, +1), (0, -1), (0, +1))
 DECK_FUSED_ATOL = 1e-10
 # the card's published memory rate (H100 SXM data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
+# heads of the bench model on a DISV grid of square cells against the
+# structured run: the same conductances (the two systems' products agree to
+# SYSTEM_RTOL) and the same CG march with the products and per-row sums
+# added in another order: the bar of the deck path against the fused run
+GENERAL_STRUCTURED_ATOL = DECK_FUSED_ATOL
+SYSTEM_RTOL = 1e-12
+# volume budget of a full-width run: percent discrepancy below this
+BUDGET_PERCENT = 0.01
 
 
 def flagship_kfield(nlay, nrow, ncol):
@@ -981,6 +1002,417 @@ def check_small_deck(device):
                              "the CPU")
 
 
+# ---------------------------------------------------------- general path
+
+def quad_disv(nlay, nrow, ncol, d, top, botm):
+    """nrow x ncol square cells of side ``d`` per layer as a DISV grid,
+    cell (i, j) at number i*ncol + j as in a DIS grid, rings clockwise."""
+    xs, ys = np.arange(ncol + 1) * d, (nrow - np.arange(nrow + 1)) * d
+    vx, vy = np.meshgrid(xs, ys)
+    i, j = np.divmod(np.arange(nrow * ncol), ncol)
+    v0 = i * (ncol + 1) + j
+    javert = np.stack([v0, v0 + 1, v0 + ncol + 2, v0 + ncol + 1],
+                      axis=1).reshape(-1)
+    return DisvGrid.from_arrays(
+        nlay, np.stack([vx.ravel(), vy.ravel()], axis=1), (j + 0.5) * d,
+        (nrow - i - 0.5) * d, np.arange(nrow * ncol + 1) * 4, javert, top,
+        botm)
+
+
+def brick_disv(nlay, nrow, ncol, d, top, botm, idomain=None):
+    """The same cells with every other row offset by half a cell: six
+    horizontal neighbours, which a DIS grid cannot hold.  Each ring holds
+    the midpoints of its top and bottom sides, where the corners of the
+    rows above and below lie."""
+    nx = 2 * ncol + 2
+    xs, ys = np.arange(nx) * d / 2, (nrow - np.arange(nrow + 1)) * d
+    vx, vy = np.meshgrid(xs, ys)
+    i, j = np.divmod(np.arange(nrow * ncol), ncol)
+    c0 = 2 * j + i % 2
+    t, b = i * nx + c0, (i + 1) * nx + c0
+    javert = np.stack([t, t + 1, t + 2, b + 2, b + 1, b], axis=1).reshape(-1)
+    return DisvGrid.from_arrays(
+        nlay, np.stack([vx.ravel(), vy.ravel()], axis=1), (c0 / 2 + 0.5) * d,
+        (nrow - i - 0.5) * d, np.arange(nrow * ncol + 1) * 6, javert, top,
+        botm, idomain)
+
+
+def disu_of(grid, stagger_every=5):
+    """The connections of a DISV grid as a DISU grid, every
+    ``stagger_every``-th horizontal one made vertically staggered."""
+    t = grid.build_topology()
+    ia, ja, pnm, pmn = t.csr
+    ihc = np.zeros(ja.size, np.int64)
+    cl12, hwva, ang = (np.zeros(ja.size) for _ in range(3))
+    e_ihc = t.ihc.copy()
+    e_ihc[np.nonzero(e_ihc == 1)[0][::stagger_every]] = 2
+    for pos, cl, dang in ((pnm, t.cl1, 0.0), (pmn, t.cl2, 180.0)):
+        ihc[pos] = e_ihc
+        cl12[pos] = cl
+        hwva[pos] = t.hwva
+        ang[pos] = np.rad2deg(t.anglex) + dang
+    return DisuGrid.create(grid.top, grid.bot, grid.area, np.diff(ia), ja,
+                           ihc, cl12, hwva, ang,
+                           (grid.idomain.reshape(-1) > 0).astype(np.int32))
+
+
+def flagship_stresses(nrow, ncol):
+    """CHD, WEL and RCH of ``flagship`` by cell number in layer 1."""
+    return dict(
+        chd=[(i * ncol, 45.0) for i in range(nrow)]
+        + [(i * ncol + ncol - 1, 35.0) for i in range(nrow)],
+        wel=[((nrow // 2) * ncol + ncol // 2, -500.0)],
+        rch=[(n, 1e-4) for n in range(nrow * ncol)])
+
+
+def flagship_botm(nlay, ncpl):
+    return np.linspace(0.0, -50.0, nlay)[:, None] * np.ones((nlay, ncpl))
+
+
+def ell_bound_ms(n, k, index_bytes=8):
+    """The least time the card could take for one gather product: diag, x
+    and y of n float64 values, the n x k coefficients and the n x k
+    neighbour numbers, each read or written once, over the card's memory
+    rate.  (The gathered x[nbr] are reads of x again, mostly from cache,
+    and the 2 k n operations are far below the memory time.)"""
+    nbytes = n * (3 * 8 + k * (8 + index_bytes))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def first_system(model, delt=5.0):
+    """The model's first assembled and fixed-up system and its start."""
+    ib, h = model.boundary_state(model.strt)
+    diag, off, rhs = model.assemble(h, h, ib, delt, False)
+    active = torch.sign(ib)
+    if model.use_structured:
+        diag, off, rhs = apply_dirichlet_structured(
+            model.dtopo.grid_shape, active, diag, off, rhs, h)
+    else:
+        diag, off, rhs = apply_dirichlet(model.dtopo.nbr, active, diag, off,
+                                         rhs, h)
+    return diag, off, rhs, h
+
+
+def run_disv_oracle(device, dis_head, dis_counts):
+    """The bench model on a DISV grid of 1024 x 1024 square cells a layer
+    through ``build_gwf`` and the fused run in ``f64`` with Jacobi CG, held
+    against the structured run of this call (``dis_head``, ``dis_counts``):
+    the first systems' products agree to rounding, the heads to 1e-10.
+    Prints the host's build times, the device memory, and the
+    gather product's time beside its bound and the stencil kernel's."""
+    nlay, nrow, ncol = BENCH_SHAPE
+    ncpl = nrow * ncol
+    t0 = time.perf_counter()
+    grid = quad_disv(nlay, nrow, ncol, 10.0, 50.0, flagship_botm(nlay, ncpl))
+    area_ok = bool((grid.area == 100.0).all())
+    t1 = time.perf_counter()
+    topo = grid.build_topology()
+    k = topo.max_degree          # builds the ELL table
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = flagship_disv(device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    d = model.dtopo
+    print(f"disv grid: cells={grid.nodes} edges={topo.nedges} K={k} "
+          f"grid_s={t1 - t0!r} topology_s={t2 - t1!r} build_gwf_s={t3 - t2!r} "
+          f"(build_gwf builds the topology again) areas_exact={area_ok} "
+          f"nbr_bytes={d.nbr.numel() * d.nbr.element_size()} "
+          f"off_bytes={grid.nodes * k * 8} "
+          f"edge_table_bytes={sum(t.numel() * t.element_size() for t in (d.edge_n, d.edge_m, d.ihc, d.cl1, d.cl2, d.hwva, d.anglex, d.slot_nm, d.slot_mn))} "
+          f"model_bytes={torch.cuda.memory_allocated() - base}")
+    if model.use_structured or d.grid_shape is not None \
+            or k != 4 + min(2, nlay - 1) or not area_ok:
+        raise AssertionError("the DISV model is not on the general path")
+
+    # the two first systems: the same matrix and right-hand side
+    dis = flagship(*BENCH_SHAPE, device)
+    gd, go, gr, gh = first_system(model)
+    sd, so, sr, _ = first_system(dis)
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn(grid.nodes, dtype=torch.float64, device=device,
+                    generator=gen)
+    mv_general = make_matvec(model.dtopo, gd, go)
+    mv_stencil = make_matvec(dis.dtopo, sd, so)
+    y, ys = mv_general(x), mv_stencil(x)
+    err = float((y - ys).abs().max() / ys.abs().max())
+    err_rhs = float((gr - sr).abs().max() / sr.abs().max())
+    print(f"disv vs dis first system: max|A_disv x - A_dis x|/max|A x|="
+          f"{err!r} max|rhs diff|/max|rhs|={err_rhs!r} bar={SYSTEM_RTOL!r}")
+    if not (err <= SYSTEM_RTOL and err_rhs <= SYSTEM_RTOL):
+        raise AssertionError("the DISV system differs from the DIS system")
+    ell_ms = back_to_back_ms(lambda: mv_general(x))
+    st_ms = back_to_back_ms(lambda: mv_stencil(x))
+    bound = ell_bound_ms(grid.nodes, k)
+    print(f"ell product f64 cells={grid.nodes} K={k}: ms={ell_ms!r} (100 "
+          f"products per event pair) bound_ms={bound!r} bound_by=bytes "
+          f"bound_share={bound / ell_ms!r} stencil7_ms_same_system={st_ms!r} "
+          f"stencil7_bound_ms={stencil_bound_ms(BENCH_SHAPE, torch.float64)!r}")
+    del dis, gd, go, gr, gh, sd, so, sr, mv_general, mv_stencil, y, ys
+
+    run = make_fused_run(model, ImsSettings(**BENCH), iss=False, nsteps=3)
+    delts = [5.0, 5.0, 5.0]
+    run(model.strt, delts)
+    torch.cuda.synchronize()
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        head, kiters, inners, convs = run(model.strt, delts)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    again = run(model.strt, delts)[0]
+    inner_total = sum(inners)
+    err = float((head - dis_head).abs().max())
+    finite = bool(torch.isfinite(head).all())
+    bitwise = bool(torch.equal(head, again))
+    print(f"disv bench precision=f64 preconditioner=jacobi cells="
+          f"{grid.nodes} steps=3 inner_total={inner_total} inners={inners} "
+          f"outers={kiters} converged={all(convs)} elapsed_s={elapsed!r} "
+          f"ms_per_inner={elapsed / inner_total * 1e3!r} "
+          f"ims_cell_iters_per_s={grid.nodes * inner_total / elapsed!r} "
+          f"structured_counts={dis_counts} stencil7_launches="
+          f"{counts['launches']} max|h - h_structured|={err!r} "
+          f"bar={GENERAL_STRUCTURED_ATOL!r} two_runs_bitwise_equal={bitwise} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if not (all(convs) and finite and bitwise
+            and err <= GENERAL_STRUCTURED_ATOL):
+        raise AssertionError("the DISV run failed its checks")
+    if counts["launches"] or counts["plain_on_cuda"]:
+        raise AssertionError("the DISV run went through the stencil")
+
+
+def brick_model_args(nlay, nrow, ncol):
+    """K and the stresses of the bench model from the same seed, with CHD
+    on the first column only, GHB on the last, drains along the first row,
+    a river along the middle row and evapotranspiration over layer 1."""
+    s = flagship_stresses(nrow, ncol)
+    mid = nrow // 2
+    return dict(
+        k=flagship_kfield(nlay, nrow, ncol), strt=40.0,
+        storage={"ss": 1e-5, "iconvert": 0},
+        chd=[(i * ncol, 45.0) for i in range(1, nrow)], wel=s["wel"],
+        rch=s["rch"],
+        ghb=[(i * ncol + ncol - 1, 35.0, 50.0) for i in range(1, nrow)],
+        drn=[(j, 38.0, 20.0) for j in range(ncol)],
+        riv=[(mid * ncol + j, 41.0, 30.0, 39.0) for j in range(1, ncol - 1)
+             if j != ncol // 2],
+        evt=[(n, 45.0, 1e-4, 10.0) for n in range(nrow * ncol)])
+
+
+def run_brick(device):
+    """The bench extent as a brick-pattern DISV grid (K = 8) with DRN, RIV,
+    GHB and EVT beside CHD, WEL and RCH, built in memory and run through
+    ``Simulation`` (three transient steps of 5.0, CG; heads, budget and
+    grid files written): every step converged, the budget closed, the
+    heads file read back, and a second run bitwise equal."""
+    nlay, nrow, ncol = BENCH_SHAPE
+    ncpl = nrow * ncol
+    t0 = time.perf_counter()
+    grid = brick_disv(nlay, nrow, ncol, 10.0, 50.0, flagship_botm(nlay, ncpl))
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_gwf("brick", grid, device=device,
+                      **brick_model_args(nlay, nrow, ncol))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k = model.dtopo.max_degree
+    print(f"brick grid: cells={grid.nodes} edges={model.topo.nedges} K={k} "
+          f"grid_s={t1 - t0!r} build_gwf_s={t2 - t1!r} "
+          f"is_linear={model.is_linear} "
+          f"degree_histogram={model.topo.degree_histogram().tolist()}")
+    if model.use_structured or k != 6 + min(2, nlay - 1) \
+            or model.is_linear:
+        raise AssertionError("the brick model is not what it should be")
+    oc = OutputControl({1: {("SAVE", "HEAD"): ("LAST",),
+                            ("SAVE", "BUDGET"): ("LAST",)}})
+    heads = []
+    with tempfile.TemporaryDirectory() as ws:
+        for attempt in range(2):
+            files = attempt == 0
+            sim = Simulation(
+                Tdis((StressPeriod(15.0, 3, 1.0),)), model,
+                ImsSettings(**BENCH), oc=oc,
+                hds_path=os.path.join(ws, "brick.hds") if files else None,
+                cbc_path=os.path.join(ws, "brick.cbc") if files else None)
+            with counted_run() as counts:
+                t0 = time.perf_counter()
+                recs = sim.run()
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+            heads.append(recs[-1].head)
+            if not files:
+                continue
+            inner_total = sum(r.inner for r in recs)
+            solve = sum(r.solve_seconds for r in recs)
+            disc = sim.budget.percent_discrepancy()
+            terms = {t.name: (t.rate_in, t.rate_out)
+                     for t in sim.budget.terms.values()}
+            sizes = {f: os.path.getsize(os.path.join(ws, f))
+                     for f in sorted(os.listdir(ws))}
+            print(f"brick simulation cells={grid.nodes} steps={len(recs)} "
+                  f"inner_total={inner_total} "
+                  f"inners={[r.inner for r in recs]} "
+                  f"outers={[r.outer for r in recs]} "
+                  f"converged={all(r.converged for r in recs)} run_s={run_s!r} "
+                  f"grb_s={sim.grb_seconds!r} solve_s={solve!r} "
+                  f"output_s={sum(r.output_seconds for r in recs)!r} "
+                  f"ms_per_inner={solve / inner_total * 1e3!r} "
+                  f"stencil7_launches={counts['launches']} "
+                  f"budget_percent_discrepancy={disc!r} bar={BUDGET_PERCENT!r} "
+                  f"budget_in_out={terms} file_bytes={sizes} "
+                  f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+            if not all(r.converged for r in recs):
+                raise AssertionError("brick run: a step did not converge")
+            if not (np.isfinite(recs[-1].head).all() and np.isfinite(disc)
+                    and abs(disc) < BUDGET_PERCENT):
+                raise AssertionError(f"brick run: budget discrepancy {disc}")
+            if set(terms) != {"STO-SS", "STO-SY", "WEL", "RCH", "DRN", "RIV",
+                              "GHB", "EVT", "CHD"} or not all(
+                    terms[p][0] + terms[p][1] > 0
+                    for p in ("DRN", "RIV", "GHB", "EVT")):
+                raise AssertionError(f"brick run: budget terms {terms}")
+            if counts["launches"] or "brick.grb" not in sizes:
+                raise AssertionError("brick run: stencil launches or no grid "
+                                     "file")
+            layers = read_head_file(os.path.join(ws, "brick.hds"))
+            saved = np.stack([r["data"] for r in layers]).reshape(-1)
+            if [(r["kstp"], r["ilay"], r["data"].shape) for r in layers] != [
+                    (3, kk + 1, (1, ncpl)) for kk in range(nlay)] \
+                    or not np.array_equal(saved, recs[-1].head):
+                raise AssertionError("brick run: the heads file differs from "
+                                     "the run's heads")
+    bitwise = bool(np.array_equal(heads[0], heads[1]))
+    print(f"brick simulation: two runs bitwise equal={bitwise}")
+    if not bitwise:
+        raise AssertionError("two brick runs on the card differ")
+
+
+def rotated_model(nlay, nrow, ncol, device):
+    """``flagship`` with K22 = 0.1 K and an ellipse rotated by an angle
+    that varies from cell to cell: a DIS model off the structured path."""
+    rng = np.random.default_rng(76)
+    kfield = flagship_kfield(nlay, nrow, ncol)
+    g = DisGrid.create(nlay, nrow, ncol, delr=10.0, delc=10.0, top=50.0,
+                       botm=flagship_botm(nlay, nrow * ncol).reshape(
+                           nlay, nrow, ncol))
+    return build_gwf("rotated", g, k=kfield, k22=0.1 * kfield,
+                     angle1=rng.uniform(0.0, np.pi / 2, kfield.size),
+                     strt=40.0, storage={"ss": 1e-5, "iconvert": 0},
+                     device=device, **flagship_stresses(nrow, ncol))
+
+
+def run_rotated(device):
+    """The stencil kernel's caller off the structured path: the bench grid
+    with rotated anisotropy assembles over the edge list, fixes its rows
+    through the gather, and multiplies through ``stencil7``.  Chebyshev CG
+    in ``f64`` at full width, and a 3 x 37 x 45 twin on the card against the
+    CPU.  Returns the launches of the full-width run."""
+    settings = ImsSettings(**BENCH, preconditioner="chebyshev")
+    (hc, kc, ic, cc), (hg, kg, ig, cg_) = (
+        make_fused_run(m, settings, False, 3)(m.strt, [5.0] * 3)
+        for m in (rotated_model(3, 37, 45, dev) for dev in ("cpu", device)))
+    err = float((hg.cpu() - hc).abs().max())
+    print(f"rotated(3,37,45) chebyshev f64: card outers={kg} inners={ig} "
+          f"converged={all(cg_)}; cpu outers={kc} inners={ic}; "
+          f"max|dh|={err!r} bar={CARD_CPU_ATOL!r}")
+    if not (all(cg_) and all(cc) and (kg, ig) == (kc, ic)
+            and err <= CARD_CPU_ATOL):
+        raise AssertionError("the rotated model on the card disagrees with "
+                             "the CPU")
+
+    t0 = time.perf_counter()
+    model = rotated_model(*BENCH_SHAPE, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if model.use_structured or model.dtopo.grid_shape != BENCH_SHAPE \
+            or model.dtopo.max_degree != 6:
+        raise AssertionError("the rotated model is not on the general path "
+                             "with its grid shape")
+    run = make_fused_run(model, settings, iss=False, nsteps=3)
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        head, kiters, inners, convs = run(model.strt, [5.0] * 3)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    inner_total = sum(inners)
+    finite = bool(torch.isfinite(head).all())
+    print(f"rotated bench precision=f64 preconditioner=chebyshev cells="
+          f"{model.nodes} edges={model.dtopo.edge_n.shape[0]} steps=3 "
+          f"build_gwf_s={build_s!r} inner_total={inner_total} "
+          f"inners={inners} outers={kiters} converged={all(convs)} "
+          f"elapsed_s={elapsed!r} (first run, no warm-up) "
+          f"ms_per_inner={elapsed / inner_total * 1e3!r} "
+          f"stencil7_launches={counts['launches']} "
+          f"plain_on_cuda={counts['plain_on_cuda']} head_min="
+          f"{float(head.min())!r} head_max={float(head.max())!r}")
+    if not (all(convs) and finite) or counts["plain_on_cuda"] \
+            or counts["launches"] < 4 * inner_total:
+        raise AssertionError("the rotated run failed its checks")
+    return counts["launches"]
+
+
+def picard_direct(model, delt, steps):
+    """The model's steps on the CPU with a direct solve of each outer
+    iteration's system (the matrix from ``to_scipy_csr``), iterated until
+    the heads stand still."""
+    import scipy.sparse.linalg as spla
+    head = model.strt
+    for _ in range(steps):
+        ib, h = model.boundary_state(head)
+        h_old = h
+        for _ in range(50):
+            diag, off, rhs = model.assemble(h, h_old, ib, delt, False)
+            diag, off, rhs = apply_dirichlet(model.dtopo.nbr, torch.sign(ib),
+                                             diag, off, rhs, h)
+            new = torch.as_tensor(spla.spsolve(
+                to_scipy_csr(model.dtopo, diag, off).tocsc(), rhs.numpy()))
+            done = float((new - h).abs().max()) < 1e-10
+            h = new
+            if done:
+                break
+        head = h
+    return head
+
+
+def check_small_general(device):
+    """A 2 x 24 x 24 brick DISV model and its DISU twin (staggered
+    connections among them) with DRN, RIV, GHB, EVT and one barrier, CG:
+    the card against the CPU (equal counts, 1e-10) and against direct
+    solves of the same steps."""
+    nlay, nrow, ncol = 2, 24, 24
+    ncpl = nrow * ncol
+    # cell bottoms that differ, so that staggered connections overlap less
+    # than the cells' thickness
+    botm = flagship_botm(nlay, ncpl) + np.random.default_rng(3).uniform(
+        0.0, 5.0, (nlay, ncpl))
+    brick = brick_disv(nlay, nrow, ncol, 10.0, 50.0, botm)
+    args = brick_model_args(nlay, nrow, ncol)
+    args["hfb"] = [(5 * ncol + 7, 5 * ncol + 8, 1e-3)]
+    settings = ImsSettings(**ENTRY)
+    for name, grid in (("disv", brick), ("disu", disu_of(brick))):
+        cpu = build_gwf(name, grid, device="cpu", **args)
+        gpu = build_gwf(name, grid, device=device, **args)
+        hc, kc, ic, cc = make_fused_run(cpu, settings, False, 2)(
+            cpu.strt, [5.0, 5.0])
+        with counted_run() as counts:
+            hg, kg, ig, cg_ = make_fused_run(gpu, settings, False, 2)(
+                gpu.strt, [5.0, 5.0])
+        err = float((hg.cpu() - hc).abs().max())
+        direct = float((hg.cpu() - picard_direct(cpu, 5.0, 2)).abs().max())
+        print(f"small general {name} brick(2,24,24) K={gpu.dtopo.max_degree} "
+              f"packages+hfb: card outers={kg} inners={ig} "
+              f"converged={all(cg_)}; cpu outers={kc} inners={ic}; "
+              f"max|dh|={err!r} bar={CARD_CPU_ATOL!r} "
+              f"max|h - direct|={direct!r} bar={DIRECT_ATOL!r} "
+              f"stencil7_launches={counts['launches']}")
+        if not (all(cg_) and all(cc) and (kg, ig) == (kc, ic)
+                and err <= CARD_CPU_ATOL and direct <= DIRECT_ATOL
+                and not counts["launches"]):
+            raise AssertionError(f"small general model {name}: the card "
+                                 "disagrees with the CPU or the direct solve")
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -1004,15 +1436,26 @@ def host_us_per_call(fn, calls=2000):
     return elapsed / calls * 1e6
 
 
-def profile_bench(device, preconditioner="jacobi"):
+def flagship_disv(device):
+    """The bench model on a DISV grid of square cells (the general path)."""
+    nlay, nrow, ncol = BENCH_SHAPE
+    grid = quad_disv(nlay, nrow, ncol, 10.0, 50.0,
+                     flagship_botm(nlay, nrow * ncol))
+    return build_gwf("disv", grid, k=flagship_kfield(*BENCH_SHAPE),
+                     strt=40.0, storage={"ss": 1e-5, "iconvert": 0},
+                     device=device, **flagship_stresses(nrow, ncol))
+
+
+def profile_bench(device, preconditioner="jacobi", grid="dis"):
     """The bench configuration's first step in each precision with the given
-    preconditioner: its wall time without the profiler, then its device
-    time by op under torch.profiler; and the host time per call of the
-    matvec wrapper against a torch.mul of two elements."""
+    preconditioner, on the DIS grid (structured path) or on the DISV grid
+    of square cells (general path): its wall time without the profiler,
+    then its device time by op under torch.profiler; and the host time per
+    call of the matvec wrapper against a torch.mul of two elements."""
     from torch.profiler import ProfilerActivity, profile
     from modflow6_torch.models.gwf.npf import DeviceTopology
-    from modflow6_torch.ops.system import make_matvec
-    model = flagship(*BENCH_SHAPE, device)
+    model = (flagship(*BENCH_SHAPE, device) if grid == "dis"
+             else flagship_disv(device))
     for precision in ("f64", "mixed"):
         step = make_fused_step(
             model, ImsSettings(**BENCH, precision=precision,
@@ -1030,7 +1473,7 @@ def profile_bench(device, preconditioner="jacobi"):
         rows = prof.key_averages()
         kernels = [r for r in rows if r.device_type.name == "CUDA"]
         device_us = sum(_device_us(r) for r in kernels)
-        print(f"profile precision={precision} "
+        print(f"profile grid={grid} precision={precision} "
               f"preconditioner={preconditioner} outer={kiter} inner={inner} "
               f"converged={conv} step_wall_s={wall!r} "
               f"ms_per_inner={wall / inner * 1e3!r} "
@@ -1055,7 +1498,8 @@ def profile_bench(device, preconditioner="jacobi"):
           f"make_matvec={bound_us!r} stencil7={once_us!r}")
 
 
-PHASES = ("kernel", "small", "bench", "precond", "deck", "newton")
+PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
+          "unstructured")
 
 
 def main():
@@ -1066,6 +1510,9 @@ def main():
     parser.add_argument("--preconditioner", default="jacobi",
                         choices=["jacobi", "chebyshev", "mg"],
                         help="the preconditioner of the profiled step")
+    parser.add_argument("--grid", default="dis", choices=["dis", "disv"],
+                        help="the grid of the profiled step: the DIS bench "
+                             "grid or the same cells as a DISV grid")
     parser.add_argument("--newton-preconditioner", default="chebyshev",
                         choices=["jacobi", "chebyshev", "mg"],
                         help="the preconditioner of the unconfined Newton "
@@ -1092,7 +1539,7 @@ def main():
     for line in log.strip().splitlines():
         print(f"  nvcc: {line}")
     if args.profile:
-        profile_bench(device, args.preconditioner)
+        profile_bench(device, args.preconditioner, args.grid)
         return
 
     launches = {}
@@ -1103,6 +1550,7 @@ def main():
         check_small_preconditioned(device)
         check_small_deck(device)
         check_small_newton(device)
+        check_small_general(device)
     if "bench" in phases:
         launches["fused"], _, _, mixed_inners, _ = run_bench(device, "mixed")
         f64_launches, fused_head, kiters, inners, _ = run_bench(device, "f64")
@@ -1122,6 +1570,12 @@ def main():
     if "newton" in phases:
         launches["newton"] = run_newton_deck(device,
                                              args.newton_preconditioner)
+    if "unstructured" in phases:
+        if "bench" not in phases:
+            _, fused_head, kiters, inners, _ = run_bench(device, "f64")
+        run_disv_oracle(device, fused_head, list(zip(kiters, inners)))
+        run_brick(device)
+        launches["general"] = run_rotated(device)
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -1140,6 +1594,7 @@ def main():
         "launches_preconditioned_fused_path": launches["preconditioned"],
         "launches_deck_path": launches["deck"],
         "launches_newton_deck_path": launches["newton"],
+        "launches_general_assembly_path": launches["general"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

@@ -1,12 +1,15 @@
 """modflow6-torch: the PyTorch/CUDA port of the modflow6_tpu groundwater
 simulator, for one NVIDIA Hopper GPU.
 
-The port covers the structured (DIS) GWF slice: NPF without Newton, STO,
-CHD/WEL/RCH, Jacobi-preconditioned CG or BiCGSTAB (``f64`` or ``mixed``
-precision), in the fused time step and on the deck path
+The port covers the GWF model on DIS, DISV and DISU grids: NPF (standard
+or Newton, rewetting, rotated anisotropy, horizontal-flow barriers), STO,
+CHD/WEL/RCH/DRN/RIV/GHB/EVT, preconditioned CG or BiCGSTAB (``f64`` or
+``mixed`` precision), in the fused time step and on the deck path
 (``python -m modflow6_torch <workspace>``: ``mfsim.nam`` loader,
 ``Simulation``, ``NumericalSolution``, ``.hds``/``.cbc``/``.grb``/listing
-output).  Everything outside that slice raises ``NotImplementedError``.
+output).  A DIS model without angles runs on dense planes through the
+stencil kernel; every other model over its edge list and an ELL neighbour
+table.  Everything outside these slices raises ``NotImplementedError``.
 ``modflow6_tpu`` is the reference the port is tested against; this
 package never imports JAX.
 
@@ -20,7 +23,7 @@ states its dtype.
 
 import torch
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 
 def cuda_device(index: int = 0) -> torch.device:

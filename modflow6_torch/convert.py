@@ -14,28 +14,39 @@ Keys of ``arrays``:
 
 - ``k11``, ``k22``, ``k33``, ``icelltype``, ``top``, ``bot``, ``strt``,
   ``ibound0``: per cell;
-- ``delr`` (ncol), ``delc`` (nrow);
-- ``condsat_x``, ``condsat_y``, ``condsat_z``: the reference's structured
-  saturated conductances (``GwfModel.condsat3``);
+- a model on the structured path (``grid_shape`` given, no angle option):
+  ``delr`` (ncol), ``delc`` (nrow), and ``condsat_x``, ``condsat_y``,
+  ``condsat_z``, the reference's structured saturated conductances
+  (``GwfModel.condsat3``);
+- a model on the general path: the edge topology ``edge_n``, ``edge_m``,
+  ``ihc``, ``cl1``, ``cl2``, ``hwva``, ``anglex``, ``nbr``, ``slot_nm``,
+  ``slot_mn`` (``grid_shape`` stays the DIS shape of a DIS grid with
+  angles), ``condsat`` per edge, ``angle1``, ``angle2``, ``angle3`` and
+  ``area`` per cell;
 - optional ``sto_iconvert``, ``sto_ss``, ``sto_sy`` (with ``sto_options``);
-- optional ``{chd,wel,rch}_node``, ``_mask`` and the value ``chd_head``,
-  ``wel_q``, ``rch_recharge``;
+- optional packages: ``{pkg}_{field}`` for every field of the package's
+  data class (``chd_node``, ``chd_head``, ``chd_mask``; ``drn_elev``,
+  ``drn_cond``, ``drn_ddrn``; ``evt_pxdp``, ``evt_petm`` when segmented;
+  ...);
 - optional ``wetdry``: the REWET thresholds per cell.
 
 ``npf_options`` and ``sto_options`` hold the fields of the reference's
 ``NpfOptions`` and ``StoOptions`` (``inewton`` and ``satomega`` among
 them); ``model_options`` the reference GwfModel's ``inewton``,
-``inewtonur``, ``wel_iflowred``, ``wel_flowred`` and ``rewet_opts``.  The
+``inewtonur``, ``wel_iflowred``, ``wel_flowred``, ``rewet_opts`` and
+``hfb`` (whose barriers the given condsat already holds).  The
 preconditioner settings travel in ``state["settings"]`` (the fields of
 ``ImsSettings``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import resolve_device
-from .models.discretization import DisGrid
+from .models.discretization import DisGrid, DisuGrid, DisvGrid
 from .models.gwf import bnd, npf, sto
 from .models.gwf.model import GwfModel, PackageData
 from .models.simulation import Simulation
@@ -43,8 +54,22 @@ from .solution.ims import ImsSettings
 from .timing.tdis import StressPeriod, Tdis
 from .utils.oc import OutputControl
 
-_BOUNDS = (("chd", "head", bnd.ChdData), ("wel", "q", bnd.WelData),
-           ("rch", "recharge", bnd.RchData))
+_BOUNDS = dict(chd=bnd.ChdData, wel=bnd.WelData, rch=bnd.RchData,
+               drn=bnd.DrnData, riv=bnd.RivData, ghb=bnd.GhbData,
+               evt=bnd.EvtData)
+_GRIDS = dict(dis=DisGrid, disv=DisvGrid, disu=DisuGrid)
+_TOPOLOGY = ("edge_n", "edge_m", "ihc", "cl1", "cl2", "hwva", "anglex", "nbr",
+             "slot_nm", "slot_mn")
+
+
+def _package(cls, values: dict, device):
+    """A package data object from {field: array}: ``node`` int64, ``mask``
+    bool, every other field float64."""
+    dtypes = dict(node=torch.int64, mask=torch.bool)
+    return cls(**{
+        key: torch.tensor(value, dtype=dtypes.get(key, torch.float64),
+                          device=device)
+        for key, value in values.items() if value is not None})
 
 
 def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
@@ -62,13 +87,26 @@ def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
     def i32(key):
         return tensor(key, torch.int32)
 
-    nlay = grid_shape[0]
-    delr, delc = f64("delr"), f64("delc")
-    area = (delc[:, None] * delr[None, :]).reshape(-1).repeat(nlay)
     top, bot = f64("top"), f64("bot")
+    general = "nbr" in arrays
+    if general:
+        dtopo = npf.DeviceTopology.from_host(
+            {**{key: arrays[key] for key in _TOPOLOGY},
+             "grid_shape": grid_shape}, device)
+        delr = delc = condsat3 = None
+        area = f64("area")
+        extra = dict(angle1=f64("angle1"), angle2=f64("angle2"),
+                     angle3=f64("angle3"), condsat=f64("condsat"))
+    else:
+        dtopo = npf.DeviceTopology(grid_shape=tuple(grid_shape))
+        delr, delc = f64("delr"), f64("delc")
+        area = (delc[:, None] * delr[None, :]).reshape(-1).repeat(
+            grid_shape[0])
+        condsat3 = (f64("condsat_x"), f64("condsat_y"), f64("condsat_z"))
+        extra = {}
     npf_arrays = npf.NpfArrays(icelltype=i32("icelltype"), k11=f64("k11"),
                                k22=f64("k22"), k33=f64("k33"), top=top,
-                               bot=bot)
+                               bot=bot, **extra)
     sto_opts = sto_arrays = None
     if sto_options is not None:
         sto_opts = sto.StoOptions(**sto_options)
@@ -76,18 +114,22 @@ def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
                                    ss=f64("sto_ss"), sy=f64("sto_sy"),
                                    top=top, bot=bot, area=area)
     packages = {}
-    for pkg, value, cls in _BOUNDS:
+    for pkg, cls in _BOUNDS.items():
         if f"{pkg}_node" in arrays:
-            packages[pkg] = cls(tensor(f"{pkg}_node", torch.int64),
-                                f64(f"{pkg}_{value}"),
-                                tensor(f"{pkg}_mask", torch.bool))
+            packages[pkg] = _package(
+                cls, {f.name: arrays.get(f"{pkg}_{f.name}")
+                      for f in dataclasses.fields(cls)}, device)
+    topo = None
+    if grid is not None:
+        # the same host layout as build_gwf gives the model
+        topo = (grid.build_edge_topology()
+                if general and isinstance(grid, DisGrid)
+                else grid.build_topology())
     return GwfModel(
-        name=name, dtopo=npf.DeviceTopology(tuple(grid_shape)),
-        npf_opts=npf.NpfOptions(**npf_options), npf_arrays=npf_arrays,
-        strt=f64("strt"), ibound0=i32("ibound0"), delr=delr, delc=delc,
-        area=area, sto_opts=sto_opts, sto_arrays=sto_arrays,
-        condsat3=(f64("condsat_x"), f64("condsat_y"), f64("condsat_z")),
-        grid=grid,
+        name=name, dtopo=dtopo, npf_opts=npf.NpfOptions(**npf_options),
+        npf_arrays=npf_arrays, strt=f64("strt"), ibound0=i32("ibound0"),
+        delr=delr, delc=delc, area=area, sto_opts=sto_opts,
+        sto_arrays=sto_arrays, condsat3=condsat3, grid=grid, topo=topo,
         wetdry=f64("wetdry") if "wetdry" in arrays else None,
         **(model_options or {}), **packages)
 
@@ -98,18 +140,20 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
 
     Keys of ``state``:
 
-    - ``name``; ``grid``: the keyword arguments of ``DisGrid.create``;
+    - ``name``; ``grid``: the keyword arguments of the grid class's
+      ``create``; ``grid_class``: "dis" (the default), "disv" or "disu";
     - ``arrays``, ``npf_options``, ``sto_options``, ``model_options``: as
       ``from_reference`` takes them (``arrays`` holds the first period's packages);
     - ``tdis``: [(perlen, nstp, tsmult)]; ``transient``: one flag per period;
     - ``settings``: the fields of the reference's ``ImsSettings``;
-    - ``period_data``: {kper: {"chd"|"wel"|"rch": (node, value, mask)}};
+    - ``period_data``: {kper: {package: the arrays of its data class's
+      fields, in their order ((node, value, mask) for chd, wel and rch)}};
     - ``oc``: {kper: {(verb, what): spec}} or None; ``fail_fast``.
     """
     device = resolve_device(device)
-    grid = DisGrid.create(**state["grid"])
+    grid = _GRIDS[state.get("grid_class", "dis")].create(**state["grid"])
     model = from_reference(
-        state["arrays"], grid_shape=grid.grid_shape,
+        state["arrays"], grid_shape=getattr(grid, "grid_shape", None),
         npf_options=state["npf_options"], sto_options=state["sto_options"],
         model_options=state.get("model_options"), device=device, name=state["name"], grid=grid)
     tdis = Tdis(tuple(StressPeriod(float(p), int(n), float(m))
@@ -119,12 +163,10 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
                      transient=list(state["transient"]), hds_path=hds_path,
                      cbc_path=cbc_path, lst_path=lst_path, oc=oc)
     sim.fail_fast = bool(state["fail_fast"])
-    classes = {pkg: cls for pkg, _, cls in _BOUNDS}
     for kper, pkgs in state["period_data"].items():
         sim.period_data[int(kper)] = PackageData(**{
-            pkg: classes[pkg](
-                torch.tensor(node, dtype=torch.int64, device=device),
-                torch.tensor(value, dtype=torch.float64, device=device),
-                torch.tensor(mask, dtype=torch.bool, device=device))
-            for pkg, (node, value, mask) in pkgs.items()})
+            pkg: _package(_BOUNDS[pkg], dict(zip(
+                (f.name for f in dataclasses.fields(_BOUNDS[pkg])), values)),
+                device)
+            for pkg, values in pkgs.items()})
     return sim

@@ -1,1 +1,4 @@
 from .dis import DisGrid
+from .disu import DisuGrid
+from .disv import DisvGrid
+from .topology import DisTopology, Topology

@@ -1,10 +1,12 @@
-"""Stress packages of the slice: CHD, WEL (with AUTO_FLOW_REDUCE), RCH.
+"""Stress packages: CHD, WEL (with AUTO_FLOW_REDUCE), RCH, DRN, RIV, GHB
+and EVT (one segment or several).
 
-Port of modflow6_tpu/models/gwf/bnd.py:111-246 (reference
-BoundaryPackage.f90 bnd_cf + bnd_fc, gwf-chd.f90, gwf-wel.f90,
-gwf-rch.f90).  Entries are padded to a fixed ``maxbound`` with
-``mask=False``.  Node indices are int64 tensors, as ``index_add_`` and
-advanced indexing take them.
+Port of modflow6_tpu/models/gwf/bnd.py (reference BoundaryPackage.f90
+bnd_cf + bnd_fc, gwf-chd.f90, gwf-wel.f90, gwf-rch.f90, gwf-drn.f90
+drn_cf :340-373 + get_drain_factor :534-574, gwf-riv.f90:270-299,
+gwf-ghb.f90:245-265, gwf-evt.f90 evt_cf).  Entries are padded to a fixed
+``maxbound`` with ``mask=False``.  Node indices are int64 tensors, as
+``index_add_`` and advanced indexing take them.
 
 ``scatter_terms`` adds with ``index_add``.  On CUDA that uses atomics, so
 entries that share a node are summed in an order that varies from run to
@@ -14,11 +16,13 @@ run; the difference is at the 1e-15 level.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from ...constants import DZERO
-from ...ops.smoothing import sq_saturation, sq_saturation_derivative
+from ...constants import DONE, DZERO
+from ...ops.smoothing import (quadratic_saturation, sq_saturation,
+                              sq_saturation_derivative)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +44,46 @@ class RchData:
     node: torch.Tensor
     recharge: torch.Tensor  # flux per unit area
     mask: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DrnData:
+    node: torch.Tensor
+    elev: torch.Tensor
+    cond: torch.Tensor
+    ddrn: torch.Tensor  # drainage depth (0 unless AUXDEPTHNAME)
+    mask: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class RivData:
+    node: torch.Tensor
+    stage: torch.Tensor
+    cond: torch.Tensor
+    rbot: torch.Tensor
+    mask: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class GhbData:
+    node: torch.Tensor
+    bhead: torch.Tensor
+    cond: torch.Tensor
+    mask: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class EvtData:
+    node: torch.Tensor
+    surface: torch.Tensor
+    rate: torch.Tensor
+    depth: torch.Tensor
+    mask: torch.Tensor
+    # segmented ET (NSEG>1, gwf-evt.f90 evt_cf segloop): per-entry interior
+    # breakpoints as depth fractions (pxdp, ascending) and rate proportions
+    # (petm); None → single linear segment
+    pxdp: Optional[torch.Tensor] = None   # f64[B, nseg-1]
+    petm: Optional[torch.Tensor] = None   # f64[B, nseg-1]
 
 
 def apply_chd(ibound, head, chd: ChdData):
@@ -92,6 +136,88 @@ def rch_terms(rch: RchData, ibound, area):
     act = rch.mask & (ibound[rch.node] > 0)
     hcof = torch.zeros_like(rch.recharge)
     rhs = torch.where(act, -rch.recharge * area[rch.node], DZERO)
+    return hcof, rhs
+
+
+def drn_terms(drn: DrnData, head, ibound, icubic_scaling: int = 0):
+    act = drn.mask & (ibound[drn.node] > 0)
+    x = head[drn.node]
+    drnbot = drn.elev
+    drntop = drn.elev + drn.ddrn
+    has_depth = drn.ddrn != DZERO
+    if icubic_scaling:
+        fact_smooth = sq_saturation(drntop, drnbot, x, c1=-1.0, c2=2.0)
+    else:
+        fact_smooth = quadratic_saturation(drntop, drnbot, x, 0.0)
+    fact_step = torch.where(x <= drnbot, DZERO, DONE)
+    fact = torch.where(has_depth, fact_smooth, fact_step)
+    hcof = torch.where(act, -fact * drn.cond, DZERO)
+    rhs = torch.where(act, -fact * drn.cond * drnbot, DZERO)
+    return hcof, rhs
+
+
+def riv_terms(riv: RivData, head, ibound):
+    act = riv.mask & (ibound[riv.node] > 0)
+    below = head[riv.node] <= riv.rbot
+    hcof = torch.where(act & ~below, -riv.cond, DZERO)
+    rhs = torch.where(
+        act,
+        torch.where(below, -riv.cond * (riv.stage - riv.rbot),
+                    -riv.cond * riv.stage),
+        DZERO)
+    return hcof, rhs
+
+
+def ghb_terms(ghb: GhbData, ibound):
+    act = ghb.mask & (ibound[ghb.node] > 0)
+    hcof = torch.where(act, -ghb.cond, DZERO)
+    rhs = torch.where(act, -ghb.cond * ghb.bhead, DZERO)
+    return hcof, rhs
+
+
+def evt_terms(evt: EvtData, head, ibound, area):
+    """EVT: linear or segmented ET-vs-depth (reference gwf-evt.f90 evt_cf).
+
+    Single segment: full rate above the ET surface, linear to zero at
+    surface − depth.  Segmented (pxdp/petm present): piecewise-linear rate
+    proportion between breakpoints, per the evt_cf segloop:
+      thcof = −(petm1−petm2)·c/((pxdp2−pxdp1)·x)
+      trhs  = thcof·(s − pxdp1·x) + petm1·c
+    """
+    act = evt.mask & (ibound[evt.node] > 0)
+    h = head[evt.node]
+    s = evt.surface
+    c = evt.rate * area[evt.node]          # max ET volume rate (positive)
+    x = torch.where(evt.depth != 0, evt.depth, DONE)
+    above = h >= s
+    d = s - h
+    below_ext = d >= x
+
+    if evt.pxdp is None:
+        thcof = -c / x
+        trhs = c - c * s / x
+    else:
+        ones = torch.ones_like(evt.pxdp[:, :1])
+        zeros = torch.zeros_like(ones)
+        px = torch.cat([zeros, evt.pxdp, ones], dim=1)
+        pe = torch.cat([ones, evt.petm, zeros], dim=1)
+        dfrac = (d / x)[:, None]
+        idx = torch.sum(dfrac > px[:, 1:-1], dim=1)  # segment index [0, nseg)
+
+        def take(a, i):
+            return torch.gather(a, 1, i[:, None])[:, 0]
+
+        pxdp1 = take(px, idx)
+        pxdp2 = take(px, idx + 1)
+        petm1 = take(pe, idx)
+        petm2 = take(pe, idx + 1)
+        seg = torch.where(pxdp2 - pxdp1 > 0, pxdp2 - pxdp1, DONE)
+        thcof = -(petm1 - petm2) * c / (seg * x)
+        trhs = thcof * (s - pxdp1 * x) + petm1 * c
+
+    mid = act & ~above & ~below_ext
+    hcof = torch.where(mid, thcof, DZERO)
+    rhs = torch.where(mid, trhs, torch.where(act & above, c, DZERO))
     return hcof, rhs
 
 

@@ -1,15 +1,19 @@
 """Convenience builder: construct a GwfModel from plain arrays.
 
 Port of modflow6_tpu/models/gwf/builder.py:93 ``build_gwf`` with the same
-keyword arguments plus ``device``, and of the ``chd_data``/``wel_data``/
-``rch_data`` makers (builder.py:23-52) that pad a stress period's entries
-to a static ``maxbound``.  ``device=None`` is the CUDA device
+keyword arguments plus ``device``, for a DisGrid, DisvGrid or DisuGrid,
+and of the ``chd_data`` ... ``evt_data`` makers (builder.py:23-90) that pad
+a stress period's entries to a static ``maxbound``.  ``device=None`` is the CUDA device
 (``modflow6_torch.cuda_device()``, which raises without one); the CPU is
 used only when asked for.  ``newton`` is False, True or
 "under_relaxation"; ``rewetting`` is dict(wetdry=f64[N], wetfct, iwetit,
 ihdwet), the NPF REWET option; ``wel_auto_flow_reduce`` the WEL
-AUTO_FLOW_REDUCE fraction.  Arguments that would turn on a feature outside
-the structured slice raise ``NotImplementedError``.
+AUTO_FLOW_REDUCE fraction; ``hfb`` a list of (n, m, hydchr) barriers;
+``angle1/2/3`` the rotated-anisotropy angles, passed on as the reference
+passes them.  A DIS grid without angles takes the structured path and gets
+no edge tables on the device; every other model gets the full
+``DeviceTopology``.  ``buy``, ``csub``, ``vsc`` and ``xt3d`` are not ported
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,20 +36,22 @@ def _full(val, n, dtype, device, np_dtype=np.float64):
     return torch.as_tensor(arr.copy(), dtype=dtype, device=device)
 
 
-def _pack_bound(entries, device, maxbound=None):
-    """(node, value) boundary entries → (node i64, value f64, mask) tensors,
-    padded to ``maxbound`` rows (at least one) with ``mask=False``."""
-    arr = np.asarray(entries, np.float64).reshape(-1, 2)
+def _pack_bound(entries, device, maxbound=None, nvalues=1):
+    """(node, value, ...) boundary entries → (node i64, one f64 tensor per
+    value column, mask) tensors, padded to ``maxbound`` rows (at least one)
+    with ``mask=False``."""
+    arr = np.asarray(entries, np.float64).reshape(-1, 1 + nvalues)
     b = arr.shape[0]
     mb = maxbound or max(b, 1)
     node = np.zeros(mb, np.int64)
-    value = np.zeros(mb, np.float64)
+    values = np.zeros((nvalues, mb), np.float64)
     mask = np.zeros(mb, bool)
     node[:b] = arr[:, 0].astype(np.int64)
-    value[:b] = arr[:, 1]
+    values[:, :b] = arr[:, 1:].T
     mask[:b] = True
     return (torch.as_tensor(node, dtype=torch.int64, device=device),
-            torch.as_tensor(value, dtype=torch.float64, device=device),
+            *(torch.as_tensor(v.copy(), dtype=torch.float64, device=device)
+              for v in values),
             torch.as_tensor(mask, dtype=torch.bool, device=device))
 
 
@@ -62,6 +68,47 @@ def wel_data(entries, maxbound=None, device=None):
 def rch_data(entries, maxbound=None, device=None):
     return bnd.RchData(*_pack_bound(entries, resolve_device(device),
                                     maxbound))
+
+
+def drn_data(entries, maxbound=None, device=None):
+    """entries: (node, elev, cond) or (node, elev, cond, ddrn)."""
+    entries = [tuple(e) if len(e) == 4 else (*e, 0.0) for e in entries]
+    return bnd.DrnData(*_pack_bound(entries, resolve_device(device),
+                                    maxbound, nvalues=3))
+
+
+def riv_data(entries, maxbound=None, device=None):
+    """entries: (node, stage, cond, rbot)."""
+    return bnd.RivData(*_pack_bound(entries, resolve_device(device),
+                                    maxbound, nvalues=3))
+
+
+def ghb_data(entries, maxbound=None, device=None):
+    """entries: (node, bhead, cond)."""
+    return bnd.GhbData(*_pack_bound(entries, resolve_device(device),
+                                    maxbound, nvalues=2))
+
+
+def evt_data(entries, maxbound=None, device=None):
+    """entries: (node, surface, rate, depth[, pxdp*(nseg-1),
+    petm*(nseg-1)])."""
+    device = resolve_device(device)
+    nextra = max((len(e) - 4 for e in entries), default=0)
+    node, surface, rate, depth, mask = _pack_bound(
+        [e[:4] for e in entries], device, maxbound, nvalues=3)
+    pxdp = petm = None
+    if nextra > 0:
+        if nextra % 2:
+            raise ValueError("segmented EVT needs pxdp+petm pairs")
+        ns1 = nextra // 2
+        seg = np.zeros((mask.shape[0], 2 * ns1))
+        seg[:len(entries)] = np.asarray([e[4:4 + 2 * ns1] for e in entries],
+                                        np.float64)
+        pxdp = torch.as_tensor(seg[:, :ns1].copy(), dtype=torch.float64,
+                               device=device)
+        petm = torch.as_tensor(seg[:, ns1:].copy(), dtype=torch.float64,
+                               device=device)
+    return bnd.EvtData(node, surface, rate, depth, mask, pxdp, petm)
 
 
 def build_gwf(
@@ -99,18 +146,25 @@ def build_gwf(
     rewetting=None,
     device=None,
 ) -> GwfModel:
-    given = dict(drn=drn, riv=riv, ghb=ghb, evt=evt, buy=buy, csub=csub,
-                 vsc=vsc, hfb=hfb, xt3d=xt3d)
+    given = dict(buy=buy, csub=csub, vsc=vsc, xt3d=xt3d)
     for key, value in given.items():
         if not _is_off(value):
             raise NotImplementedError(f"build_gwf({key}=...) is not ported")
-    if any(np.any(np.asarray(a) != 0.0) for a in (angle1, angle2, angle3)):
-        raise NotImplementedError("rotated anisotropy is not ported")
 
     device = resolve_device(device)
     f64 = torch.float64
-    shape = grid.grid_shape
     N = grid.nodes
+    iangle = [int(np.any(np.asarray(a) != 0.0))
+              for a in (angle1, angle2, angle3)]
+    shape = getattr(grid, "grid_shape", None)
+    if shape is not None and not any(iangle):
+        # the structured path: the grid shape alone, no edge tables
+        topo = grid.build_topology()
+        dtopo = npf.DeviceTopology(grid_shape=shape)
+    else:
+        topo = (grid.build_edge_topology() if shape is not None
+                else grid.build_topology())
+        dtopo = npf.DeviceTopology.from_host(topo, device)
 
     ibound0 = torch.as_tensor((grid.idomain.reshape(-1) > 0).astype(np.int32),
                               dtype=torch.int32, device=device)
@@ -126,13 +180,18 @@ def build_gwf(
     opts = npf.NpfOptions(
         icellavg=icellavg, inewton=int(newton), ivarcv=ivarcv,
         idewatcv=idewatcv, iperched=iperched, ik22=k22 is not None,
-        ik33=k33 is not None, thickstrt=thickstrt, satomega=satomega)
+        ik33=k33 is not None, thickstrt=thickstrt, satomega=satomega,
+        iangle1=iangle[0], iangle2=iangle[1], iangle3=iangle[2])
+    general = dtopo.nbr is not None
     arrays = npf.NpfArrays(
         icelltype=_full(icelltype, N, torch.int32, device, np.int32),
         k11=k11,
         k22=_full(k22, N, f64, device) if k22 is not None else k11,
         k33=_full(k33, N, f64, device) if k33 is not None else k11,
-        top=top, bot=bot)
+        top=top, bot=bot,
+        angle1=_full(angle1, N, f64, device) if general else None,
+        angle2=_full(angle2, N, f64, device) if general else None,
+        angle3=_full(angle3, N, f64, device) if general else None)
 
     sto_opts = sto_arrays = None
     if storage is not None:
@@ -147,16 +206,24 @@ def build_gwf(
             sy=_full(storage.get("sy", 0.0), N, f64, device),
             top=top, bot=bot, area=area)
 
+    structured = shape is not None and not general
     model = GwfModel(
-        name=name, grid=grid, dtopo=npf.DeviceTopology(shape),
+        name=name, grid=grid, topo=topo, dtopo=dtopo,
         npf_opts=opts, npf_arrays=arrays,
         strt=_full(strt, N, f64, device), ibound0=ibound0,
-        delr=torch.as_tensor(grid.delr, dtype=f64, device=device),
-        delc=torch.as_tensor(grid.delc, dtype=f64, device=device),
+        delr=torch.as_tensor(grid.delr, dtype=f64, device=device)
+        if structured else None,
+        delc=torch.as_tensor(grid.delc, dtype=f64, device=device)
+        if structured else None,
         area=area, sto_opts=sto_opts, sto_arrays=sto_arrays,
-        chd=bnd.ChdData(*_pack_bound(chd, device)) if chd else None,
-        wel=bnd.WelData(*_pack_bound(wel, device)) if wel else None,
-        rch=bnd.RchData(*_pack_bound(rch, device)) if rch else None,
+        chd=chd_data(chd, device=device) if chd else None,
+        wel=wel_data(wel, device=device) if wel else None,
+        rch=rch_data(rch, device=device) if rch else None,
+        drn=drn_data(drn, device=device) if drn else None,
+        riv=riv_data(riv, device=device) if riv else None,
+        ghb=ghb_data(ghb, device=device) if ghb else None,
+        evt=evt_data(evt, device=device) if evt else None,
+        hfb=hfb,
         inewton=int(newton), inewtonur=int(newton_ur),
         wel_iflowred=int(wel_auto_flow_reduce is not None),
         wel_flowred=float(wel_auto_flow_reduce or 0.0),

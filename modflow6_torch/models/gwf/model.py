@@ -1,21 +1,24 @@
-"""GWF model: DIS + NPF + STO + CHD/WEL/RCH composed into the per-iteration
-structured system assembly, and the flows of the output phase.
+"""GWF model: DIS/DISV/DISU + NPF + STO + the stress packages composed into
+the per-iteration system assembly, and the flows of the output phase.
 
-Port of the structured branch of modflow6_tpu/models/gwf/model.py
-(``PackageData``, ``finalize_setup``, ``is_linear``, ``packages``,
-``boundary_state``, ``assemble`` with its Newton terms, ``edge_conductances``,
-``edge_flows``, ``boundary_budget``; model.py:32-52, 94-145, 211-492).  The
-port has only the structured 7-point path, so the reference's
-``use_structured`` switch has no counterpart.  Features outside the slice
-(XT3D and its Newton form, HFB, BUY, VSC, CSUB, DRN/RIV/GHB/EVT, UZF, GNC,
-rotated anisotropy, TVS) are not fields of this class; options that would
-turn them on raise ``NotImplementedError``.
+Port of modflow6_tpu/models/gwf/model.py (``PackageData``,
+``use_structured``, ``finalize_setup`` with the HFB barriers, ``is_linear``,
+``packages``, ``boundary_state``, ``assemble`` with its Newton terms,
+``edge_conductances``, ``edge_flows``, ``boundary_budget``).  Features
+outside the ported slices (XT3D and its Newton form, BUY, VSC, CSUB, UZF,
+GNC, TVS) are not fields of this class; options that would turn them on
+raise ``NotImplementedError``.
 
-The port keeps no edge list on the device.  Conductances and face flows
-live on the three structured planes (x, y, z; each one shorter than the
-grid along its direction); ``edge_flows`` lays them out in the reference's
-edge order, ``flowja_csr`` in the budget file's CSR order, and
-``cell_inflow`` sums them per cell, all on the model's device.
+Two paths, chosen by ``use_structured`` as in the reference.  A DIS model
+without rotated anisotropy keeps no edge list on the device: conductances
+and face flows live on the three structured planes (x, y, z; each one
+shorter than the grid along its direction), ``edge_flows`` lays them out
+in the reference's edge order, ``flowja_csr`` in the budget file's CSR
+order, and ``cell_inflow`` sums them per cell.  Every other model (DISV,
+DISU, a DIS grid with angles or with layer-skipping passthrough cells)
+assembles over the edge list of its full ``DeviceTopology`` into the ELL
+table; a DIS grid keeps its grid shape there, so its products still go
+through the stencil kernel.
 """
 
 from __future__ import annotations
@@ -23,10 +26,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import bnd, npf, npf_structured, sto
+
+# the list packages whose per-entry (hcof, rhs) are added at their nodes
+# after WEL and RCH, in the reference's order
+_HEAD_PACKAGES = ("drn", "riv", "ghb", "evt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +45,10 @@ class PackageData:
     chd: Optional[bnd.ChdData] = None
     wel: Optional[bnd.WelData] = None
     rch: Optional[bnd.RchData] = None
+    drn: Optional[bnd.DrnData] = None
+    riv: Optional[bnd.RivData] = None
+    ghb: Optional[bnd.GhbData] = None
+    evt: Optional[bnd.EvtData] = None
 
 
 @dataclasses.dataclass
@@ -49,16 +61,22 @@ class GwfModel:
     npf_arrays: npf.NpfArrays
     strt: torch.Tensor           # f64[N] initial head
     ibound0: torch.Tensor        # i32[N] base ibound from idomain
-    delr: torch.Tensor           # f64[ncol]
-    delc: torch.Tensor           # f64[nrow]
     area: torch.Tensor           # f64[N] horizontal cell area
+    delr: Optional[torch.Tensor] = None     # f64[ncol] (structured path)
+    delc: Optional[torch.Tensor] = None     # f64[nrow]
     sto_opts: Optional[sto.StoOptions] = None
     sto_arrays: Optional[sto.StoArrays] = None
     chd: Optional[bnd.ChdData] = None
     wel: Optional[bnd.WelData] = None
     rch: Optional[bnd.RchData] = None
+    drn: Optional[bnd.DrnData] = None
+    riv: Optional[bnd.RivData] = None
+    ghb: Optional[bnd.GhbData] = None
+    evt: Optional[bnd.EvtData] = None
+    hfb: object = None           # [(n, m, hydchr)] horizontal-flow barriers
     condsat3: tuple = None       # (cx, cy, cz) saturated conductances
-    grid: object = None          # host DisGrid (the output files need it)
+    grid: object = None          # host DisGrid / DisvGrid / DisuGrid
+    topo: object = None          # host connection layout (edge order, CSR)
     inewton: int = 0
     inewtonur: int = 0           # NEWTON UNDER_RELAXATION option (gwf_nur
     # runs only when set, gwf.f90 gwf_nur: `this%inewtonur /= 0`)
@@ -71,12 +89,12 @@ class GwfModel:
         o = self.npf_opts
         if bool(self.inewton) != bool(o.inewton):
             raise ValueError("GwfModel.inewton and NpfOptions.inewton differ")
-        if o.iangle1 or o.iangle2 or o.iangle3:
-            raise NotImplementedError("rotated anisotropy is not ported")
         if self.sto_opts is not None and self.sto_opts.integratechanges:
             raise NotImplementedError("TVS storage integration is not ported")
+        if not self.use_structured and self.dtopo.nbr is None:
+            raise ValueError("a model on the general path needs the edge "
+                             "tables of a full DeviceTopology")
         self._layout = None
-        self._topo = None
 
     @property
     def nodes(self) -> int:
@@ -86,22 +104,113 @@ class GwfModel:
     def device(self) -> torch.device:
         return self.strt.device
 
+    @property
+    def use_structured(self) -> bool:
+        """Gather-free dense assembly: DIS grids without rotated-anisotropy
+        angles (see npf_structured)."""
+        o = self.npf_opts
+        return (self.dtopo.grid_shape is not None
+                and not (o.iangle1 or o.iangle2 or o.iangle3))
+
     def finalize_setup(self):
-        """Precompute the structured condsat (reference npf_ar → calc_condsat)."""
+        """Precompute condsat (reference npf_ar → calc_condsat), on the
+        planes for the structured path and per edge for the general one,
+        and put the HFB barriers into it."""
         a = self.npf_arrays
         sat0 = npf.initial_sat(self.npf_opts, a, self.strt, self.ibound0)
-        self.condsat3 = npf_structured.structured_condsat(
-            self.dtopo.grid_shape, self.delr, self.delc, self.npf_opts,
-            a.icelltype, a.k11, a.k22, a.k33, a.top, a.bot, sat0)
+        if self.use_structured:
+            self.condsat3 = npf_structured.structured_condsat(
+                self.dtopo.grid_shape, self.delr, self.delc, self.npf_opts,
+                a.icelltype, a.k11, a.k22, a.k33, a.top, a.bot, sat0)
+            if self.hfb:
+                self.condsat3 = self._apply_hfb_structured(self.condsat3)
+            return
+        condsat = npf.compute_condsat(self.dtopo, self.npf_opts, a, sat0)
+        if self.hfb:
+            condsat = self._apply_hfb(condsat)
+        self.npf_arrays = dataclasses.replace(a, condsat=condsat)
+
+    def _hfb_series(self, csat, n, m, hydchr, staggered, faw):
+        """Reference HFB conductance math (gwf-hfb.f90 condsat_modify /
+        hfb_fc:304-327): hydchr > 0 is a barrier hydraulic characteristic —
+        series-combine csat with condhfb = hydchr*fawidth*faheight;
+        hydchr < 0 is a direct conductance multiplier (cond = -csat*hydchr).
+        Host floats: a model has a handful of barriers."""
+        top = self.npf_arrays.top
+        bot = self.npf_arrays.bot
+        tn, tm, bn, bm = (float(top[n]), float(top[m]), float(bot[n]),
+                          float(bot[m]))
+        if staggered:
+            fah = min(tn, tm) - max(bn, bm)
+        else:
+            fah = 0.5 * ((tn - bn) + (tm - bm))
+        if hydchr > 0:
+            condhfb = hydchr * faw * fah
+            return csat * condhfb / (csat + condhfb)
+        return -csat * hydchr
+
+    def _apply_hfb(self, condsat):
+        """The barriers in the per-edge condsat, applied in their order."""
+        topo = self.topo
+        key = (topo.edge_n.astype(np.int64) * topo.nodes
+               + topo.edge_m.astype(np.int64))
+        order = np.argsort(key, kind="stable")
+        sorted_key = key[order]
+        cs = condsat.cpu().numpy().copy()
+        for n, m, hydchr in self.hfb:
+            n, m = int(min(n, m)), int(max(n, m))
+            at = int(np.searchsorted(sorted_key, n * topo.nodes + m,
+                                     side="right")) - 1
+            if at < 0 or sorted_key[at] != n * topo.nodes + m:
+                raise ValueError(f"HFB cells {n},{m} are not connected")
+            e = int(order[at])
+            cs[e] = self._hfb_series(float(cs[e]), n, m, float(hydchr),
+                                     topo.ihc[e] == 2, float(topo.hwva[e]))
+        return torch.as_tensor(cs, dtype=condsat.dtype, device=condsat.device)
+
+    def _apply_hfb_structured(self, condsat3):
+        """The barriers in the dense (cx, cy, cz) structured arrays (slot
+        (k,i,j) holds the conductance toward (k,i,j+1) etc.).  The face
+        width is the reference's per-edge hwva: delc across a column face,
+        delr across a row face, the cell area across a layer face."""
+        nlay, nrow, ncol = self.dtopo.grid_shape
+        ncpl = nrow * ncol
+        delr = self.delr.cpu().numpy()
+        delc = self.delc.cpu().numpy()
+        exists = self.grid.idomain.reshape(-1) != 0 if self.grid is not None \
+            else np.ones(self.nodes, bool)
+        planes = [c.cpu().numpy().copy() for c in condsat3]
+        for n, m, hydchr in self.hfb:
+            n, m = int(min(n, m)), int(max(n, m))
+            k, i, j = n // ncpl, (n % ncpl) // ncol, n % ncol
+            if m == n + 1 and j + 1 < ncol:
+                axis, faw = 0, float(delc[i])
+            elif m == n + ncol and i + 1 < nrow:
+                axis, faw = 1, float(delr[j])
+            elif m == n + ncpl and m < self.nodes:
+                axis, faw = 2, float(delc[i] * delr[j])
+            else:
+                raise ValueError(f"HFB cells {n},{m} are not connected")
+            if not (exists[n] and exists[m]):
+                raise ValueError(f"HFB cells {n},{m} are not connected")
+            arr = planes[axis]
+            arr[k, i, j] = self._hfb_series(float(arr[k, i, j]), n, m,
+                                            float(hydchr), False, faw)
+        return tuple(torch.as_tensor(c, dtype=torch.float64,
+                                     device=self.device) for c in planes)
 
     @property
     def is_linear(self) -> bool:
         """True when the assembled system does not depend on the current
-        head iterate: no Newton terms, no head-switched well rates, no
-        rewetting (which changes ibound between outer iterations), every
-        cell confined and storage non-convertible.  The fused solver then
-        assembles once per time step."""
+        head iterate: no Newton terms, no head-switched well, drain, river
+        or evapotranspiration rates, no rewetting (which changes ibound
+        between outer iterations), every cell confined and storage
+        non-convertible.  The fused solver then assembles once per time
+        step."""
         if self.inewton or self.wel_iflowred or self.wetdry is not None:
+            return False
+        if self.drn is not None or self.riv is not None \
+                or self.evt is not None:
             return False
         if bool(torch.any(self.npf_arrays.icelltype != 0)):
             return False
@@ -115,7 +224,9 @@ class GwfModel:
     @property
     def packages(self) -> PackageData:
         """Static package bundle (models built via builder.build_gwf)."""
-        return PackageData(chd=self.chd, wel=self.wel, rch=self.rch)
+        return PackageData(chd=self.chd, wel=self.wel, rch=self.rch,
+                           drn=self.drn, riv=self.riv, ghb=self.ghb,
+                           evt=self.evt)
 
     def boundary_state(self, head, pkgs: PackageData = None):
         """Apply CHD to (ibound, head) — the rp/ad phase of CHD."""
@@ -133,6 +244,16 @@ class GwfModel:
         return bnd.wel_terms(wel, head, ibound, a.icelltype, a.top, a.bot,
                              self.wel_iflowred, self.wel_flowred)
 
+    def _head_package_terms(self, name, data, head, ibound):
+        """(hcof, rhs) per entry of a DRN, RIV, GHB or EVT package."""
+        if name == "drn":
+            return bnd.drn_terms(data, head, ibound)
+        if name == "riv":
+            return bnd.riv_terms(data, head, ibound)
+        if name == "ghb":
+            return bnd.ghb_terms(data, ibound)
+        return bnd.evt_terms(data, head, ibound, self.area)
+
     def assemble(self, head, head_old, ibound, delt, iss: bool,
                  pkgs: PackageData = None, newton: bool = True):
         """One full system build at the current head iterate → (diag, off,
@@ -143,9 +264,13 @@ class GwfModel:
             pkgs = self.packages
         opts, arrays = self.npf_opts, self.npf_arrays
         sat = npf.compute_saturation(opts, arrays, head, ibound)
-        diag, off, rhs = npf_structured.assemble_structured(
-            self.dtopo.grid_shape, self.delr, self.delc, opts, arrays,
-            head, ibound, sat, self.condsat3)
+        if self.use_structured:
+            diag, off, rhs = npf_structured.assemble_structured(
+                self.dtopo.grid_shape, self.delr, self.delc, opts, arrays,
+                head, ibound, sat, self.condsat3)
+        else:
+            diag, off, rhs, _ = npf.assemble(self.dtopo, opts, arrays, head,
+                                             ibound, sat)
 
         if self.sto_arrays is not None and not iss:
             d_add, r_add = sto.assemble(self.sto_opts, self.sto_arrays,
@@ -161,11 +286,21 @@ class GwfModel:
             hcof, r = bnd.rch_terms(pkgs.rch, ibound, self.area)
             diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.rch.node,
                                           pkgs.rch.mask, hcof, r)
+        for name in _HEAD_PACKAGES:
+            data = getattr(pkgs, name)
+            if data is not None:
+                hcof, r = self._head_package_terms(name, data, head, ibound)
+                diag, rhs = bnd.scatter_terms(diag, rhs, data.node,
+                                              data.mask, hcof, r)
 
         if self.inewton and newton:
-            diag, off, rhs = npf.newton_terms(
-                self.dtopo, opts, arrays, head, ibound, diag, off, rhs,
-                self.condsat3, self.ibound0)
+            if self.use_structured:
+                diag, off, rhs = npf.newton_terms(
+                    self.dtopo, opts, arrays, head, ibound, diag, off, rhs,
+                    self.condsat3, self.ibound0)
+            else:
+                diag, off, rhs = npf.newton_terms_edges(
+                    self.dtopo, opts, arrays, head, ibound, diag, off, rhs)
             if self.sto_arrays is not None and not iss:
                 d_add, r_add = sto.newton_terms(self.sto_opts,
                                                 self.sto_arrays, head,
@@ -184,11 +319,15 @@ class GwfModel:
     # ------------------------------------------------- flows (output phase)
 
     def edge_conductances(self, head, ibound, pkgs=None):
-        """Conductances for flowja/budget output (npf_cq inputs) as the
-        structured planes (cond_x, cond_y, cond_z); called once per time
-        step, outside the iteration loop."""
+        """Conductances for flowja/budget output (npf_cq inputs): the
+        structured planes (cond_x, cond_y, cond_z) on the structured path,
+        one value per edge on the general one; called once per time step,
+        outside the iteration loop."""
         opts, arrays = self.npf_opts, self.npf_arrays
         sat = npf.compute_saturation(opts, arrays, head, ibound)
+        if not self.use_structured:
+            return npf.edge_conductance(self.dtopo, opts, arrays, head,
+                                        ibound, sat)
         return npf_structured.structured_conductance(
             self.dtopo.grid_shape, self.delr, self.delc, opts, arrays, head,
             ibound, sat, self.condsat3)
@@ -220,39 +359,63 @@ class GwfModel:
                 F.pad(qz, (0, 0, 0, 0, 0, 1))]      # down
         return torch.stack(cols, dim=-1).reshape(-1, 7)
 
+    def _host_topo(self):
+        if self.topo is None:
+            raise ValueError("this model was built without its grid; "
+                             "the edge and CSR layouts need idomain")
+        return self.topo
+
     def _masks(self):
-        """The grid's CSR-row and edge masks as tensors on the device."""
+        """Structured path: the grid's CSR-row and edge masks as tensors on
+        the device."""
         if self._layout is None:
-            if self.grid is None:
-                raise ValueError("this model was built without its grid; "
-                                 "the edge and CSR layouts need idomain")
-            topo = self.topo
+            topo = self._host_topo()
             self._layout = (
                 torch.as_tensor(topo.row_mask, device=self.device),
                 torch.as_tensor(topo.edge_mask, device=self.device))
         return self._layout
 
-    @property
-    def topo(self):
-        """Host connection layout (edge order, CSR) of the model's grid."""
-        if self._topo is None:
-            self._topo = self.grid.build_topology()
-        return self._topo
+    def _csr_positions(self):
+        """General path: (nja, edge_pos_nm, edge_pos_mn) of the host
+        topology's CSR pattern, the positions as int64 tensors on the
+        device."""
+        if self._layout is None:
+            ia, _, pos_nm, pos_mn = self._host_topo().csr
+            self._layout = (
+                int(ia[-1]),
+                torch.as_tensor(pos_nm, dtype=torch.int64, device=self.device),
+                torch.as_tensor(pos_mn, dtype=torch.int64, device=self.device))
+        return self._layout
 
     def edge_flows(self, head, ibound, cond=None, pkgs=None):
         """Per-edge flow q (positive into edge_n) in the reference's edge
         order, for flowja/budgets."""
+        if not self.use_structured:
+            if cond is None:
+                cond = self.edge_conductances(head, ibound, pkgs)
+            return npf.flowja(self.dtopo, cond, head)
         q7 = self._neighbour_flows(head, ibound, cond, pkgs)
         return q7[:, 4:7][self._masks()[1]]
 
     def flowja_csr(self, head, ibound, cond=None, pkgs=None):
         """The full CSR flowja array (diagonal entries zero), the .cbc
         FLOW-JA-FACE layout."""
+        if not self.use_structured:
+            q = self.edge_flows(head, ibound, cond, pkgs)
+            nja, pos_nm, pos_mn = self._csr_positions()
+            flowja = torch.zeros(nja, dtype=q.dtype, device=q.device)
+            flowja[pos_nm] = q           # flow into n from m
+            flowja[pos_mn] = -q
+            return flowja
         return self._neighbour_flows(head, ibound, cond, pkgs)[
             self._masks()[0]]
 
     def cell_inflow(self, head, ibound, cond=None, pkgs=None):
-        """f64[N] net flow into each cell over its faces."""
+        """f64[N] net flow into each cell over its faces, summed in a fixed
+        order (over the seven table columns, or over the ELL slots)."""
+        if not self.use_structured:
+            q = self.edge_flows(head, ibound, cond, pkgs)
+            return npf._row_sum(self.dtopo, q, -q)
         return self._neighbour_flows(head, ibound, cond, pkgs).sum(dim=1)
 
     # ------------------------------------------------------------ budget
@@ -277,4 +440,10 @@ class GwfModel:
             hcof, r = bnd.rch_terms(pkgs.rch, ibound, self.area)
             out["RCH"] = bnd.bound_flows(pkgs.rch.node, pkgs.rch.mask, hcof,
                                          r, head, ibound)
+        for name in _HEAD_PACKAGES:
+            data = getattr(pkgs, name)
+            if data is not None:
+                hcof, r = self._head_package_terms(name, data, head, ibound)
+                out[name.upper()] = bnd.bound_flows(data.node, data.mask,
+                                                    hcof, r, head, ibound)
         return out

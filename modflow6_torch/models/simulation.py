@@ -1,7 +1,7 @@
 """Simulation: the create→define→time-loop→finalize core loop.
 
-Port of modflow6_tpu/models/simulation.py for one structured GWF model and
-one IMS solution (reference core loop src/mf6core.f90: Mf6Initialize:70,
+Port of modflow6_tpu/models/simulation.py for one GWF model (on a DIS,
+DISV or DISU grid) and one IMS solution (reference core loop src/mf6core.f90: Mf6Initialize:70,
 Mf6PrepareTimestep:498, Mf6DoTimestep:620, Mf6FinalizeTimestep:708): walk
 the TDIS periods and steps, solve each step with the numerical solution,
 compute flows and budgets, and write the heads, budget, grid and listing
@@ -12,7 +12,9 @@ ported slice; the loader raises for decks that ask for them.
 The output phase works on the model's device.  Face flows, their per-cell
 sums (the CHD flows) and the storage rates are computed there from the
 structured planes; each step the host reads the budget's IN/OUT sums in one
-transfer, and the arrays of a record only when that record is saved.
+transfer, and the arrays of a record only when that record is saved.  On
+the general path the same holds with the per-edge flows in place of the
+planes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ..constants import DHNOFLO
+from .discretization import DisGrid, DisvGrid
 from ..ops.smoothing import quadratic_saturation
 from ..ops.storage import ss_capacity, ss_terms, sy_capacity
 from ..solution.ims import ImsSettings, NumericalSolution
@@ -170,7 +173,7 @@ class Simulation:
                      if has_oc else kstp % save_heads_every == 0)
         save_budget = (self.oc.active("SAVE", "BUDGET", kper, kstp, nstp)
                        if has_oc else True)
-        shape3d = model.grid.shape
+        shape3d = self._shape3d()
         if self.hds and save_head:
             out = head_np.copy()
             out[ibound.cpu().numpy() == 0] = DHNOFLO
@@ -211,8 +214,12 @@ class Simulation:
             return
         path = str(self.hds_path)
         path = (path[:-4] if path.endswith(".hds") else path) + ".grb"
-        grb.write_grb_dis(path, self.model.grid,
-                          self.model.npf_arrays.icelltype.cpu().numpy())
+        grid = self.model.grid
+        write = (grb.write_grb_dis if isinstance(grid, DisGrid)
+                 else grb.write_grb_disv if isinstance(grid, DisvGrid)
+                 else grb.write_grb_disu)
+        write(path, grid, self.model.npf_arrays.icelltype.cpu().numpy(),
+              topo=self.model.topo)
 
     @staticmethod
     def _format_array(arr3d, title, per_line=10):
@@ -258,6 +265,16 @@ class Simulation:
 
     # ------------------------------------------------------------ helpers
 
+    def _shape3d(self):
+        """The (nlay, nrow, ncol) that the output records state: a DISV
+        grid is (nlay, 1, ncpl), a DISU grid (1, 1, nodes)."""
+        shp = self.model.grid.shape
+        if len(shp) == 3:
+            return shp
+        if len(shp) == 2:
+            return (shp[0], 1, shp[1])
+        return (1, 1, shp[0])
+
     def _flowja_csr(self, head, ibound, cond, pkgs):
         """The full CSR flowja array (diagonal entries zero) as numpy,
         matching the reference's .cbc FLOW-JA-FACE layout."""
@@ -301,9 +318,9 @@ class Simulation:
                             totim):
         """One imeth=6 (ubdsv06, InputOutput.f90:981) list record per
         storage term and boundary package, so .cbc post-processing sees
-        STO/CHD/WEL/RCH flows and not just FLOW-JA-FACE."""
+        the storage and boundary flows and not just FLOW-JA-FACE."""
         model = self.model
-        shape3d = model.grid.shape
+        shape3d = self._shape3d()
         mname = model.name.upper()
         for name, q in flows.items():
             if name.startswith("STO-"):

@@ -1,6 +1,6 @@
 """Inter-cell conductance math, elementwise on tensors.
 
-Port of modflow6_tpu/ops/conductance.py:36-175 (reference
+Port of modflow6_tpu/ops/conductance.py:36-208 (reference
 GwfConductanceUtils.f90).  ``icellavg``, ``iupstream``, ``ivarcv`` and
 ``idewatcv`` are static Python ints that select the expression.
 """
@@ -121,3 +121,34 @@ def vcond(ibdn, ibdm, ictn, ictm, ivarcv, idewatcv, condsat, hn, hm,
     cond = torch.where(both_nonconvertible | fully_saturated, condsat,
                        cond_recalc)
     return torch.where(inactive, DZERO, cond)
+
+
+def thksatnm(ibdn, ibdm, ictn, ictm, iupstream, ihc, hn, hm, satn, satm,
+             topn, topm, botn, botm):
+    """Wetted interface thickness for a horizontal connection (for
+    spdis/flows)."""
+    is_stag = torch.as_tensor(ihc == C3D_STAGGERED, device=satn.device)
+
+    # both non-convertible
+    sill_top = torch.minimum(topn, topm)
+    sill_bot = torch.maximum(botn, botm)
+    thk_stag_conf = torch.clamp(sill_top - sill_bot, min=DZERO)
+    thk_conf = torch.where(is_stag, thk_stag_conf,
+                           DHALF * ((topn - botn) + (topm - botm)))
+
+    if iupstream == 1:
+        thk_conv = torch.where(hn > hm, satn * (topn - botn),
+                               satm * (topm - botm))
+    else:
+        thksatn = torch.where(
+            is_stag, staggered_thkfrac(topn, botn, satn, topm, botm),
+            satn * (topn - botn))
+        thksatm = torch.where(
+            is_stag, staggered_thkfrac(topm, botm, satm, topn, botn),
+            satm * (topm - botm))
+        thk_conv = DHALF * (thksatn + thksatm)
+
+    both_nonconvertible = (ictn == 0) & (ictm == 0)
+    res = torch.where(both_nonconvertible, thk_conf, thk_conv)
+    inactive = (ibdn == 0) | (ibdm == 0)
+    return torch.where(inactive, DZERO, res)

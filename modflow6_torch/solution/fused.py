@@ -21,8 +21,8 @@ import torch
 from ..constants import DZERO
 from ..models.gwf import npf as npf_mod
 from ..ops.solvers.krylov import bicgstab, cg, epfact, refined_solve
-from ..ops.system import apply_dirichlet_structured, make_matvec
-from .ims import ImsSettings, _make_precond, ptc_terms
+from ..ops.system import make_matvec
+from .ims import ImsSettings, _make_precond, fix_system, ptc_terms
 from .ims import use_ptc as ptc_applies
 
 
@@ -54,9 +54,8 @@ def make_fused_step(model, settings: ImsSettings, iss: bool, kper: int = 1):
     def build_system(head, head_old, ibound, delt):
         diag, off, rhs = model.assemble(head, head_old, ibound, delt, iss)
         active = torch.sign(ibound)
-        diag, off, rhs = apply_dirichlet_structured(
-            dtopo.grid_shape, active, diag, off, rhs, head,
-            symmetric=use_cg)
+        diag, off, rhs = fix_system(model, active, diag, off, rhs, head,
+                                    symmetric=use_cg)
         return diag, off, rhs, active
 
     def make_solvers(diag, off):

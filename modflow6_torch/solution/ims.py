@@ -5,7 +5,8 @@ Port of modflow6_tpu/solution/ims.py (reference
 src/Solution/NumericalSolution.f90: solve :1482-1837, sln_ls :2404-2475,
 sln_underrelax :2989-3114, sln_backtracking :2680-2776, complexity presets
 sln_setouter :2623-2671): ``ImsSettings``, ``SolveInfo`` and
-``NumericalSolution`` for the structured model, with pseudo-transient
+``NumericalSolution`` for a model on the structured or the general path
+(``fix_system`` picks the Dirichlet fixup), with pseudo-transient
 continuation (sln_ls :2484-2569 + gwf_ptc gwf.f90:625-687), the Newton
 under-relaxation with its convergence rescue (npf_nur +
 sln_nur_has_converged) and the wetting/drying sweep before each outer
@@ -33,7 +34,8 @@ from ..ops.solvers.krylov import (_is_close, _signed_absmax, bicgstab, cg,
                                   epfact, refined_solve)
 from ..ops.solvers.mg import make_mg_preconditioner
 from ..ops.solvers.precond import make_preconditioner
-from ..ops.system import apply_dirichlet_structured, make_matvec
+from ..ops.system import (apply_dirichlet, apply_dirichlet_structured,
+                          make_matvec)
 
 
 @dataclasses.dataclass
@@ -92,15 +94,26 @@ class ImsSettings:
         raise ValueError(f"unknown complexity {complexity!r}")
 
 
+def fix_system(model, active, diag, off, rhs, x, symmetric):
+    """The Dirichlet fixup before the linear solve, by the model's path:
+    on shifted dense fields for a structured model, through the neighbour
+    table otherwise (modflow6_tpu/solution/ims.py:166-173)."""
+    if model.use_structured:
+        return apply_dirichlet_structured(model.dtopo.grid_shape, active,
+                                          diag, off, rhs, x,
+                                          symmetric=symmetric)
+    return apply_dirichlet(model.dtopo.nbr, active, diag, off, rhs, x,
+                           symmetric=symmetric)
+
+
 def _make_precond(s, model, dtopo, matvec, diag, off):
-    """Preconditioner factory shared by the diagnostic and fused paths,
-    with the reference's signature (its structured switch lives on
-    ``model``; here the topology's grid shape says the same).  ``mg`` needs
-    the structured stencil form (a topology without a grid shape gets
-    Chebyshev instead, as in the reference); everything else goes through
-    ops.solvers.precond.make_preconditioner, Chebyshev with at least
-    order 4."""
-    if s.preconditioner == "mg" and dtopo.grid_shape is not None:
+    """Preconditioner factory shared by the diagnostic and fused paths.
+    ``mg`` needs the structured stencil form: a model that is not on the
+    structured path (a general grid, or a DIS grid with rotated
+    anisotropy) gets Chebyshev instead, as in the reference; everything
+    else goes through ops.solvers.precond.make_preconditioner, Chebyshev
+    with at least order 4."""
+    if s.preconditioner == "mg" and model.use_structured:
         return make_mg_preconditioner(dtopo.grid_shape, diag, off)
     kind = "chebyshev" if s.preconditioner == "mg" else s.preconditioner
     return make_preconditioner(kind, matvec, diag,
@@ -202,8 +215,8 @@ class NumericalSolution:
                                         pkgs)
         xtemp = head
         active = torch.sign(ibound)
-        diag, off, rhs = apply_dirichlet_structured(
-            dtopo.grid_shape, active, diag, off, rhs, head,
+        diag, off, rhs = fix_system(
+            model, active, diag, off, rhs, head,
             symmetric=(s.linear_acceleration == "cg"))
 
         if use_ptc:
@@ -414,7 +427,7 @@ class NumericalSolution:
 
         Returns (head, SolveInfo, aux) where aux carries (ibound, cond) for
         the output phase; ``cond`` is the conductance on the structured
-        planes (see GwfModel.edge_conductances).  ``ibound_in`` carries the
+        planes or per edge (see GwfModel.edge_conductances).  ``ibound_in`` carries the
         dry/wet cell status across steps when NPF rewetting is active (pass
         the previous step's aux["ibound"]).  With rewetting the host reads
         one more flag per outer iteration: whether the sweep changed a cell.
@@ -454,10 +467,15 @@ class NumericalSolution:
             wd_changed = None
             if wetdry is not None:
                 # npf_cf wetting/drying sweep before formulate
-                ibound, head, wd_changed = npf_mod.wetdry_update(
-                    model.dtopo, model.npf_arrays, wetdry, model.ibound0,
-                    ibound, head, kiter, iwetit=iwetit, ihdwet=ihdwet,
-                    wetfct=wetfct)
+                kw = dict(iwetit=iwetit, ihdwet=ihdwet, wetfct=wetfct)
+                if model.use_structured:
+                    ibound, head, wd_changed = npf_mod.wetdry_update(
+                        model.dtopo, model.npf_arrays, wetdry,
+                        model.ibound0, ibound, head, kiter, **kw)
+                else:
+                    ibound, head, wd_changed = npf_mod.wetdry_update_edges(
+                        model.dtopo, model.npf_arrays, wetdry, ibound, head,
+                        kiter, **kw)
             if use_bt:
                 head, res_prev = self._backtrack(
                     head, head_prev, head_old_adj, ibound, delt, res_prev,

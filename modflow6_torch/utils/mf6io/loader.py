@@ -1,12 +1,14 @@
 """Load an MF6 simulation from an mfsim.nam workspace.
 
-Port of the parts of modflow6_tpu/utils/mf6io/loader.py that the structured
-GWF slice needs (reference IDM load + SimulationCreate,
+Port of the parts of modflow6_tpu/utils/mf6io/loader.py that the ported
+GWF slices need (reference IDM load + SimulationCreate,
 src/Utilities/Idm/IdmLoad.f90, src/SimulationCreate.f90:200-729):
-``load_tdis``, ``load_ims``, ``load_dis``, ``load_oc``, the list-package
-reader, the GWF model loader and ``load_simulation`` for one GWF6 model on
-a DIS grid with the packages DIS6, IC6, NPF6, STO6, CHD6, WEL6, RCH6 (list
-or READASARRAYS) and OC6, with MF6's stress-period persistence; the GWF
+``load_tdis``, ``load_ims``, ``load_dis``, ``load_disv``, ``load_disu``,
+``load_oc``, the list-package reader, the GWF model loader and
+``load_simulation`` for one GWF6 model on a DIS, DISV or DISU grid with the
+packages DIS6/DISV6/DISU6, IC6, NPF6, STO6, CHD6, WEL6, DRN6, RIV6, GHB6,
+EVT6 (with NSEG segments), RCH6 (list or READASARRAYS) and OC6, with MF6's
+stress-period persistence; the GWF
 name-file option NEWTON [UNDER_RELAXATION], NPF REWET (WETFCT, IWETIT,
 IHDWET) with the WETDRY array, WEL AUTO_FLOW_REDUCE, and the IMS options
 NO_PTC and PRECONDITIONER_LEVELS/PRECONDITIONER_DROP_TOLERANCE (the
@@ -15,8 +17,11 @@ order 4 with a warning).
 
 Everything else a deck can ask for raises ``NotImplementedError`` naming
 the package or keyword: other model types, several models, exchanges,
-DISV6/DISU6, XT3D, rotated anisotropy, TVK6/TVS6, TS6/TAS6 series,
-DRN/RIV/GHB/EVT and the advanced packages, OBS6, NetCDF, ATS6 and HPC6.
+XT3D, TVK6/TVS6, TS6/TAS6 series, HFB6 and the advanced packages, OBS6,
+NetCDF, ATS6 and HPC6.  The reference's loader reads neither the NPF
+ANGLE1/2/3 arrays nor the DRN AUXDEPTHNAME option (rotated anisotropy,
+like HFB, reaches a model only through ``build_gwf``); this one raises on
+them by name rather than run without them.
 Keywords that only select listing or output
 detail and that the reference's loader reads past (PRINT_INPUT,
 PRINT_FLOWS, SAVE_FLOWS, SAVE_SPECIFIC_DISCHARGE, ...) are read past here
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
-from ...models.discretization import DisGrid
+from ...models.discretization import DisGrid, DisuGrid, DisvGrid
 from ...models.gwf import bnd, builder
 from ...models.gwf.model import PackageData
 from ...models.simulation import Simulation
@@ -48,10 +53,11 @@ from .arrays import read_grid_array
 from .reader import BlockFile
 
 # package types of a GWF name file that the slice covers
-_SUPPORTED_PACKAGES = ("DIS6", "IC6", "NPF6", "STO6", "CHD6", "WEL6", "RCH6",
-                       "OC6")
+_SUPPORTED_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "NPF6", "STO6", "CHD6",
+                       "WEL6", "DRN6", "RIV6", "GHB6", "EVT6", "RCH6", "OC6")
 # options of a list package that would change its flows and are not ported
-_UNPORTED_LIST_OPTIONS = ("TS6", "OBS6", "MOVER", "AUXMULTNAME")
+_UNPORTED_LIST_OPTIONS = ("TS6", "OBS6", "MOVER", "AUXMULTNAME",
+                          "AUXDEPTHNAME", "SURF_RATE_SPECIFIED")
 
 
 def _f(tok):
@@ -202,6 +208,68 @@ def load_dis(path) -> DisGrid:
                           angrot=float(opts.get("ANGROT", 0.0)))
 
 
+def load_disv(path) -> DisvGrid:
+    """DISV grid file (reference src/Model/Discretization/Disv.f90 +
+    gwf-disv.dfn): DIMENSIONS NCPL/NLAY/NVERT, VERTICES, CELL2D blocks."""
+    bf = BlockFile(path)
+    base = os.path.dirname(path)
+    d = bf.dimensions()
+    nlay, ncpl, nvert = d["NLAY"], d["NCPL"], d["NVERT"]
+    verts = np.zeros((nvert, 2))
+    for toks in bf.get("VERTICES").lines:
+        verts[int(toks[0]) - 1] = (float(toks[1]), float(toks[2]))
+    cell2d = [None] * ncpl
+    for toks in bf.get("CELL2D").lines:
+        ncvert = int(toks[3])
+        ivs = [int(t) - 1 for t in toks[4:4 + ncvert]]
+        # MF6 lists cell vertices clockwise with an optional closing
+        # duplicate; DisvGrid wants an open ring
+        if len(ivs) > 1 and ivs[0] == ivs[-1]:
+            ivs = ivs[:-1]
+        cell2d[int(toks[0]) - 1] = (float(toks[1]), float(toks[2]), ivs)
+    top = read_grid_array(bf, "GRIDDATA", "TOP", (ncpl,), base)
+    botm = read_grid_array(bf, "GRIDDATA", "BOTM", (nlay, ncpl), base)
+    idomain = read_grid_array(bf, "GRIDDATA", "IDOMAIN", (nlay, ncpl),
+                              base, dtype=np.int64, default=1)
+    return DisvGrid.create(nlay, ncpl, verts, cell2d, top, botm, idomain)
+
+
+def load_disu(path) -> DisuGrid:
+    """DISU grid file (Disu.f90 + gwf-disu.dfn): NODES/NJA dimensions,
+    GRIDDATA top/bot/area, CONNECTIONDATA iac/ja/ihc/cl12/hwva/angldegx."""
+    bf = BlockFile(path)
+    base = os.path.dirname(path)
+    d = bf.dimensions()
+    nodes, nja = d["NODES"], d["NJA"]
+    top = read_grid_array(bf, "GRIDDATA", "TOP", (nodes,), base)
+    bot = read_grid_array(bf, "GRIDDATA", "BOT", (nodes,), base)
+    area = read_grid_array(bf, "GRIDDATA", "AREA", (nodes,), base)
+    idomain = read_grid_array(bf, "GRIDDATA", "IDOMAIN", (nodes,), base,
+                              dtype=np.int64, default=1)
+
+    def conn(name, dtype=np.float64):
+        return read_grid_array(bf, "CONNECTIONDATA", name,
+                               (nodes,) if name == "IAC" else (nja,), base,
+                               dtype=dtype)
+
+    # MF6 ja is 1-based with each row led by the cell number itself
+    return DisuGrid.create(top, bot, area, conn("IAC", np.int64),
+                           np.abs(conn("JA", np.int64)) - 1,
+                           conn("IHC", np.int64), conn("CL12"), conn("HWVA"),
+                           conn("ANGLDEGX"), idomain)
+
+
+def _load_grid(pkg_files):
+    """Dispatch the discretization package (DIS6/DISV6/DISU6)."""
+    if "DIS6" in pkg_files:
+        return load_dis(pkg_files["DIS6"][0])
+    if "DISV6" in pkg_files:
+        return load_disv(pkg_files["DISV6"][0])
+    if "DISU6" in pkg_files:
+        return load_disu(pkg_files["DISU6"][0])
+    raise ValueError("model requires a DIS6, DISV6, or DISU6 package")
+
+
 def load_oc(path, mdir, component="gwf-oc"):
     """OC file → (hds_path, cbc_path, OutputControl with PERIOD blocks)."""
     bf = BlockFile(path)
@@ -227,10 +295,16 @@ def load_oc(path, mdir, component="gwf-oc"):
 
 
 def _cellid_to_node(toks, grid, start=0):
-    """Parse a DIS cellid (1-based) → 0-based node; returns (node, ntok)."""
-    k, i, j = (int(toks[start]) - 1, int(toks[start + 1]) - 1,
-               int(toks[start + 2]) - 1)
-    return int(grid.node_number(k, i, j)), 3
+    """Parse a cellid (1-based: layer row column, layer cell, or node) →
+    0-based node; returns (node, ntok)."""
+    if isinstance(grid, DisGrid):
+        k, i, j = (int(toks[start]) - 1, int(toks[start + 1]) - 1,
+                   int(toks[start + 2]) - 1)
+        return int(grid.node_number(k, i, j)), 3
+    if isinstance(grid, DisvGrid):
+        k, c = int(toks[start]) - 1, int(toks[start + 1]) - 1
+        return k * grid.ncpl + c, 2
+    return int(toks[start]) - 1, 1
 
 
 def _load_period_lists(path, grid, ncols, component=None):
@@ -268,7 +342,11 @@ def _load_period_lists(path, grid, ncols, component=None):
 _LIST_PACKAGES = {
     "CHD6": ("chd", 1, builder.chd_data),
     "WEL6": ("wel", 1, builder.wel_data),
+    "DRN6": ("drn", 2, builder.drn_data),
+    "RIV6": ("riv", 3, builder.riv_data),
+    "GHB6": ("ghb", 2, builder.ghb_data),
     "RCH6": ("rch", 1, builder.rch_data),
+    "EVT6": ("evt", 3, builder.evt_data),
 }
 
 
@@ -291,7 +369,8 @@ def _load_rcha(path, shp, mdir, device):
         raise _not_ported(f"{path}: RCHA period variable {head_toks[0]}")
     if len(head_toks) > 1 and head_toks[1].upper() == "TIMEARRAYSERIES":
         raise _not_ported(f"{path}: TIMEARRAYSERIES (TAS6)")
-    rcha = np.asarray(read_grid_array(rch_bf, "PERIOD", "RECHARGE", shp[1:],
+    rcha = np.asarray(read_grid_array(rch_bf, "PERIOD", "RECHARGE",
+                                      shp[1:] if len(shp) > 1 else shp,
                                       mdir), np.float64).reshape(-1)
     return bnd.RchData(
         torch.arange(rcha.size, dtype=torch.int64, device=device),
@@ -319,11 +398,11 @@ def _load_gwf_model(ws, mfname, mname, device):
         if ftype not in _SUPPORTED_PACKAGES:
             raise _not_ported(f"{mfname}: package {ftype}")
         pkg_files.setdefault(ftype, []).append(os.path.join(mdir, toks[1]))
-    for ftype in ("DIS6", "IC6", "NPF6"):
+    for ftype in ("IC6", "NPF6"):
         if ftype not in pkg_files:
             raise ValueError(f"{mfname}: model requires a {ftype} package")
 
-    grid = load_dis(pkg_files["DIS6"][0])
+    grid = _load_grid(pkg_files)
     shp = grid.shape
     base = mdir
 
@@ -408,6 +487,10 @@ def _load_gwf_model(ws, mfname, mname, device):
             continue
         all_periods = {}
         for path in pkg_files[ftype]:   # multiple instances merge
+            if ftype == "EVT6":
+                # segmented ET: extra pxdp/petm columns (gwf-evt.dfn NSEG)
+                nseg = BlockFile(path).dimensions().get("NSEG", 1)
+                ncols = 3 + 2 * (nseg - 1)
             pkg_opts[attr], _, periods = _load_period_lists(
                 path, grid, ncols, component="gwf-" + ftype[:-1].lower())
             for kper, entries in periods.items():
@@ -495,14 +578,15 @@ def _attach_period_data(simulation, pkg_periods, maxbound, first_pkgs,
                                             maxbound=maxbound[attr],
                                             device=device)
         simulation.period_data[kper] = PackageData(
-            **{a: current.get(a) for a in ("chd", "wel", "rch")})
+            **{a: current.get(a)
+               for a in (f.name for f in dataclasses.fields(PackageData))})
 
 
 def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
                     device=None):
     """Load mfsim.nam and everything it references → Simulation.
 
-    Supported: one GWF6 model on a DIS grid with one IMS solution (see the
+    Supported: one GWF6 model with one IMS solution (see the
     module docstring).  ``device=None`` puts the model on the CUDA device
     and raises when there is none; pass ``"cpu"`` to run on the CPU.
     """

@@ -2,7 +2,7 @@
 
 A copy of modflow6_tpu/utils/mf6io/schema.py; ``dfn_schema.json`` beside it
 holds the components this package loads (sim-nam, sim-tdis, sln-ims and
-the gwf-* packages of the structured slice), cut from the reference's
+the gwf-* packages of the ported slices), cut from the reference's
 table.
 
 The reference's 142 declarative input specs (doc/mf6io/mf6ivar/dfn/*.dfn)

@@ -113,13 +113,24 @@ def test_passthrough_layers_are_not_structured():
     args = dict(nlay=3, nrow=2, ncol=2, delr=1.0, delc=1.0, top=3.0,
                 botm=np.array([2.0, 1.0, 0.0])[:, None, None]
                 * np.ones((3, 2, 2)), idomain=idomain)
-    assert JaxDisGrid.create(**args).build_topology().grid_shape is None
-    with pytest.raises(NotImplementedError, match="passthrough"):
-        DisGrid.create(**args).grid_shape
+    want = JaxDisGrid.create(**args).build_topology()
+    assert want.grid_shape is None
+    # no 7-point stencil: the grid goes the general path, on the
+    # reference's edge list
+    grid = DisGrid.create(**args)
+    assert grid.grid_shape is None
+    got = grid.build_topology()
+    np.testing.assert_array_equal(got.edge_n, want.edge_n)
+    np.testing.assert_array_equal(got.edge_m, want.edge_m)
+    np.testing.assert_array_equal(got.nbr, want.nbr)
+    assert not build_gwf("p", grid, device="cpu").use_structured
     # a passthrough cell with nothing active below stays structured
     idomain[2, 0, 0] = 0
     assert DisGrid.create(**{**args, "idomain": idomain}).grid_shape == \
         (3, 2, 2)
+
+
+PORTED_KW = ("drn", "riv", "ghb", "evt", "hfb", "angle1", "angle2", "angle3")
 
 
 @pytest.mark.parametrize("kw", [
@@ -133,21 +144,41 @@ def test_passthrough_layers_are_not_structured():
     dict(rewetting={"wetdry": 0.5}, angle3=5.0),
 ])
 def test_build_gwf_raises_outside_the_slice(kw):
-    """Newton, AUTO_FLOW_REDUCE and rewetting are ported; together with a
-    feature that is not (XT3D-Newton, rotated anisotropy) they still
-    raise, as every other argument outside the slice does."""
+    """XT3D, BUY, CSUB and VSC are not ported and raise.  The stress
+    packages, the barriers and the rotated-anisotropy angles are: with
+    them ``build_gwf`` gives the model that the reference's gives, on the
+    same path, with the same first system (1e-12 of the largest entry)."""
     grid, base = fused_model_args()
-    with pytest.raises(NotImplementedError):
-        build_gwf("port", DisGrid.create(**grid), device="cpu",
-                  **{**base, **kw})
+    if not set(kw) & set(PORTED_KW):
+        with pytest.raises(NotImplementedError):
+            build_gwf("port", DisGrid.create(**grid), device="cpu",
+                      **{**base, **kw})
+        return
+    args = {**base, **kw}
+    ref = jax_build_gwf("ref", JaxDisGrid.create(**grid), **args)
+    port = build_gwf("port", DisGrid.create(**grid), device="cpu", **args)
+    assert port.use_structured == ref.use_structured
+    # (the port alone counts rewetting as nonlinear: its fused step has no
+    # wetting/drying sweep and refuses such a model)
+    assert port.is_linear == (ref.is_linear and "rewetting" not in kw)
+    assert port.use_structured != bool(set(kw) & {"angle1", "angle2",
+                                                  "angle3"})
+    ibj, hj = ref.boundary_state(jnp.asarray(ref.strt))
+    ibt, ht = port.boundary_state(port.strt)
+    for g, w in zip(port.assemble(ht, ht, ibt, 1.0, False),
+                    ref.assemble(hj, hj, ibj, 1.0, False)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-12,
+                                   atol=1e-12 * np.abs(w).max())
 
 
 @pytest.mark.parametrize("field", ["inewton", "iangle2"])
 def test_from_reference_raises_outside_the_slice(field):
-    """Rotated anisotropy is not ported; Newton is, but the NPF flag and
-    the model's must agree."""
+    """The NPF Newton flag and the model's must agree; a model with an
+    angle option is on the general path and needs the edge tables, which
+    these arrays do not hold."""
     arrays, kwargs = reference_arrays(make_model())
     kwargs["npf_options"] = {**kwargs["npf_options"], field: 1}
-    with pytest.raises(ValueError if field == "inewton"
-                       else NotImplementedError):
+    with pytest.raises(ValueError, match="differ" if field == "inewton"
+                       else "edge tables"):
         from_reference(arrays, device="cpu", **kwargs)

@@ -248,3 +248,66 @@ def test_small_newton_ptc_and_rewetting_on_card_match_cpu(cuda):
     NumericalSolution and the fused step) and of the rewetting scenario."""
     from chip_smoke import check_small_newton
     check_small_newton(cuda)
+
+
+# ---------------------------------------------------------- general path
+
+def _general_model(kind, device):
+    """The small general-path models of chip_smoke.py: a 2 x 24 x 24
+    brick-pattern DISV grid, or its DISU twin, with DRN, RIV, GHB, EVT and
+    one barrier."""
+    import chip_smoke
+    nlay, nrow, ncol = 2, 24, 24
+    botm = chip_smoke.flagship_botm(nlay, nrow * ncol) \
+        + np.random.default_rng(3).uniform(0.0, 5.0, (nlay, nrow * ncol))
+    grid = chip_smoke.brick_disv(nlay, nrow, ncol, 10.0, 50.0, botm)
+    if kind == "disu":
+        grid = chip_smoke.disu_of(grid)
+    args = chip_smoke.brick_model_args(nlay, nrow, ncol)
+    args["hfb"] = [(5 * ncol + 7, 5 * ncol + 8, 1e-3)]
+    return build_gwf(kind, grid, device=device, **args)
+
+
+@pytest.mark.parametrize("kind", ["disv", "disu"])
+def test_general_path_model_on_card_matches_cpu(cuda, kind):
+    """CG on the edge-list path: the card and the CPU take the same
+    iterations and agree to 1e-10; no stencil launch; and two runs on the
+    card are bitwise equal (the per-cell sums go through the ELL slots,
+    not through atomics)."""
+    from modflow6_torch.solution.fused import make_fused_run
+    settings = ImsSettings(outer_dvclose=1e-6, outer_maximum=50,
+                           inner_dvclose=1e-8, inner_rclose=1e-6,
+                           inner_maximum=300)
+    cpu, gpu = _general_model(kind, "cpu"), _general_model(kind, cuda)
+    assert not gpu.use_structured and gpu.dtopo.nbr.is_cuda
+    hc, kc, ic, cc = make_fused_run(cpu, settings, False, 2)(cpu.strt,
+                                                            [5.0, 5.0])
+    stencil.stencil7.launches = 0
+    run = make_fused_run(gpu, settings, False, 2)
+    hg, kg, ig, cg_ = run(gpu.strt, [5.0, 5.0])
+    assert stencil.stencil7.launches == 0
+    assert all(cg_) and all(cc) and (kg, ig) == (kc, ic)
+    np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=0,
+                               atol=1e-10)
+    again = run(gpu.strt, [5.0, 5.0])
+    assert torch.equal(again[0], hg) and again[1:] == (kg, ig, cg_)
+
+
+def test_rotated_anisotropy_dis_model_launches_the_kernel(cuda):
+    """A DIS model with angles assembles over the edge list and multiplies
+    through stencil7: launches on the card, the CPU's counts and heads."""
+    import chip_smoke
+    from modflow6_torch.solution.fused import make_fused_run
+    settings = ImsSettings(**chip_smoke.BENCH, preconditioner="chebyshev")
+    cpu = chip_smoke.rotated_model(3, 37, 45, "cpu")
+    gpu = chip_smoke.rotated_model(3, 37, 45, cuda)
+    assert not gpu.use_structured and gpu.dtopo.grid_shape == (3, 37, 45)
+    hc, kc, ic, cc = make_fused_run(cpu, settings, False, 2)(cpu.strt,
+                                                            [5.0, 5.0])
+    stencil.stencil7.launches = 0
+    hg, kg, ig, cg_ = make_fused_run(gpu, settings, False, 2)(gpu.strt,
+                                                             [5.0, 5.0])
+    assert stencil.stencil7.launches >= 4 * sum(ig) > 0
+    assert all(cg_) and (kg, ig) == (kc, ic)
+    np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=0,
+                               atol=1e-10)

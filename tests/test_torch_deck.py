@@ -52,8 +52,7 @@ from modflow6_torch.utils.binary import read_budget_file, read_head_file
 from modflow6_torch.utils.mf6io import load_simulation, schema
 
 REPO = Path(__file__).resolve().parents[1]
-PACKAGES = ("chd", "wel", "rch")
-VALUE = dict(chd="head", wel="q", rch="recharge")
+PACKAGES = ("chd", "wel", "rch", "drn", "riv", "ghb", "evt")
 
 
 def load(ws, **kw):
@@ -62,9 +61,12 @@ def load(ws, **kw):
 
 # ------------------------------------------------------- reference state
 
-def _pkg_arrays(data, pkg):
-    return (np.asarray(data.node), np.asarray(getattr(data, VALUE[pkg])),
-            np.asarray(data.mask))
+def _pkg_fields(data):
+    """{field: array} of a package data object of either package, in the
+    order of its fields."""
+    return {f.name: np.asarray(getattr(data, f.name))
+            for f in dataclasses.fields(data)
+            if getattr(data, f.name) is not None}
 
 
 def simulation_state(sim):
@@ -85,9 +87,8 @@ def simulation_state(sim):
     for pkg in PACKAGES:
         data = getattr(m, pkg)
         if data is not None:
-            node, value, mask = _pkg_arrays(data, pkg)
-            arrays.update({f"{pkg}_node": node, f"{pkg}_{VALUE[pkg]}": value,
-                           f"{pkg}_mask": mask})
+            arrays.update({f"{pkg}_{key}": value
+                           for key, value in _pkg_fields(data).items()})
     return dict(
         name=m.name,
         grid=dict(nlay=g.nlay, nrow=g.nrow, ncol=g.ncol, delr=g.delr,
@@ -102,7 +103,7 @@ def simulation_state(sim):
         tdis=[(p.perlen, p.nstp, p.tsmult) for p in sim.tdis.periods],
         transient=list(sim.transient), settings=vars(sim.solution.s),
         period_data={
-            kper: {pkg: _pkg_arrays(getattr(pd, pkg), pkg)
+            kper: {pkg: tuple(_pkg_fields(getattr(pd, pkg)).values())
                    for pkg in PACKAGES if getattr(pd, pkg) is not None}
             for kper, pd in sim.period_data.items()},
         oc=None if sim.oc is None else sim.oc.periods,
@@ -445,11 +446,21 @@ def test_array_deck_run_matches_reference(tmp_path):
 
 
 def _deck_with(tmp_path, edit):
-    """The array deck with one file rewritten by ``edit(text) -> text``."""
+    """The array deck with one file rewritten by ``edit(text) -> text``,
+    and further files written where the edit names them."""
     build_arrays_deck(tmp_path)
-    name, fn = edit
+    name, fn, *files = edit
     path = tmp_path / name
     path.write_text(fn(path.read_text()))
+    for extra in files:
+        for fname, text in extra.items():
+            (tmp_path / fname).write_text(text)
+
+
+def _list_file(maxbound, rows, dims=""):
+    return (f"BEGIN DIMENSIONS\n  MAXBOUND {maxbound}\n{dims}END DIMENSIONS\n"
+            "BEGIN PERIOD 1\n" + "".join(f"  {r}\n" for r in rows)
+            + "END PERIOD\n")
 
 
 def _add_package(line):
@@ -462,10 +473,15 @@ def _add_option(line):
 
 
 UNSUPPORTED = {
-    "DRN6": ("m.nam", _add_package("DRN6 m.drn")),
-    "RIV6": ("m.nam", _add_package("RIV6 m.riv")),
-    "GHB6": ("m.nam", _add_package("GHB6 m.ghb")),
-    "EVT6": ("m.nam", _add_package("EVT6 m.evt")),
+    "DRN6": ("m.nam", _add_package("DRN6 m.drn"), {"m.drn": _list_file(
+        2, ["1 2 2 27.0 3.0", "2 4 3 9.5 1.5"])}),
+    "RIV6": ("m.nam", _add_package("RIV6 m.riv"), {"m.riv": _list_file(
+        2, ["1 3 2 27.5 2.0 26.0", "1 4 2 27.0 2.0 25.5"])}),
+    "GHB6": ("m.nam", _add_package("GHB6 m.ghb"), {"m.ghb": _list_file(
+        1, ["2 6 5 20.0 0.7"])}),
+    "EVT6": ("m.nam", _add_package("EVT6 m.evt"), {"m.evt": _list_file(
+        3, [f"1 {i} 3 29.0 1e-3 4.0 0.4 0.6" for i in (1, 2, 3)],
+        dims="  NSEG 2\n")}),
     "MAW6": ("m.nam", _add_package("MAW6 m.maw")),
     "SFR6": ("m.nam", _add_package("SFR6 m.sfr")),
     "LAK6": ("m.nam", _add_package("LAK6 m.lak")),
@@ -511,10 +527,12 @@ UNSUPPORTED = {
 }
 
 
-# keywords that raised until the nonlinear slice ported them: they now load,
-# with the same state as the reference's loader gives
+# keywords that raised until a later slice ported them: they now load, with
+# the same state as the reference's loader gives.  DISV6 and DISU6 load too,
+# from a deck of their own (the array deck's cell ids are DIS ones).
 PORTED = ("NEWTON", "REWET", "AUTO_FLOW_REDUCE", "PRECONDITIONER_LEVELS",
-          "PRECONDITIONER_DROP_TOLERANCE")
+          "PRECONDITIONER_DROP_TOLERANCE", "DRN6", "RIV6", "GHB6", "EVT6")
+GENERAL_GRIDS = {"DISV6": "disv", "DISU6": "disu"}
 
 
 @pytest.mark.parametrize("key", sorted(UNSUPPORTED))
@@ -522,6 +540,18 @@ def test_loader_raises_outside_the_slice(key, tmp_path):
     """Each unsupported package or keyword raises NotImplementedError that
     names it; none is skipped silently.  The keywords of ``PORTED`` load as
     the reference loads them."""
+    if key in GENERAL_GRIDS:
+        from test_torch_packages import write_general_deck
+        write_general_deck(tmp_path, GENERAL_GRIDS[key])
+        got, want = load(tmp_path), ref_load(str(tmp_path))
+        assert type(got.model.grid).__name__ == type(want.model.grid).__name__
+        assert not got.model.use_structured
+        for name in ("edge_n", "edge_m", "cl1", "cl2", "hwva", "anglex"):
+            np.testing.assert_array_equal(getattr(got.model.topo, name),
+                                          getattr(want.model.topo, name))
+        np.testing.assert_array_equal(got.model.drn.elev.numpy(),
+                                      np.asarray(want.model.drn.elev))
+        return
     _deck_with(tmp_path, UNSUPPORTED[key])
     if key in PORTED:
         with pytest.warns(UserWarning) if key.startswith("PRECOND") \
@@ -533,6 +563,10 @@ def test_loader_raises_outside_the_slice(key, tmp_path):
             "NEWTON": got["model_options"]["inewton"],
             "REWET": "wetdry" in got["arrays"],
             "AUTO_FLOW_REDUCE": got["model_options"]["wel_iflowred"],
+            "DRN6": "drn_elev" in got["arrays"],
+            "RIV6": "riv_rbot" in got["arrays"],
+            "GHB6": "ghb_bhead" in got["arrays"],
+            "EVT6": "evt_petm" in got["arrays"],
         }.get(key, got["settings"]["preconditioner"] == "chebyshev")
         assert changed
         return
@@ -542,7 +576,9 @@ def test_loader_raises_outside_the_slice(key, tmp_path):
 
 def test_passthrough_idomain_raises(tmp_path):
     """A DIS file whose idomain < 0 cells connect layers 1 and 3 has no
-    structured stencil."""
+    structured stencil.  It raised until the general path was ported; now
+    it loads on that path, with the reference's topology."""
+    from modflow6_tpu.utils.mf6io.loader import load_dis as ref_load_dis
     from modflow6_torch.utils.mf6io.loader import load_dis
     build_arrays_deck(tmp_path)
     path = tmp_path / "m.dis"
@@ -554,8 +590,12 @@ def test_passthrough_idomain_raises(tmp_path):
     path.write_text(text)
     grid = load_dis(str(path))
     assert grid.shape == (3, 6, 5)
-    with pytest.raises(NotImplementedError, match="passthrough"):
-        grid.build_topology()
+    assert grid.grid_shape is None
+    got, want = grid.build_topology(), ref_load_dis(str(path)).build_topology()
+    assert want.grid_shape is None and got.grid_shape is None
+    for name in ("edge_n", "edge_m", "ihc", "cl1", "cl2", "hwva", "nbr"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert (got.edge_m - got.edge_n == 60).any()     # layer 1 to layer 3
 
 
 def test_load_simulation_runs_on_the_card_unless_asked(tmp_path):
@@ -583,7 +623,7 @@ def test_schema_component_is_the_reference(component):
 
 
 def test_schema_holds_only_the_loaded_components():
-    assert len(schema.load_schema()) == 13
+    assert len(schema.load_schema()) == 19
 
 
 # ------------------------------------------------------------- deck runs

@@ -818,9 +818,9 @@ END OPTIONS"""
 # ------------------------------------------- what still names its absence
 
 def test_remaining_gaps_name_what_is_missing(tmp_path):
-    """XT3D (so also XT3D-Newton), the general DISV/DISU path, augmented
-    models under Newton under-relaxation, and rewetting in the fused step
-    raise and say what is missing."""
+    """XT3D (so also XT3D-Newton), barriers in a deck, augmented models
+    under Newton under-relaxation, and rewetting in the fused step raise
+    and say what is missing."""
     from modflow6_torch.models.discretization import DisGrid
     from modflow6_torch.models.gwf.builder import build_gwf
     grid = DisGrid.create(**_row(5, 1.0, 2.0))
@@ -831,8 +831,10 @@ def test_remaining_gaps_name_what_is_missing(tmp_path):
     with pytest.raises(NotImplementedError, match="XT3D"):
         load_simulation(ws, device="cpu")
     nam = (tmp_path / "m.nam").read_text()
-    (tmp_path / "m.nam").write_text(nam.replace("DIS6 m.dis", "DISV6 m.dis"))
-    with pytest.raises(NotImplementedError, match="DISV6"):
+    (tmp_path / "m.nam").write_text(nam.replace(
+        "END PACKAGES", "  HFB6 m.hfb\nEND PACKAGES"))
+    assert "HFB6" in (tmp_path / "m.nam").read_text()
+    with pytest.raises(NotImplementedError, match="HFB6"):
         load_simulation(ws, device="cpu")
 
     args, s = _nur_scenario()

@@ -49,6 +49,8 @@ from test_torch_ims import (_assert_same_march, _port_settings,
                             _torch_order_dot)
 from test_torch_parity import (build_both, convertible_args, flagship_args,
                                fused_model_args)
+from modflow6_tpu.models.discretization import DisGrid as JaxDisGrid
+from modflow6_tpu.models.gwf.builder import build_gwf as jax_build_gwf
 from modflow6_tpu.ops.solvers import cg as jax_cg
 from modflow6_tpu.ops.solvers import krylov as jkrylov
 from modflow6_tpu.ops.solvers import mg as jmg
@@ -58,6 +60,8 @@ from modflow6_tpu.solution import ImsSettings as JaxImsSettings
 from modflow6_tpu.solution import NumericalSolution as JaxNumericalSolution
 from modflow6_tpu.solution.fused import make_fused_step as jax_fused_step
 from modflow6_tpu.solution.ims import _make_precond as jax_make_precond
+from modflow6_torch.models.discretization import DisGrid
+from modflow6_torch.models.gwf.builder import build_gwf
 from modflow6_torch.models.gwf.npf import DeviceTopology
 from modflow6_torch.ops import stencil
 from modflow6_torch.ops.solvers import krylov as tkrylov
@@ -328,13 +332,21 @@ def test_make_precond_rules_match_reference():
         got = _make_precond(ImsSettings(**kw), port, port.dtopo, tmv, td, to)(
             tr)
         _assert_close(got, want, 1e-12)
-    # a topology without a grid shape (the general path, not ported): mg
-    # becomes Chebyshev of order 4, as modflow6_tpu/solution/ims.py:103
-    unstructured = dataclasses.replace(port.dtopo, grid_shape=None)
-    got = _make_precond(ImsSettings(preconditioner="mg"), port, unstructured,
+    # a model off the structured path (here a DIS grid with an angle, whose
+    # topology keeps the grid shape): mg becomes Chebyshev of order 4, as
+    # modflow6_tpu/solution/ims.py:100-103
+    gridkw, kw = flagship_args(1, 12, 10)
+    kw = {**kw, "angle1": 0.3}
+    ref = jax_build_gwf("r", JaxDisGrid.create(**gridkw), **kw)
+    port = build_gwf("p", DisGrid.create(**gridkw), device="cpu", **kw)
+    assert not port.use_structured and port.dtopo.grid_shape == shape
+    got = _make_precond(ImsSettings(preconditioner="mg"), port, port.dtopo,
                         tmv, td, to)(tr)
     cheb = tprecond.chebyshev_precondition(tmv, td, order=4)(tr)
     assert torch.equal(got, cheb)
+    want = jax_make_precond(JaxImsSettings(preconditioner="mg"), ref,
+                            ref.dtopo, jmv, jd, jo)(jnp.asarray(r))
+    _assert_close(got, want, 1e-12)
     with pytest.raises(ValueError, match="ilu"):
         NumericalSolution(port, ImsSettings(preconditioner="ilu"))
 
