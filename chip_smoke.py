@@ -12,7 +12,8 @@ NEWTON UNDER_RELAXATION deck, holds small Newton, PTC and rewetting
 models on the card against the CPU, and drives the general (edge list +
 ELL gather) path: the bench model on a DISV grid of square cells against
 the structured run, a brick-pattern DISV grid of the same size with DRN,
-RIV, GHB and EVT through ``Simulation``, the bench grid with rotated
+RIV, GHB and EVT through ``Simulation``, a one-layer brick grid of a
+million cells as a written DISV6 deck, the bench grid with rotated
 anisotropy (edge-list assembly feeding the stencil kernel), and small DISV
 and DISU models with the four packages and a barrier against the CPU.
 
@@ -1182,12 +1183,14 @@ def run_disv_oracle(device, dis_head, dis_counts):
         raise AssertionError("the DISV run went through the stencil")
 
 
-def brick_model_args(nlay, nrow, ncol):
+def brick_model_args(nlay, nrow, ncol, evt_rows=None):
     """K and the stresses of the bench model from the same seed, with CHD
     on the first column only, GHB on the last, drains along the first row,
-    a river along the middle row and evapotranspiration over layer 1."""
+    a river along the middle row and evapotranspiration over layer 1 (or
+    over the rows ``evt_rows`` of it)."""
     s = flagship_stresses(nrow, ncol)
     mid = nrow // 2
+    evt_rows = range(nrow) if evt_rows is None else evt_rows
     return dict(
         k=flagship_kfield(nlay, nrow, ncol), strt=40.0,
         storage={"ss": 1e-5, "iconvert": 0},
@@ -1197,7 +1200,140 @@ def brick_model_args(nlay, nrow, ncol):
         drn=[(j, 38.0, 20.0) for j in range(ncol)],
         riv=[(mid * ncol + j, 41.0, 30.0, 39.0) for j in range(1, ncol - 1)
              if j != ncol // 2],
-        evt=[(n, 45.0, 1e-4, 10.0) for n in range(nrow * ncol)])
+        evt=[(i * ncol + j, 45.0, 1e-4, 10.0) for i in evt_rows
+             for j in range(ncol)])
+
+
+def write_brick_deck(ws, grid, args):
+    """A one-layer brick DISV grid and the stresses of ``brick_model_args``
+    as an MF6 input deck: DISV6 with its VERTICES and CELL2D blocks as
+    text, K as a binary file, recharge READASARRAYS, the other packages as
+    lists with (layer, cell) ids; one transient period of three steps of
+    5.0, the bench's IMS settings with CG, heads and budget saved at the
+    last step."""
+    _write(ws, "mfsim.nam", """BEGIN TIMING
+  TDIS6 sim.tdis
+END TIMING
+BEGIN MODELS
+  GWF6 m.nam BRICK
+END MODELS
+BEGIN SOLUTIONGROUP 1
+  IMS6 sim.ims BRICK
+END SOLUTIONGROUP
+""")
+    _write(ws, "sim.tdis", "BEGIN DIMENSIONS\n  NPER 1\nEND DIMENSIONS\n"
+           "BEGIN PERIODDATA\n  15.0 3 1.0\nEND PERIODDATA\n")
+    _write(ws, "sim.ims", f"""BEGIN NONLINEAR
+  OUTER_DVCLOSE {BENCH['outer_dvclose']!r}
+  OUTER_MAXIMUM {BENCH['outer_maximum']}
+END NONLINEAR
+BEGIN LINEAR
+  INNER_MAXIMUM {BENCH['inner_maximum']}
+  INNER_DVCLOSE {BENCH['inner_dvclose']!r}
+  INNER_RCLOSE {BENCH['inner_rclose']!r}
+  LINEAR_ACCELERATION CG
+END LINEAR
+""")
+    _write(ws, "m.nam", "BEGIN PACKAGES\n" + "".join(
+        f"  {line}\n" for line in (
+            "DISV6 m.disv", "IC6 m.ic", "NPF6 m.npf", "STO6 m.sto",
+            "CHD6 m.chd", "WEL6 m.wel", "DRN6 m.drn", "RIV6 m.riv",
+            "GHB6 m.ghb", "EVT6 m.evt", "RCH6 m.rcha", "OC6 m.oc"))
+           + "END PACKAGES\n")
+    rings = (grid.javert.reshape(grid.ncpl, 6) + 1).tolist()
+    with open(os.path.join(ws, "m.disv"), "w") as f:
+        f.write(f"BEGIN DIMENSIONS\n  NLAY 1\n  NCPL {grid.ncpl}\n"
+                f"  NVERT {len(grid.vertices)}\nEND DIMENSIONS\n"
+                "BEGIN GRIDDATA\n  TOP\n    CONSTANT 50.0\n  BOTM\n"
+                "    CONSTANT 0.0\nEND GRIDDATA\nBEGIN VERTICES\n")
+        f.write("\n".join(f"  {i} {x!r} {y!r}" for i, (x, y) in enumerate(
+            grid.vertices.tolist(), 1)))
+        f.write("\nEND VERTICES\nBEGIN CELL2D\n")
+        f.write("\n".join(
+            f"  {i} {xc!r} {yc!r} 6 " + " ".join(map(str, ring))
+            for i, (xc, yc, ring) in enumerate(
+                zip(grid.xc.tolist(), grid.yc.tolist(), rings), 1)))
+        f.write("\nEND CELL2D\n")
+    _write(ws, "m.ic", "BEGIN GRIDDATA\n  STRT\n    CONSTANT 40.0\n"
+           "END GRIDDATA\n")
+    with open(os.path.join(ws, "k.bin"), "wb") as f:
+        f.write(struct.pack("<iidd16siii", 1, 1, 1.0, 1.0, b"K".rjust(16),
+                            grid.ncpl, 1, 1))
+        np.asarray(args["k"], "<f8").tofile(f)
+    _write(ws, "m.npf", "BEGIN GRIDDATA\n  ICELLTYPE\n    CONSTANT 0\n  K\n"
+           "    OPEN/CLOSE k.bin (BINARY)\nEND GRIDDATA\n")
+    _write(ws, "m.sto", "BEGIN GRIDDATA\n  ICONVERT\n    CONSTANT 0\n  SS\n"
+           "    CONSTANT 1e-05\n  SY\n    CONSTANT 0.0\nEND GRIDDATA\n"
+           "BEGIN PERIOD 1\n  TRANSIENT\nEND PERIOD\n")
+    for pkg in ("chd", "wel", "drn", "riv", "ghb", "evt"):
+        rows = "\n".join("  1 " + " ".join(
+            str(v + 1) if col == 0 else repr(float(v))
+            for col, v in enumerate(row)) for row in args[pkg])
+        _write(ws, f"m.{pkg}", f"BEGIN DIMENSIONS\n  MAXBOUND "
+               f"{len(args[pkg])}\nEND DIMENSIONS\nBEGIN PERIOD 1\n{rows}\n"
+               "END PERIOD\n")
+    _write(ws, "m.rcha", "BEGIN OPTIONS\n  READASARRAYS\nEND OPTIONS\n"
+           "BEGIN PERIOD 1\n  RECHARGE\n    CONSTANT 0.0001\nEND PERIOD\n")
+    _write(ws, "m.oc", "BEGIN OPTIONS\n  HEAD FILEOUT m.hds\n"
+           "  BUDGET FILEOUT m.cbc\nEND OPTIONS\nBEGIN PERIOD 1\n"
+           "  SAVE HEAD LAST\n  SAVE BUDGET LAST\nEND PERIOD\n")
+
+
+def run_brick_deck(device):
+    """A brick-pattern DISV grid of 1024 x 1024 cells in one layer with the
+    seven packages as a written DISV6 deck through the command-line entry,
+    held against the same model built in memory and run through
+    ``Simulation``: equal counts, heads within 1e-10."""
+    nrow, ncol = BENCH_SHAPE[1:]
+    grid = brick_disv(1, nrow, ncol, 10.0, 50.0, np.zeros((1, nrow * ncol)))
+    args = brick_model_args(1, nrow, ncol,
+                            evt_rows=range(nrow // 4, min(nrow, nrow // 4 + 64)))
+    with tempfile.TemporaryDirectory() as ws:
+        t0 = time.perf_counter()
+        write_brick_deck(ws, grid, args)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sim = load_simulation(ws)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same_grid = (np.array_equal(sim.model.grid.javert, grid.javert)
+                     and np.array_equal(sim.model.grid.vertices,
+                                        grid.vertices))
+        del sim
+        lst = os.path.join(ws, "cli.lst")
+        out = io.StringIO()
+        with counted_run() as counts, contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            code = cli_main([ws, "--lst", lst])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        cli_counts = listing_counts(lst)
+        saved = np.stack([r["data"] for r in read_head_file(
+            os.path.join(ws, "m.hds"))]).reshape(-1)
+        sizes = {f: os.path.getsize(os.path.join(ws, f))
+                 for f in ("m.disv", "m.evt", "m.hds", "m.cbc", "m.grb")}
+    model = build_gwf("brick", grid, device=device, **args)
+    twin = Simulation(Tdis((StressPeriod(15.0, 3, 1.0),)), model,
+                      ImsSettings(**BENCH))
+    recs = twin.run()
+    err = float(np.abs(saved - recs[-1].head).max())
+    twin_counts = [(r.outer, r.inner) for r in recs]
+    print(f"brick deck cells={grid.nodes} write_s={write_s!r} "
+          f"load_s={load_s!r} (one load_simulation before the run) "
+          f"cli exit={code} wall_s={cli_s!r} counts={cli_counts} "
+          f"in_memory_counts={twin_counts} "
+          f"converged={all(r.converged for r in recs)} "
+          f"stencil7_launches={counts['launches']} "
+          f"max|h_deck - h_in_memory|={err!r} bar={DECK_FUSED_ATOL!r} "
+          f"grid_arrays_equal={same_grid} file_bytes={sizes} "
+          f"stdout={out.getvalue().strip()!r}")
+    if code != 0 or "Normal termination of simulation" not in out.getvalue():
+        raise AssertionError("the brick deck did not end normally")
+    if not (same_grid and cli_counts == twin_counts
+            and all(r.converged for r in recs) and err <= DECK_FUSED_ATOL
+            and not counts["launches"]):
+        raise AssertionError("the brick deck run differs from the model "
+                             "built in memory")
 
 
 def run_brick(device):
@@ -1575,6 +1711,7 @@ def main():
             _, fused_head, kiters, inners, _ = run_bench(device, "f64")
         run_disv_oracle(device, fused_head, list(zip(kiters, inners)))
         run_brick(device)
+        run_brick_deck(device)
         launches["general"] = run_rotated(device)
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")

@@ -660,3 +660,21 @@ def test_general_deck_raises_by_name(case, tmp_path):
 def test_mesh_helpers_are_the_documented_sizes():
     assert MESHES["brick"]()["ncpl"] == 30
     assert disv_args(brick_mesh(5, 4))["ncpl"] == 20
+
+
+@pytest.mark.parametrize("line", [
+    "  17 3.5e+01 -2.25 6 1 2 3 4 5 6",
+    "\t1\t2  3   BOUND_A\t",
+    "OPEN/CLOSE 'a file.txt' FACTOR 2.0",
+    'HEAD FILEOUT "out dir/m.hds"',
+    "path\\ with\\ escapes.txt 1",
+    "it's unbalanced 3",
+    "",
+])
+def test_tokenizer_gives_the_reference_tokens(line):
+    """A record without quotes or backslashes is split on whitespace, as a
+    DISV grid's millions of VERTICES and CELL2D records are; every record
+    gives the tokens the reference's tokenizer gives."""
+    from modflow6_tpu.utils.mf6io.reader import tokenize_line as ref_tokens
+    from modflow6_torch.utils.mf6io.reader import tokenize_line
+    assert tokenize_line(line) == ref_tokens(line)
