@@ -15,7 +15,13 @@ the structured run, a brick-pattern DISV grid of the same size with DRN,
 RIV, GHB and EVT through ``Simulation``, a one-layer brick grid of a
 million cells as a written DISV6 deck, the bench grid with rotated
 anisotropy (edge-list assembly feeding the stencil kernel), and small DISV
-and DISU models with the four packages and a barrier against the CPU.
+and DISU models with the four packages and a barrier against the CPU; and
+the property packages (``properties``): the bench model in XT3D's full mode
+against the structured run (the gather product over the extended table),
+XT3D with rotated anisotropy in full and RHS mode through ``Simulation``,
+the bench model with CSUB interbeds (delay beds among them) and TVK/TVS
+over two periods, BUY and VSC with a seawater wedge, and small XT3D, GNC,
+CSUB, BUY/VSC and TVK/TVS twins on the card against the CPU.
 
 Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          without one, and on any failed
@@ -31,7 +37,8 @@ Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
 Output of the smoke run, in order: the device, the kernel build,
 kernel-vs-plain checks with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
-general-path runs, one JSON line ``{"kernels": [...]}``, and as the last line
+general-path runs, the property-package runs, one JSON line
+``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -62,6 +69,7 @@ from modflow6_torch.__main__ import main as cli_main         # noqa: E402
 from modflow6_torch.models.discretization import (DisGrid,   # noqa: E402
                                                   DisuGrid, DisvGrid)
 from modflow6_torch.models.gwf.builder import build_gwf      # noqa: E402
+from modflow6_torch.models.gwf.gnc import build_gnc          # noqa: E402
 from modflow6_torch.models.simulation import Simulation      # noqa: E402
 from modflow6_torch.ops import stencil                       # noqa: E402
 from modflow6_torch.ops.solvers.mg import make_mg_preconditioner  # noqa: E402
@@ -73,7 +81,8 @@ from modflow6_torch.ops.system import (                      # noqa: E402
 from modflow6_torch.solution import ImsSettings              # noqa: E402
 from modflow6_torch.solution.fused import (make_fused_run,   # noqa: E402
                                            make_fused_step)
-from modflow6_torch.solution.ims import NumericalSolution    # noqa: E402
+from modflow6_torch.solution.ims import (NumericalSolution,  # noqa: E402
+                                          fix_system)
 from modflow6_torch.utils.binary import read_head_file       # noqa: E402
 from modflow6_torch.timing.tdis import StressPeriod, Tdis     # noqa: E402
 from modflow6_torch.utils.mf6io import load_simulation       # noqa: E402
@@ -130,17 +139,8 @@ def flagship_kfield(nlay, nrow, ncol):
 
 def flagship(nlay, nrow, ncol, device):
     """The model of bench.py and __graft_entry__._flagship, on ``device``."""
-    g = DisGrid.create(nlay, nrow, ncol, delr=10.0, delc=10.0, top=50.0,
-                       botm=np.linspace(0.0, -50.0, nlay)[:, None, None]
-                       * np.ones((nlay, nrow, ncol)))
-    kfield = flagship_kfield(nlay, nrow, ncol)
-    return build_gwf(
-        "flagship", g, k=kfield, strt=40.0,
-        storage={"ss": 1e-5, "iconvert": 0},
-        chd=[(i * ncol, 45.0) for i in range(nrow)]
-        + [(i * ncol + ncol - 1, 35.0) for i in range(nrow)],
-        wel=[((nrow // 2) * ncol + ncol // 2, -500.0)],
-        rch=[(n, 1e-4) for n in range(nrow * ncol)], device=device)
+    return build_gwf("flagship", flagship_grid(nlay, nrow, ncol),
+                     device=device, **flagship_args(nlay, nrow, ncol))
 
 
 def mg_products(levels):
@@ -1084,13 +1084,8 @@ def first_system(model, delt=5.0):
     """The model's first assembled and fixed-up system and its start."""
     ib, h = model.boundary_state(model.strt)
     diag, off, rhs = model.assemble(h, h, ib, delt, False)
-    active = torch.sign(ib)
-    if model.use_structured:
-        diag, off, rhs = apply_dirichlet_structured(
-            model.dtopo.grid_shape, active, diag, off, rhs, h)
-    else:
-        diag, off, rhs = apply_dirichlet(model.dtopo.nbr, active, diag, off,
-                                         rhs, h)
+    diag, off, rhs = fix_system(model, torch.sign(ib), diag, off, rhs, h,
+                                symmetric=True)
     return diag, off, rhs, h
 
 
@@ -1424,18 +1419,21 @@ def run_brick(device):
         raise AssertionError("two brick runs on the card differ")
 
 
-def rotated_model(nlay, nrow, ncol, device):
-    """``flagship`` with K22 = 0.1 K and an ellipse rotated by an angle
-    that varies from cell to cell: a DIS model off the structured path."""
+def rotated_args(nlay, nrow, ncol):
+    """``flagship``'s arguments with K22 = 0.1 K and an ellipse rotated by
+    an angle (``angle1``, radians as the two-point scheme reads it) that
+    varies from cell to cell."""
     rng = np.random.default_rng(76)
-    kfield = flagship_kfield(nlay, nrow, ncol)
-    g = DisGrid.create(nlay, nrow, ncol, delr=10.0, delc=10.0, top=50.0,
-                       botm=flagship_botm(nlay, nrow * ncol).reshape(
-                           nlay, nrow, ncol))
-    return build_gwf("rotated", g, k=kfield, k22=0.1 * kfield,
-                     angle1=rng.uniform(0.0, np.pi / 2, kfield.size),
-                     strt=40.0, storage={"ss": 1e-5, "iconvert": 0},
-                     device=device, **flagship_stresses(nrow, ncol))
+    args = flagship_args(nlay, nrow, ncol)
+    return dict(args, k22=0.1 * args["k"],
+                angle1=rng.uniform(0.0, np.pi / 2, args["k"].size))
+
+
+def rotated_model(nlay, nrow, ncol, device):
+    """``flagship`` with rotated anisotropy: a DIS model off the structured
+    path."""
+    return build_gwf("rotated", flagship_grid(nlay, nrow, ncol),
+                     device=device, **rotated_args(nlay, nrow, ncol))
 
 
 def run_rotated(device):
@@ -1549,6 +1547,454 @@ def check_small_general(device):
                                  "disagrees with the CPU or the direct solve")
 
 
+# ------------------------------------------------------ properties phase
+
+def totals(recs, seconds=None):
+    """(inner_total, outers, inners, ms per inner iteration) of records."""
+    inner = sum(r.inner for r in recs)
+    seconds = sum(r.solve_seconds for r in recs) if seconds is None \
+        else seconds
+    return (inner, [r.outer for r in recs], [r.inner for r in recs],
+            seconds / max(inner, 1) * 1e3)
+
+
+def run_xt3d_bench(device, dis_head):
+    """(a) The bench model in XT3D's full mode, without angles, through the
+    fused run with BiCGSTAB (3 steps of 5.0).  On an orthogonal grid with
+    cell-wise isotropic K XT3D reduces to the two-point scheme
+    (tests/test_xt3d.py:40-58): its heads lie within CLOSURE_FACTOR x
+    outer_dvclose of the structured run's (``dis_head``).  The system lives
+    on the extended neighbour table, so no product goes through the stencil
+    kernel.  Prints Ktot, the tables' bytes, the host build, the gather
+    product at width Ktot beside its bound, and the run."""
+    nlay, nrow, ncol = BENCH_SHAPE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_gwf("xt3d", flagship_grid(*BENCH_SHAPE), xt3d=1,
+                      device=device, **flagship_args(*BENCH_SHAPE))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    d = model.xt3d
+    ktot = d.nbr_ext.shape[1]
+    print(f"xt3d bench grid: cells={model.nodes} edges={d.edge_n.shape[0]} "
+          f"K={d.max_degree} Ktot={ktot} build_gwf_s={build_s!r} "
+          f"extended_table_bytes={d.table_bytes} "
+          f"cross_plan_rounds={len(d.cross_plan.rounds)} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if model.use_structured or model.system_topo.nbr.shape[1] != ktot \
+            or ktot != 23 or model.dtopo.grid_shape is not None:
+        raise AssertionError("the XT3D model is not on the extended table")
+    diag, off, rhs, h = first_system(model)
+    mv = make_matvec(model.system_topo, diag, off)
+    ms = back_to_back_ms(lambda: mv(h))
+    bound = ell_bound_ms(model.nodes, ktot)
+    print(f"ell product f64 cells={model.nodes} K={ktot}: ms={ms!r} (100 "
+          f"products per event pair) bound_ms={bound!r} bound_by=bytes "
+          f"bound_share={bound / ms!r}")
+    del diag, off, rhs, h, mv
+    settings = ImsSettings(**BENCH, linear_acceleration="bicgstab")
+    run = make_fused_run(model, settings, iss=False, nsteps=3)
+    torch.cuda.reset_peak_memory_stats()
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        head, kiters, inners, convs = run(model.strt, [5.0] * 3)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    inner_total = sum(inners)
+    err = float((head - dis_head).abs().max())
+    bar = CLOSURE_FACTOR * BENCH["outer_dvclose"]
+    print(f"xt3d bench full mode bicgstab f64 cells={model.nodes} steps=3 "
+          f"inner_total={inner_total} inners={inners} outers={kiters} "
+          f"converged={all(convs)} elapsed_s={elapsed!r} "
+          f"ms_per_inner={elapsed / inner_total * 1e3!r} "
+          f"stencil7_launches={counts['launches']} "
+          f"max|h - h_structured|={err!r} bar={bar!r} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if not (all(convs) and bool(torch.isfinite(head).all()) and err <= bar):
+        raise AssertionError("the XT3D bench run failed its checks")
+    if counts["launches"] or counts["plain_on_cuda"]:
+        raise AssertionError("the XT3D run went through the stencil")
+
+
+def flagship_grid(nlay, nrow, ncol):
+    return DisGrid.create(nlay, nrow, ncol, delr=10.0, delc=10.0, top=50.0,
+                          botm=flagship_botm(nlay, nrow * ncol).reshape(
+                              nlay, nrow, ncol))
+
+
+def flagship_args(nlay, nrow, ncol):
+    """The keyword arguments of ``flagship`` but the grid and the device."""
+    return dict(k=flagship_kfield(nlay, nrow, ncol), strt=40.0,
+                storage={"ss": 1e-5, "iconvert": 0},
+                **flagship_stresses(nrow, ncol))
+
+
+def simulate(model, periods, settings, period_data=None, tvk=None,
+             tvs=None):
+    """A Simulation of ``model`` over ``periods`` [(perlen, nstp, tsmult)],
+    run once with the kernel's launches counted; returns (simulation,
+    records, seconds, counts)."""
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in periods)), model,
+                     settings)
+    sim.period_data.update(period_data or {})
+    sim.tvk, sim.tvs = tvk or {}, tvs or {}
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        recs = sim.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return sim, recs, seconds, counts
+
+
+def check_budget(label, sim, recs):
+    disc = sim.budget.percent_discrepancy()
+    if not (all(r.converged for r in recs) and np.isfinite(disc)
+            and abs(disc) < BUDGET_PERCENT
+            and all(np.isfinite(r.head).all() for r in recs)):
+        raise AssertionError(f"{label}: not converged or budget "
+                             f"discrepancy {disc}")
+    return disc
+
+
+def run_xt3d_rotated(device):
+    """(b) XT3D on the field of ``rotated_model`` (K22 = 0.1 K, the ellipse
+    rotated cell by cell; XT3D reads the angles in degrees), one transient
+    step through ``Simulation`` in full mode, twice, and in RHS mode: the
+    budget closes and the two full-mode runs are bitwise equal."""
+    args = rotated_args(*BENCH_SHAPE)
+    args["angle1"] = np.rad2deg(args["angle1"])
+    settings = ImsSettings(**BENCH, linear_acceleration="bicgstab")
+    for mode in (1, 2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_gwf(f"xt3d{mode}", flagship_grid(*BENCH_SHAPE),
+                          xt3d=mode, device=device, **args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        heads = []
+        for attempt in range(2 if mode == 1 else 1):
+            sim, recs, seconds, counts = simulate(model, [(5.0, 1, 1.0)],
+                                                  settings)
+            disc = check_budget(f"xt3d rotated mode {mode}", sim, recs)
+            heads.append(recs[-1].head)
+            inner, outers, inners, ms = totals(recs)
+            print(f"xt3d rotated mode={mode} "
+                  f"({'full' if mode == 1 else 'rhs'}) cells={model.nodes} "
+                  f"Ktot={model.system_topo.nbr.shape[1]} "
+                  f"build_gwf_s={build_s!r} run={attempt} steps=1 "
+                  f"inner_total={inner} outers={outers} run_s={seconds!r} "
+                  f"ms_per_inner={ms!r} stencil7_launches="
+                  f"{counts['launches']} budget_percent_discrepancy={disc!r} "
+                  f"bar={BUDGET_PERCENT!r} "
+                  f"head_min={float(recs[-1].head.min())!r} "
+                  f"head_max={float(recs[-1].head.max())!r} "
+                  f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+            if counts["launches"] or counts["plain_on_cuda"]:
+                raise AssertionError("the XT3D run went through the stencil")
+        if mode == 1:
+            bitwise = bool(np.array_equal(heads[0], heads[1]))
+            print(f"xt3d rotated full mode: two runs bitwise equal={bitwise}")
+            if not bitwise:
+                raise AssertionError("two XT3D runs on the card differ")
+        del model, sim
+
+
+def run_csub_tv(device):
+    """(c) The bench model through ``Simulation`` over two periods of one
+    step with CSUB no-delay interbeds in every cell of layers 2-4, delay
+    interbeds in 1 of 16 cells of layer 3, TVK halving K on a block in
+    period 2 and TVS doubling SS there: every step converged, the budget
+    closed, the compaction finite and not decreasing, and the products
+    through the stencil kernel.  Returns the launches."""
+    nlay, nrow, ncol = BENCH_SHAPE
+    ncpl = nrow * ncol
+    cells = np.arange(ncpl, 4 * ncpl)
+    layer3 = np.arange(2 * ncpl, 3 * ncpl)
+    delay = layer3[(layer3 % 4 == 0) & ((layer3 // ncol) % 4 == 0)]
+    csub_kw = dict(
+        sgm=1.7, sgs=2.0, cg_ske_cr=1e-6, cg_theta=0.2, pcs_offset=0.0,
+        interbeds=np.stack([cells, np.full(cells.size, 2.0),
+                            np.full(cells.size, 1e-5),
+                            np.full(cells.size, 1e-4),
+                            np.full(cells.size, 0.3)], axis=1),
+        delay_interbeds=[dict(node=int(n), thick=4.0, kv=1e-3, sske_cr=1e-5,
+                              ssv_cc=1e-4, theta=0.3) for n in delay])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_gwf("csub", flagship_grid(*BENCH_SHAPE), device=device,
+                      csub=csub_kw, **flagship_args(*BENCH_SHAPE))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    block = np.arange(nlay * ncpl).reshape(nlay, nrow, ncol)[
+        :, nrow // 4:3 * nrow // 4, ncol // 4:3 * ncol // 4].reshape(-1)
+    kfield = flagship_kfield(*BENCH_SHAPE)
+    tvk = {2: [(int(n), "K", float(kfield[n]) * 0.5) for n in block]}
+    tvs = {2: [(int(n), "SS", 2e-5) for n in block]}
+    print(f"csub/tvk/tvs model: cells={model.nodes} "
+          f"interbeds={model.csub.ib_node.shape[0]} delay_beds="
+          f"{model.csub.delay.nbeds} ndelaycells={model.csub.delay.ncells} "
+          f"tvk_block_cells={block.size} build_gwf_s={build_s!r} "
+          f"is_linear={model.is_linear}")
+    compaction = []
+    sim = Simulation(Tdis((StressPeriod(5.0, 1, 1.0),) * 2), model,
+                     ImsSettings(**BENCH))
+    sim.tvk, sim.tvs = tvk, tvs
+    do_step = sim.do_step
+
+    def step_and_read_compaction(*args, **kwargs):
+        head = do_step(*args, **kwargs)
+        st = sim.csub_state
+        compaction.append((float(st.comp.sum()), float(st.db_comp.sum()),
+                           float(st.cg_comp.sum())))
+        return head
+
+    # Simulation.run drives the steps; the compaction is read after each
+    sim.do_step = step_and_read_compaction
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        recs = sim.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    disc = check_budget("csub/tvk/tvs", sim, recs)
+    inner, outers, inners, ms = totals(recs)
+    terms = {t.name: (t.rate_in, t.rate_out)
+             for t in sim.budget.terms.values()}
+    print(f"csub/tvk/tvs simulation cells={model.nodes} periods=2 "
+          f"inner_total={inner} inners={inners} outers={outers} "
+          f"run_s={seconds!r} ms_per_inner={ms!r} "
+          f"stencil7_launches={counts['launches']} "
+          f"budget_percent_discrepancy={disc!r} bar={BUDGET_PERCENT!r} "
+          f"compaction(interbeds, delay beds, coarse) per step={compaction} "
+          f"budget_in_out={terms} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    # the interbeds' compaction (no-delay and delay beds) accrues; the
+    # coarse-grained skeleton expands elastically where heads rise
+    total = [c[0] + c[1] for c in compaction]
+    if not (np.isfinite(compaction).all() and total[0] > 0
+            and all(b >= a for a, b in zip(total, total[1:]))
+            and sim.model.npf_arrays.k11[int(block[0])] == 0.5 * kfield[
+                int(block[0])]):
+        raise AssertionError("csub/tvk/tvs run: compaction or TVK failed")
+    if not counts["launches"] or counts["plain_on_cuda"] or "CSUB" not in terms:
+        raise AssertionError("csub/tvk/tvs run: no stencil launch or no CSUB "
+                             "term")
+    return counts["launches"]
+
+
+def wedge(nlay, nrow, ncol):
+    """A seawater wedge: 35 at the sea side (the last columns), fresh (0)
+    inland, the interface leaning landward with depth."""
+    j = np.arange(ncol)[None, None, :] / ncol
+    k = np.arange(nlay)[:, None, None] / max(nlay - 1, 1)
+    conc = 35.0 * np.clip((j - 0.7 + 0.2 * k) * 8.0, 0.0, 1.0)
+    return np.broadcast_to(conc, (nlay, nrow, ncol)).reshape(-1)
+
+
+def run_buy_vsc(device):
+    """(d) BUY and VSC on the bench grid with a fixed concentration,
+    through ``NumericalSolution``: with a uniform concentration equal to
+    crhoref every BUY term vanishes and the heads equal the plain run's bit
+    for bit; with a seawater wedge (0-35) and VSC, one transient step
+    through ``Simulation`` (``buy_conc`` in ``period_data``) converges and
+    its budget closes.  Returns the launches of the three runs."""
+    settings = ImsSettings(**BENCH, linear_acceleration="bicgstab")
+    args = flagship_args(*BENCH_SHAPE)
+    n = int(np.prod(BENCH_SHAPE))
+    launches = 0
+    heads = {}
+    for name, buy in (("plain", None), ("buy uniform crhoref",
+                                        dict(crhoref=35.0))):
+        model = build_gwf(name, flagship_grid(*BENCH_SHAPE), buy=buy,
+                          device=device, **args)
+        pkgs = dataclasses.replace(model.packages, buy_conc=torch.full(
+            (n,), 35.0, dtype=torch.float64, device=device))
+        torch.cuda.reset_peak_memory_stats()
+        with counted_run() as counts:
+            t0 = time.perf_counter()
+            h, info, _ = NumericalSolution(model, settings).solve_timestep(
+                model.strt, 5.0, iss=False, pkgs=pkgs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        heads[name] = h
+        launches += counts["launches"]
+        print(f"buy {name}: cells={n} structured={model.use_structured} "
+              f"outer={info.outer_iterations} inner={info.inner_iterations} "
+              f"converged={info.converged} solve_s={seconds!r} ms_per_inner="
+              f"{seconds / info.inner_iterations * 1e3!r} "
+              f"stencil7_launches={counts['launches']} "
+              f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        if not (info.converged and counts["launches"]
+                and model.use_structured and not counts["plain_on_cuda"]):
+            raise AssertionError(f"buy {name}: not converged or not through "
+                                 "the stencil")
+    bitwise = bool(torch.equal(heads["plain"], heads["buy uniform crhoref"]))
+    print(f"buy uniform crhoref vs plain: heads bitwise equal={bitwise}")
+    if not bitwise:
+        raise AssertionError("BUY with conc = crhoref changed the heads")
+    del heads
+    torch.cuda.reset_peak_memory_stats()
+    model = build_gwf("buy vsc wedge", flagship_grid(*BENCH_SHAPE),
+                      buy=dict(denseref=1000.0, drhodc=0.7, crhoref=0.0),
+                      vsc=dict(viscref=1.0, dviscdc=0.01),
+                      device=device, **args)
+    conc = torch.as_tensor(wedge(*BENCH_SHAPE), device=device)
+    pkgs = dataclasses.replace(model.packages, buy_conc=conc)
+    sim, recs, seconds, counts = simulate(model, [(5.0, 1, 1.0)], settings,
+                                          period_data={1: pkgs})
+    disc = check_budget("buy vsc wedge", sim, recs)
+    inner, outers, inners, ms = totals(recs)
+    print(f"buy+vsc wedge (conc 0-35): cells={n} structured="
+          f"{model.use_structured} grid_shape={model.dtopo.grid_shape} "
+          f"inner_total={inner} outers={outers} run_s={seconds!r} "
+          f"ms_per_inner={ms!r} stencil7_launches={counts['launches']} "
+          f"budget_percent_discrepancy={disc!r} bar={BUDGET_PERCENT!r} "
+          f"head_min={float(recs[-1].head.min())!r} "
+          f"head_max={float(recs[-1].head.max())!r} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if not counts["launches"] or counts["plain_on_cuda"]:
+        raise AssertionError("the BUY/VSC run went past the stencil kernel")
+    return launches + counts["launches"]
+
+
+def small_property_models(dev):
+    """(name, model, settings, how, conc) of the small twins: ``how`` is
+    "ims" (one steady NumericalSolution step, with ``conc`` as the BUY/VSC
+    concentration) or the periods [(perlen, nstp, tsmult)] of a
+    Simulation."""
+    # BiCGSTAB at an inner closure these small systems reach without
+    # stalling near rounding (where the card's and the CPU's sum orders
+    # would decide the counts)
+    bic = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
+               inner_rclose=1e-7, inner_maximum=600,
+               linear_acceleration="bicgstab")
+    # CG at closures that double precision reaches (ROADMAP Queue C: near
+    # rounding the order of a sum decides the count)
+    cg = dict(ENTRY)
+    rng = np.random.default_rng(2)
+    g = DisGrid.create(1, 8, 10, 10.0, 10.0, 20.0, np.zeros((1, 8, 10)))
+    xkw = dict(k=np.exp(rng.normal(0, 0.5, 80)),
+               k22=np.exp(rng.normal(0, 0.5, 80)) * 0.5, angle1=30.0,
+               strt=15.0, chd=[(i * 10, 16.0) for i in range(8)]
+               + [(i * 10 + 9, 12.0) for i in range(8)],
+               wel=[(45, -20.0)], device=dev)
+    out = [("xt3d full", build_gwf("x1", g, xt3d=1, **xkw), bic, "ims",
+            None),
+           ("xt3d rhs", build_gwf("x2", g, xt3d=2, **xkw), bic, "ims", None),
+           ("xt3d newton", build_gwf("xn", g, xt3d=1, newton=True,
+                                     icelltype=1, **xkw), bic, "ims", None)]
+    # GNC across a refinement interface: two coarse cells beside 2x2 fine
+    # cells, the ghost node weighted toward the other coarse cell
+    conns = {0: [1, 2], 1: [0, 4], 2: [0, 3, 4], 3: [2, 5], 4: [1, 2, 5],
+             5: [3, 4]}
+    cl = {(0, 1): 1.0, (0, 2): 1.0, (1, 0): 1.0, (1, 4): 1.0, (2, 0): 0.5,
+          (2, 3): 0.5, (2, 4): 0.5, (3, 2): 0.5, (3, 5): 0.5, (4, 1): 0.5,
+          (4, 2): 0.5, (4, 5): 0.5, (5, 3): 0.5, (5, 4): 0.5}
+    iac, ja, ihc, cl12, hwva = [], [], [], [], []
+    for n_ in range(6):
+        iac.append(1 + len(conns[n_]))
+        ja += [n_] + conns[n_]
+        ihc += [0] + [1] * len(conns[n_])
+        cl12 += [0.0] + [cl[(n_, m_)] for m_ in conns[n_]]
+        hwva += [0.0] + [2.0 if {n_, m_} == {0, 1} else 1.0
+                         for m_ in conns[n_]]
+    gu = DisuGrid.create(np.ones(6), np.zeros(6),
+                         np.array([4.0, 4.0, 1.0, 1.0, 1.0, 1.0]), iac, ja,
+                         ihc, cl12, hwva)
+    gnc_model = build_gwf("gnc", gu, k=1.0, strt=3.0,
+                          chd=[(0, 1.0), (1, 2.0), (3, 5.0), (5, 6.0)],
+                          device=dev)
+    gnc_model.gnc = build_gnc(gnc_model.topo, [(0, 2, [(1, 0.25)]),
+                                               (1, 4, [(0, 0.25)])],
+                              device=dev)
+    out.append(("gnc", gnc_model, cg, "ims", None))
+    # CSUB with delay beds, three layers, two transient steps
+    g3 = DisGrid.create(3, 3, 4, 10.0, 10.0, 30.0,
+                        np.array([20.0, 10.0, 0.0])[:, None, None]
+                        * np.ones((3, 3, 4)))
+    out.append(("csub delay beds", build_gwf(
+        "cs", g3, k=5.0, strt=25.0, storage={"ss": 1e-5, "iconvert": 0},
+        chd=[(0, 25.0)], wel=[(23, -3.0)], device=dev,
+        csub=dict(interbeds=[(17, 3.0, 1e-4, 1e-2, 0.3),
+                             (17, 2.0, 2e-4, 2e-2, 0.3)], pcs_offset=0.5,
+                  ndelaycells=7,
+                  delay_interbeds=[dict(node=21, thick=4.0, kv=0.01,
+                                        sske_cr=1e-4, ssv_cc=1e-3,
+                                        theta=0.3)])),
+        cg, [(2.0, 2, 1.0)], None))
+    out.append(("buy vsc", build_gwf(
+        "bv", g3, k=5.0, strt=25.0, chd=[(0, 25.0)], wel=[(23, -3.0)],
+        device=dev, buy=dict(denseref=1000.0, drhodc=0.7),
+        vsc=dict(viscref=1.0, dviscdc=0.01)), bic, "ims",
+        torch.as_tensor(wedge(3, 3, 4), device=dev)))
+    tv_model = build_gwf("tv", DisGrid.create(1, 1, 9, 10.0, 10.0, 10.0,
+                                              np.zeros((1, 1, 9))),
+                         k=4.0, strt=5.0, chd=[(0, 8.0)], wel=[(8, -16.0)],
+                         storage={"ss": 1e-3, "iconvert": 0}, device=dev)
+    out.append(("tvk tvs", tv_model, cg, [(1.0, 1, 1.0), (1.0, 1, 1.0)],
+                None))
+    return out
+
+
+def check_small_properties(device):
+    """(e) Small twins on the card against the CPU: XT3D full, RHS and
+    Newton, GNC, CSUB with delay beds, BUY with VSC, TVK/TVS.  CG models:
+    equal counts and heads within 1e-10; BiCGSTAB models: the bars of
+    ROADMAP Queue C (equal outer counts, inner counts within 25%, heads
+    within 10 x outer_dvclose)."""
+    def run(dev):
+        out = {}
+        for name, model, s, how, conc in small_property_models(dev):
+            if how == "ims":
+                pkgs = dataclasses.replace(model.packages, buy_conc=conc)
+                h, info, _ = NumericalSolution(model, ImsSettings(
+                    **s)).solve_timestep(model.strt, 1.0, iss=True,
+                                         pkgs=pkgs)
+                out[name] = (h.cpu(), [info.outer_iterations],
+                             [info.inner_iterations], info.converged, s)
+                continue
+            sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in how)),
+                             model, ImsSettings(**s))
+            if name == "tvk tvs":
+                sim.tvk = {2: [(j, "K", 2.0) for j in range(9)]}
+                sim.tvs = {2: [(j, "SS", 1e-5) for j in range(9)]}
+            recs = sim.run()
+            out[name] = (torch.as_tensor(recs[-1].head),
+                         [r.outer for r in recs], [r.inner for r in recs],
+                         all(r.converged for r in recs), s)
+        return out
+
+    cpu = run("cpu")
+    card = run(device)
+    for name, (h, k, i, c, s) in card.items():
+        h0, k0, i0, c0, _ = cpu[name]
+        err = float((h - h0).abs().max())
+        bicgstab = s.get("linear_acceleration") == "bicgstab"
+        bar = CLOSURE_FACTOR * s["outer_dvclose"] if bicgstab \
+            else CARD_CPU_ATOL
+        ok = c and c0 and k == k0 and err <= bar and (
+            all(abs(a - b) <= 0.25 * b for a, b in zip(i, i0)) if bicgstab
+            else i == i0)
+        print(f"small {name}: card outers={k} inners={i} converged={c}; cpu "
+              f"outers={k0} inners={i0}; max|dh|={err!r} bar={bar!r} "
+              f"({'bicgstab' if bicgstab else 'cg'})")
+        if not ok:
+            raise AssertionError(f"small {name}: the card disagrees with the "
+                                 "CPU")
+
+
+def run_properties(device, dis_head):
+    """The properties phase at 4x1024x1024: (a) XT3D on the bench model,
+    (b) XT3D with rotated anisotropy in both modes, (c) CSUB with delay
+    beds and TVK/TVS through Simulation, (d) BUY and VSC, (e) small twins
+    on the card against the CPU.  Returns the launches of (c) and (d)."""
+    run_xt3d_bench(device, dis_head)
+    run_xt3d_rotated(device)
+    launches = run_csub_tv(device)
+    launches += run_buy_vsc(device)
+    check_small_properties(device)
+    return launches
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -1635,7 +2081,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
-          "unstructured")
+          "unstructured", "properties")
 
 
 def main():
@@ -1706,13 +2152,16 @@ def main():
     if "newton" in phases:
         launches["newton"] = run_newton_deck(device,
                                              args.newton_preconditioner)
+    if ("unstructured" in phases or "properties" in phases) \
+            and "bench" not in phases:
+        _, fused_head, kiters, inners, _ = run_bench(device, "f64")
     if "unstructured" in phases:
-        if "bench" not in phases:
-            _, fused_head, kiters, inners, _ = run_bench(device, "f64")
         run_disv_oracle(device, fused_head, list(zip(kiters, inners)))
         run_brick(device)
         run_brick_deck(device)
         launches["general"] = run_rotated(device)
+    if "properties" in phases:
+        launches["properties"] = run_properties(device, fused_head)
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -1732,6 +2181,7 @@ def main():
         "launches_deck_path": launches["deck"],
         "launches_newton_deck_path": launches["newton"],
         "launches_general_assembly_path": launches["general"],
+        "launches_properties_path": launches["properties"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

@@ -2,8 +2,9 @@
 simulator, for one NVIDIA Hopper GPU.
 
 The port covers the GWF model on DIS, DISV and DISU grids: NPF (standard
-or Newton, rewetting, rotated anisotropy, horizontal-flow barriers), STO,
-CHD/WEL/RCH/DRN/RIV/GHB/EVT, preconditioned CG or BiCGSTAB (``f64`` or
+or Newton, rewetting, rotated anisotropy, horizontal-flow barriers, XT3D
+with its Newton form), STO, CHD/WEL/RCH/DRN/RIV/GHB/EVT, GNC, BUY, VSC,
+CSUB with delay interbeds, TVK/TVS, preconditioned CG or BiCGSTAB (``f64`` or
 ``mixed`` precision), in the fused time step and on the deck path
 (``python -m modflow6_torch <workspace>``: ``mfsim.nam`` loader,
 ``Simulation``, ``NumericalSolution``, ``.hds``/``.cbc``/``.grb``/listing

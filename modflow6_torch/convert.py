@@ -28,15 +28,25 @@ Keys of ``arrays``:
   data class (``chd_node``, ``chd_head``, ``chd_mask``; ``drn_elev``,
   ``drn_cond``, ``drn_ddrn``; ``evt_pxdp``, ``evt_petm`` when segmented;
   ...);
-- optional ``wetdry``: the REWET thresholds per cell.
+- optional ``wetdry``: the REWET thresholds per cell;
+- with XT3D (``model_options["ixt3d"]``): ``xt3d_{field}`` for every field
+  of the reference's ``Xt3dData`` (a model with XT3D is on the general
+  path, with its edge topology; its condsat is unused);
+- with GNC: ``gnc_{field}`` for every field of the reference's ``GncData``;
+- with CSUB: ``csub_{field}`` for the fields of the reference's
+  ``CsubData``, ``csub_delay_{field}`` for its ``DelayData``, and
+  ``csub_state_{field}`` / ``csub_delay_state_{field}`` for the initial
+  ``CsubState`` and ``DelayState``.
 
 ``npf_options`` and ``sto_options`` hold the fields of the reference's
 ``NpfOptions`` and ``StoOptions`` (``inewton`` and ``satomega`` among
 them); ``model_options`` the reference GwfModel's ``inewton``,
-``inewtonur``, ``wel_iflowred``, ``wel_flowred``, ``rewet_opts`` and
-``hfb`` (whose barriers the given condsat already holds).  The
-preconditioner settings travel in ``state["settings"]`` (the fields of
-``ImsSettings``).
+``inewtonur``, ``wel_iflowred``, ``wel_flowred``, ``rewet_opts``,
+``hfb`` (whose barriers the given condsat already holds), ``ixt3d``,
+``buy`` and ``vsc`` (the keyword arguments of ``make_buy`` and
+``make_vsc``) and ``csub`` (``head_based``, ``nlay``, ``ncpl`` and the
+delay beds' ``ncells``).  The preconditioner settings travel in
+``state["settings"]`` (the fields of ``ImsSettings``).
 """
 
 from __future__ import annotations
@@ -47,7 +57,10 @@ import torch
 
 from . import resolve_device
 from .models.discretization import DisGrid, DisuGrid, DisvGrid
-from .models.gwf import bnd, npf, sto
+from .models.gwf import bnd, csub as csub_mod, gnc as gnc_mod, npf, sto
+from .models.gwf import xt3d as xt3d_mod
+from .models.gwf.buy import make_buy
+from .models.gwf.vsc import make_vsc
 from .models.gwf.model import GwfModel, PackageData
 from .models.simulation import Simulation
 from .solution.ims import ImsSettings
@@ -125,13 +138,57 @@ def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
         topo = (grid.build_edge_topology()
                 if general and isinstance(grid, DisGrid)
                 else grid.build_topology())
+    options = dict(model_options or {})
+    extra = {}
+    if options.get("buy") is not None:
+        extra["buy"] = make_buy(**options.pop("buy"))
+    if options.get("vsc") is not None:
+        extra["vsc"] = make_vsc(**options.pop("vsc"))
+    if options.get("csub") is not None:
+        extra["csub"], extra["csub_state0"] = _csub(
+            arrays, options.pop("csub"), device)
+    if "gnc_n" in arrays:
+        extra["gnc"] = gnc_mod.from_arrays(
+            _prefixed(arrays, "gnc_"), len(arrays["strt"]),
+            len(arrays["edge_n"]), device)
+    ixt3d = int(options.get("ixt3d", 0))
+    if ixt3d:
+        extra["xt3d"] = xt3d_mod.from_arrays(_prefixed(arrays, "xt3d_"),
+                                             ixt3d, device)
+        dtopo = dataclasses.replace(dtopo, grid_shape=None)
+        if ixt3d == 1:
+            extra["system_dtopo"] = dataclasses.replace(
+                dtopo, nbr=extra["xt3d"].nbr_ext)
+    for key in ("buy", "vsc", "csub"):
+        options.pop(key, None)
     return GwfModel(
         name=name, dtopo=dtopo, npf_opts=npf.NpfOptions(**npf_options),
         npf_arrays=npf_arrays, strt=f64("strt"), ibound0=i32("ibound0"),
         delr=delr, delc=delc, area=area, sto_opts=sto_opts,
         sto_arrays=sto_arrays, condsat3=condsat3, grid=grid, topo=topo,
         wetdry=f64("wetdry") if "wetdry" in arrays else None,
-        **(model_options or {}), **packages)
+        **options, **extra, **packages)
+
+
+def _prefixed(arrays: dict, prefix: str) -> dict:
+    return {key[len(prefix):]: value for key, value in arrays.items()
+            if key.startswith(prefix)}
+
+
+def _csub(arrays, meta, device):
+    """(CsubData, CsubState) from the ``csub_*`` arrays."""
+    state = _prefixed(arrays, "csub_state_")
+    db = _prefixed(arrays, "csub_delay_state_")
+    delay = {key: value for key, value in
+             _prefixed(arrays, "csub_delay_").items()
+             if not key.startswith("state_")}
+    data = {key: value for key, value in _prefixed(arrays, "csub_").items()
+            if not key.startswith(("state_", "delay_"))}
+    if db:
+        state["db"] = db
+    if delay:
+        data["delay"] = delay
+    return csub_mod.from_arrays(data, state, device=device, **meta)
 
 
 def simulation_from_reference(state: dict, *, device=None, hds_path=None,
@@ -148,7 +205,8 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
     - ``settings``: the fields of the reference's ``ImsSettings``;
     - ``period_data``: {kper: {package: the arrays of its data class's
       fields, in their order ((node, value, mask) for chd, wel and rch)}};
-    - ``oc``: {kper: {(verb, what): spec}} or None; ``fail_fast``.
+    - ``oc``: {kper: {(verb, what): spec}} or None; ``fail_fast``;
+    - optional ``tvk``, ``tvs``: {kper: [(node, PROP, value)]}.
     """
     device = resolve_device(device)
     grid = _GRIDS[state.get("grid_class", "dis")].create(**state["grid"])
@@ -163,6 +221,8 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
                      transient=list(state["transient"]), hds_path=hds_path,
                      cbc_path=cbc_path, lst_path=lst_path, oc=oc)
     sim.fail_fast = bool(state["fail_fast"])
+    sim.tvk = dict(state.get("tvk") or {})
+    sim.tvs = dict(state.get("tvs") or {})
     for kper, pkgs in state["period_data"].items():
         sim.period_data[int(kper)] = PackageData(**{
             pkg: _package(_BOUNDS[pkg], dict(zip(

@@ -21,7 +21,8 @@ from functools import cached_property
 
 import numpy as np
 
-from .topology import Topology, _running_count
+from ...ops.scatter import running_count
+from .topology import Topology
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +141,7 @@ class DisvGrid:
         key = vmin * np.int64(self.vertices.shape[0]) + vmax
         # the k-th segment with a given key closes a connection with the
         # (k-1)-th when k is odd (the second, the fourth, ...)
-        rank = _running_count(key)
+        rank = running_count(key)
         order = np.argsort(key, kind="stable")
         prev = np.empty_like(order)
         prev[order[1:]] = order[:-1]

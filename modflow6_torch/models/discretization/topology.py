@@ -31,6 +31,8 @@ from functools import cached_property
 
 import numpy as np
 
+from ...ops.scatter import running_count
+
 # CSR slot order of the six neighbours (ascending column), and for each the
 # slot of the same connection seen from the other cell
 UP, NORTH, WEST, EAST, SOUTH, DOWN = range(6)
@@ -134,19 +136,6 @@ class DisTopology:
         return ia, ja, pos[n, 1 + slot], pos[m, 1 + mirror]
 
 
-def _running_count(values) -> np.ndarray:
-    """For each element, how many equal elements stand before it."""
-    order = np.argsort(values, kind="stable")
-    sorted_vals = values[order]
-    idx = np.arange(values.size, dtype=np.int64)
-    is_start = np.ones(values.size, bool)
-    is_start[1:] = sorted_vals[1:] != sorted_vals[:-1]
-    start = np.maximum.accumulate(np.where(is_start, idx, 0))
-    rank = np.empty(values.size, np.int64)
-    rank[order] = idx - start
-    return rank
-
-
 @dataclasses.dataclass(frozen=True)
 class Topology:
     """Static connection topology over ``nodes`` cells.
@@ -198,7 +187,7 @@ class Topology:
             K = max(int(degree.max(initial=0)), 1, int(self.pad_degree))
             # slots in edge order: the slot of an edge in a cell's row is
             # the count of that cell's appearances in earlier edges
-            rank = _running_count(
+            rank = running_count(
                 np.stack([n64, m64], axis=1).reshape(-1))
             slot_of_n, slot_of_m = rank[0::2], rank[1::2]
         slot_nm = (n64 * K + slot_of_n).astype(np.int32)

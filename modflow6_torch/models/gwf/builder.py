@@ -10,10 +10,13 @@ used only when asked for.  ``newton`` is False, True or
 ihdwet), the NPF REWET option; ``wel_auto_flow_reduce`` the WEL
 AUTO_FLOW_REDUCE fraction; ``hfb`` a list of (n, m, hydchr) barriers;
 ``angle1/2/3`` the rotated-anisotropy angles, passed on as the reference
-passes them.  A DIS grid without angles takes the structured path and gets
-no edge tables on the device; every other model gets the full
-``DeviceTopology``.  ``buy``, ``csub``, ``vsc`` and ``xt3d`` are not ported
-and raise ``NotImplementedError``.
+passes them (radians in the two-point ``_hyeff``, degrees in XT3D's
+tensors); ``xt3d`` 0, 1 (full matrix) or 2 (RHS mode); ``buy`` the keyword
+arguments of ``buy.make_buy``, ``vsc`` those of ``vsc.make_vsc``, ``csub``
+those of ``csub.make_csub`` (the initial state goes to
+``model.csub_state0``).  A DIS grid without angles, XT3D or VSC takes the
+structured path and gets no edge tables on the device; every other model
+gets the full ``DeviceTopology``.
 """
 
 from __future__ import annotations
@@ -23,12 +26,10 @@ import torch
 
 from ... import resolve_device
 from . import bnd, npf, sto
+from .buy import make_buy
+from .csub import make_csub
 from .model import GwfModel
-
-
-def _is_off(value) -> bool:
-    """None, False or 0: the value that leaves an optional feature off."""
-    return value is None or (isinstance(value, (bool, int)) and not value)
+from .vsc import make_vsc
 
 
 def _full(val, n, dtype, device, np_dtype=np.float64):
@@ -146,18 +147,13 @@ def build_gwf(
     rewetting=None,
     device=None,
 ) -> GwfModel:
-    given = dict(buy=buy, csub=csub, vsc=vsc, xt3d=xt3d)
-    for key, value in given.items():
-        if not _is_off(value):
-            raise NotImplementedError(f"build_gwf({key}=...) is not ported")
-
     device = resolve_device(device)
     f64 = torch.float64
     N = grid.nodes
     iangle = [int(np.any(np.asarray(a) != 0.0))
               for a in (angle1, angle2, angle3)]
     shape = getattr(grid, "grid_shape", None)
-    if shape is not None and not any(iangle):
+    if shape is not None and not (any(iangle) or xt3d or vsc is not None):
         # the structured path: the grid shape alone, no edge tables
         topo = grid.build_topology()
         dtopo = npf.DeviceTopology(grid_shape=shape)
@@ -216,6 +212,8 @@ def build_gwf(
         delc=torch.as_tensor(grid.delc, dtype=f64, device=device)
         if structured else None,
         area=area, sto_opts=sto_opts, sto_arrays=sto_arrays,
+        buy=None if buy is None else make_buy(**buy),
+        vsc=None if vsc is None else make_vsc(**vsc), ixt3d=int(xt3d),
         chd=chd_data(chd, device=device) if chd else None,
         wel=wel_data(wel, device=device) if wel else None,
         rch=rch_data(rch, device=device) if rch else None,
@@ -233,5 +231,8 @@ def build_gwf(
             float(rewetting.get("wetfct", 1.0)),
             int(rewetting.get("iwetit", 1)),
             int(rewetting.get("ihdwet", 0))))
+    if csub is not None:
+        model.csub, model.csub_state0 = make_csub(
+            grid, strt=model.strt, device=device, **csub)
     model.finalize_setup()
     return model

@@ -3,11 +3,15 @@
 Port of modflow6_tpu/models/simulation.py for one GWF model (on a DIS,
 DISV or DISU grid) and one IMS solution (reference core loop src/mf6core.f90: Mf6Initialize:70,
 Mf6PrepareTimestep:498, Mf6DoTimestep:620, Mf6FinalizeTimestep:708): walk
-the TDIS periods and steps, solve each step with the numerical solution,
-compute flows and budgets, and write the heads, budget, grid and listing
-files.  The transport, UZF, CSUB, BUY/VSC, MAW, PRT, observation, NetCDF,
-TVK/TVS and adaptive-time-step branches of the reference are outside the
-ported slice; the loader raises for decks that ask for them.
+the TDIS periods and steps, apply the TVK/TVS changes at each period's
+start, solve each step with the numerical solution, advance the CSUB
+state, compute flows and budgets, and write the heads, budget, grid and
+listing files.  The transport coupling (``gwt``, which would hand the
+concentrations to BUY and VSC), UZF, MAW, PRT, observation, NetCDF and
+adaptive-time-step branches of the reference are outside the ported
+slice: ``gwt`` raises, and the loader raises for decks that ask for the
+others.  Without transport BUY and VSC see a concentration only where
+``period_data`` sets ``buy_conc``, as in the reference.
 
 The output phase works on the model's device.  Face flows, their per-cell
 sums (the CHD flows) and the storage rates are computed there from the
@@ -36,6 +40,7 @@ from ..utils import grb
 from ..utils.binary import BudgetFileWriter, HeadFileWriter
 from ..utils.budget import Budget
 from ..utils.csvout import OuterCsvWriter
+from .gwf import csub as csub_mod
 
 
 class ConvergenceFailure(RuntimeError):
@@ -61,7 +66,10 @@ class Simulation:
 
     def __init__(self, tdis: Tdis, model, settings: ImsSettings,
                  transient=None, hds_path=None, cbc_path=None,
-                 lst_path=None, outer_csv_path=None, oc=None):
+                 lst_path=None, outer_csv_path=None, oc=None, gwt=None):
+        if gwt is not None:
+            raise NotImplementedError(
+                "the GWT transport coupling (gwt=) is not ported")
         self.tdis = tdis
         self.model = model
         self.solution = NumericalSolution(model, settings)
@@ -84,11 +92,52 @@ class Simulation:
         # optional per-period package data: {kper: PackageData}; data
         # persists across periods until redefined (MF6 PERIOD semantics)
         self.period_data: dict = {}
+        # time-varying K / storage (TVK/TVS subpackages, gwf-tvk.f90 /
+        # gwf-tvs.f90): {kper: [(node, PROP, value)]}; applied at period
+        # start with condsat rebuilt
+        self.tvk: dict = {}
+        self.tvs: dict = {}
+        # CSUB state (csub.CsubState), committed at step end
+        self.csub_state = model.csub_state0
         self._inner_csv = None    # lazy CSV_INNER_OUTPUT writer
         # a failed time step aborts the run unless the simulation CONTINUE
         # option is set (the loader clears this flag then)
         self.fail_fast = False
         self.grb_seconds = 0.0    # host time of the binary grid file
+
+    def _apply_time_varying(self, kper):
+        """TVK/TVS period changes (the reference's _apply_time_varying):
+        the K or SS/SY arrays changed on the host, condsat rebuilt on the
+        planes or per edge (the kchangeper path in gwf-npf.f90), and a new
+        solution bound to the new system."""
+        kch = self.tvk.get(kper, [])
+        sch = self.tvs.get(kper, [])
+        if not kch and not sch:
+            return
+        model = self.model
+        if model.ixt3d:
+            raise NotImplementedError("TVK with XT3D not supported yet")
+
+        def changed(arrays, fields, changes, key):
+            host = {f: getattr(arrays, f).cpu().numpy().copy()
+                    for f in fields}
+            for node, prop, val in changes:
+                host[key(prop)][node] = val
+            return dataclasses.replace(arrays, **{
+                f: torch.as_tensor(v, device=model.device)
+                for f, v in host.items()})
+
+        if kch:
+            names = {"K": "k11", "K22": "k22", "K33": "k33"}
+            model.npf_arrays = changed(model.npf_arrays, ("k11", "k22",
+                                                          "k33"), kch,
+                                       lambda p: names[p.upper()])
+        if sch:
+            model.sto_arrays = changed(model.sto_arrays, ("ss", "sy"), sch,
+                                       str.lower)
+        if kch:
+            model.finalize_setup()
+        self.solution = NumericalSolution(model, self.solution.s)
 
     def period_packages(self, kper):
         if not self.period_data:
@@ -99,12 +148,19 @@ class Simulation:
                 best = self.period_data[k]
         return best if best is not None else self.model.packages
 
+    def step_packages(self, kper):
+        """The period's packages with the step-start CSUB state."""
+        pkgs = self.period_packages(kper)
+        if self.model.csub is not None:
+            pkgs = dataclasses.replace(pkgs, csub_state=self.csub_state)
+        return pkgs
+
     def solve_step(self, head_old, kper, kstp, delt):
         """The solve phase only (Mf6DoTimestep body, no outputs)."""
         iss = not self.transient[kper - 1]
         return self.solution.solve_timestep(
             head_old, delt, kstp=kstp, iss=iss,
-            pkgs=self.period_packages(kper), kper=kper)
+            pkgs=self.step_packages(kper), kper=kper)
 
     def _sync(self):
         if self.model.device.type == "cuda":
@@ -118,10 +174,17 @@ class Simulation:
         model = self.model
         iss = not self.transient[kper - 1]
         head_old = head
-        pkgs = self.period_packages(kper)
+        pkgs = self.step_packages(kper)
         t0 = time.perf_counter()
         head, info, aux = self.solve_step(head_old, kper, kstp, delt)
         ibound, cond = aux["ibound"], aux["cond"]
+        if model.csub is not None:
+            # pkgs keeps the start-of-step state (for budgets); then the
+            # state advances: es0 ← es, pcs ← max(pcs, es), compaction +=
+            a = model.npf_arrays
+            self.csub_state = csub_mod.advance_state(
+                model.csub, self.csub_state, a.top, a.bot, model.area,
+                a.icelltype, head, head_old, ibound, delt)
         self._sync()
         t1 = time.perf_counter()
         if self.outer_csv:
@@ -257,7 +320,11 @@ class Simulation:
         t0 = time.perf_counter()
         self._write_grb()
         self.grb_seconds = time.perf_counter() - t0
+        last_kper = 0
         for kper, kstp, delt, pertim, totim in self.tdis.walk():
+            if kper != last_kper:
+                self._apply_time_varying(kper)
+                last_kper = kper
             head = self.do_step(head, kper, kstp, delt, pertim, totim,
                                 save_heads_every)
         self.finish()
@@ -288,6 +355,14 @@ class Simulation:
         if pkgs is None:
             pkgs = model.packages
         flows = {}
+
+        # CSUB storage release (at the start-of-step state in pkgs)
+        if model.csub is not None and pkgs.csub_state is not None:
+            a = model.npf_arrays
+            d_c, r_c = csub_mod.assemble_csub(
+                model.csub, pkgs.csub_state, a.top, a.bot, model.area,
+                a.icelltype, head, head_old, ibound, delt)
+            flows["CSUB"] = d_c * head - r_c
 
         # storage rates: into the cell, like sto_cq
         if model.sto_arrays is not None and not iss:
@@ -323,6 +398,8 @@ class Simulation:
         shape3d = self._shape3d()
         mname = model.name.upper()
         for name, q in flows.items():
+            if name == "CSUB":
+                continue        # the reference writes no CSUB record
             if name.startswith("STO-"):
                 nodes = np.arange(model.nodes)
                 qv = q.cpu().numpy()

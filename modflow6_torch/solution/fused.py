@@ -43,7 +43,7 @@ def make_fused_step(model, settings: ImsSettings, iss: bool, kper: int = 1):
         raise NotImplementedError(
             "rewetting in the fused step (the reference's fused step has no "
             "wetting/drying sweep; use NumericalSolution)")
-    dtopo = model.dtopo
+    dtopo = model.system_topo
     use_cg = s.linear_acceleration == "cg"
     solver = cg if use_cg else bicgstab
     use_ptc = ptc_applies(model, s, bool(iss), kper)

@@ -6,7 +6,8 @@ src/Solution/NumericalSolution.f90: solve :1482-1837, sln_ls :2404-2475,
 sln_underrelax :2989-3114, sln_backtracking :2680-2776, complexity presets
 sln_setouter :2623-2671): ``ImsSettings``, ``SolveInfo`` and
 ``NumericalSolution`` for a model on the structured or the general path
-(``fix_system`` picks the Dirichlet fixup), with pseudo-transient
+(``fix_system`` picks the Dirichlet fixup; the solver reads the model's
+``system_topo``, XT3D's extended table in its full mode), with pseudo-transient
 continuation (sln_ls :2484-2569 + gwf_ptc gwf.f90:625-687), the Newton
 under-relaxation with its convergence rescue (npf_nur +
 sln_nur_has_converged) and the wetting/drying sweep before each outer
@@ -102,7 +103,7 @@ def fix_system(model, active, diag, off, rhs, x, symmetric):
         return apply_dirichlet_structured(model.dtopo.grid_shape, active,
                                           diag, off, rhs, x,
                                           symmetric=symmetric)
-    return apply_dirichlet(model.dtopo.nbr, active, diag, off, rhs, x,
+    return apply_dirichlet(model.system_topo.nbr, active, diag, off, rhs, x,
                            symmetric=symmetric)
 
 
@@ -137,7 +138,7 @@ def ptc_terms(model, s, diag, off, rhs, head, active, delt, prev):
     fused step: (diag', rhs', ptcdel, l2norm).  ``prev`` is None at the
     first outer iteration of a step, else the carried (ptcdel, l2norm) of
     the iteration before, as 0-d tensors."""
-    matvec = make_matvec(model.dtopo, diag, off)
+    matvec = make_matvec(model.system_topo, diag, off)
     resid = torch.where(active > 0, matvec(head) - rhs, DZERO)
     l2norm = torch.sqrt(torch.sum(resid * resid))
     a = model.npf_arrays
@@ -209,7 +210,7 @@ class NumericalSolution:
         ``dxmax`` are 0-d tensors."""
         s = self.s
         model = self.model
-        dtopo = model.dtopo
+        dtopo = model.system_topo
 
         diag, off, rhs = model.assemble(head, head_old, ibound, delt, iss,
                                         pkgs)
@@ -312,7 +313,7 @@ class NumericalSolution:
         model = self.model
         diag, off, rhs = model.assemble(head, head_old, ibound, delt, iss,
                                         pkgs, newton=False)
-        matvec = make_matvec(model.dtopo, diag, off)
+        matvec = make_matvec(model.system_topo, diag, off)
         r = torch.where(ibound > 0, matvec(head) - rhs, DZERO)
         return torch.sqrt(torch.sum(r * r))
 

@@ -7,17 +7,21 @@ src/Utilities/Idm/IdmLoad.f90, src/SimulationCreate.f90:200-729):
 ``load_oc``, the list-package reader, the GWF model loader and
 ``load_simulation`` for one GWF6 model on a DIS, DISV or DISU grid with the
 packages DIS6/DISV6/DISU6, IC6, NPF6, STO6, CHD6, WEL6, DRN6, RIV6, GHB6,
-EVT6 (with NSEG segments), RCH6 (list or READASARRAYS) and OC6, with MF6's
-stress-period persistence; the GWF
+EVT6 (with NSEG segments), RCH6 (list or READASARRAYS), BUY6, CSUB6 (no-delay
+and delay interbeds, the first period's settings; the reference's
+``advanced_loader.load_csub``) and OC6, with MF6's stress-period
+persistence; the GWF
 name-file option NEWTON [UNDER_RELAXATION], NPF REWET (WETFCT, IWETIT,
-IHDWET) with the WETDRY array, WEL AUTO_FLOW_REDUCE, and the IMS options
+IHDWET) with the WETDRY array, the NPF TVK6 and STO TVS6 subpackages (to
+``Simulation.tvk``/``tvs``), WEL AUTO_FLOW_REDUCE, and the IMS options
 NO_PTC and PRECONDITIONER_LEVELS/PRECONDITIONER_DROP_TOLERANCE (the
 reference program's ILU settings, mapped to a Chebyshev preconditioner of
 order 4 with a warning).
 
 Everything else a deck can ask for raises ``NotImplementedError`` naming
 the package or keyword: other model types, several models, exchanges,
-XT3D, TVK6/TVS6, TS6/TAS6 series, HFB6 and the advanced packages, OBS6,
+XT3D (which the reference's loader reads past, running the two-point
+scheme), TS6/TAS6 series, HFB6 and the advanced packages, OBS6,
 NetCDF, ATS6 and HPC6.  The reference's loader reads neither the NPF
 ANGLE1/2/3 arrays nor the DRN AUXDEPTHNAME option (rotated anisotropy,
 like HFB, reaches a model only through ``build_gwf``); this one raises on
@@ -43,6 +47,8 @@ import torch
 from ... import resolve_device
 from ...models.discretization import DisGrid, DisuGrid, DisvGrid
 from ...models.gwf import bnd, builder
+from ...models.gwf.buy import make_buy
+from ...models.gwf.csub import make_csub
 from ...models.gwf.model import PackageData
 from ...models.simulation import Simulation
 from ...solution.ims import ImsSettings
@@ -54,7 +60,8 @@ from .reader import BlockFile
 
 # package types of a GWF name file that the slice covers
 _SUPPORTED_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "NPF6", "STO6", "CHD6",
-                       "WEL6", "DRN6", "RIV6", "GHB6", "EVT6", "RCH6", "OC6")
+                       "WEL6", "DRN6", "RIV6", "GHB6", "EVT6", "RCH6", "BUY6",
+                       "CSUB6", "OC6")
 # options of a list package that would change its flows and are not ported
 _UNPORTED_LIST_OPTIONS = ("TS6", "OBS6", "MOVER", "AUXMULTNAME",
                           "AUXDEPTHNAME", "SURF_RATE_SPECIFIED")
@@ -350,6 +357,83 @@ _LIST_PACKAGES = {
 }
 
 
+def _load_tv(bfopts, key, mdir, grid):
+    """TVK6/TVS6 FILEIN subpackage → {kper: [(node, PROP, value)]}
+    (gwf-tvk.f90 / gwf-tvs.f90 period blocks)."""
+    v = bfopts.get(key)
+    if not (isinstance(v, list) and v[0].upper() == "FILEIN"):
+        return {}
+    tv_bf = BlockFile(os.path.join(mdir, v[1]))
+    out = {}
+    for b in tv_bf.get_all("PERIOD"):
+        entries = []
+        for toks in tv_bf.expand_open_close(b):
+            node, ntok = _cellid_to_node(toks, grid)
+            entries.append((node, toks[ntok].upper(), float(toks[ntok + 1])))
+        out[b.index] = entries
+    return out
+
+
+def _load_buy(path):
+    """BUY6 file → make_buy keyword arguments: DENSEREF and the per-species
+    PACKAGEDATA (irhospec modelname auxspeciesname drhodc crhoref)."""
+    bf = BlockFile(path)
+    bopts = bf.options()
+    schema.check_options("gwf-buy", bopts, path)
+    drho, cref = [], []
+    pd = bf.get("PACKAGEDATA")
+    if pd is not None:
+        for toks in pd.lines:
+            drho.append(float(toks[3]))
+            cref.append(float(toks[4]))
+    return dict(denseref=float(bopts.get("DENSEREF", 1000.0)),
+                drhodc=drho or [0.7], crhoref=cref or [0.0],
+                iform=1 if "HHFORMULATION_RHS" in bopts else 2)
+
+
+def _load_csub(path, grid, shp, base_dir):
+    """CSUB6 file → make_csub keyword arguments (gwf-csub.dfn blocks; the
+    reference's advanced_loader.load_csub): the coarse-grained GRIDDATA and
+    the PACKAGEDATA interbeds, NODELAY or DELAY.  Settings of a PERIOD
+    block after the first raise, as in the reference."""
+    bf = BlockFile(path)
+    opts = bf.options()
+    schema.check_options("gwf-csub", opts, path)
+    kw = dict(head_based="HEAD_BASED" in opts)
+    dims = bf.dimensions()
+    for key, name, default in (("cg_ske_cr", "CG_SKE_CR", 1e-5),
+                               ("cg_theta", "CG_THETA", 0.2),
+                               ("sgm", "SGM", 1.7), ("sgs", "SGS", 2.0)):
+        kw[key] = np.asarray(read_grid_array(
+            bf, "GRIDDATA", name, shp, base_dir, default=default)).reshape(-1)
+    interbeds, delay = [], []
+    pb = bf.get("PACKAGEDATA")
+    if pb is not None and dims.get("NINTERBEDS", 0):
+        for toks in pb.lines:
+            node, nt = _cellid_to_node(toks, grid, start=1)
+            c = 1 + nt
+            # cdelay pcs0 thick_frac rnb ssv_cc sse_cr theta kv h0
+            thick = float(toks[c + 2])
+            rnb = float(toks[c + 3])
+            ssv = float(toks[c + 4])
+            sse = float(toks[c + 5])
+            theta = float(toks[c + 6])
+            if toks[c].upper() == "DELAY":
+                delay.append(dict(node=node, thick=thick, rnb=rnb,
+                                  kv=float(toks[c + 7]), sske_cr=sse,
+                                  ssv_cc=ssv, theta=theta))
+            else:
+                interbeds.append((node, thick, sse, ssv, theta))
+    kw["interbeds"] = interbeds
+    kw["delay_interbeds"] = delay
+    late = [b.index for b in bf.get_all("PERIOD") if b.index > 1]
+    if late:
+        raise NotImplementedError(
+            f"CSUB: PERIOD blocks beyond the first stress period "
+            f"(kper={late}) are not supported by the deck loader yet")
+    return kw
+
+
 def _load_rcha(path, shp, mdir, device):
     """Array-based recharge (gwf-rcha.dfn READASARRAYS): one RECHARGE array
     over the top layer, read from the first PERIOD block, as the reference's
@@ -414,7 +498,7 @@ def _load_gwf_model(ws, mfname, mname, device):
     nopts = npf_bf.options()
     schema.check_options("gwf-npf", nopts, npf_path)
     schema.check_griddata("gwf-npf", npf_bf, npf_path)
-    _refuse(nopts, ("XT3D", "TVK6"), npf_path)
+    _refuse(nopts, ("XT3D",), npf_path)
     gd = npf_bf.get("GRIDDATA")
     for name in schema.griddata_names(gd.lines if gd is not None else []):
         if name in ("ANGLE1", "ANGLE2", "ANGLE3"):
@@ -447,15 +531,17 @@ def _load_gwf_model(ws, mfname, mname, device):
     if k22 is not None and "K22OVERK" in nopts:
         k22 = k22 * k
 
+    tvk = _load_tv(nopts, "TVK6", mdir, grid)
+
     storage = None
     sto_periods = {}
+    tvs = {}
     if "STO6" in pkg_files:
         sto_path = pkg_files["STO6"][0]
         sto_bf = BlockFile(sto_path)
         sopts = sto_bf.options()
         schema.check_options("gwf-sto", sopts, sto_path)
         schema.check_griddata("gwf-sto", sto_bf, sto_path)
-        _refuse(sopts, ("TVS6",), sto_path)
         storage = dict(
             iconvert=read_grid_array(sto_bf, "GRIDDATA", "ICONVERT", shp,
                                      base, dtype=np.int64, default=0).reshape(-1),
@@ -468,6 +554,7 @@ def _load_gwf_model(ws, mfname, mname, device):
         for b in sto_bf.get_all("PERIOD"):
             kw = b.lines[0][0].upper() if b.lines else "TRANSIENT"
             sto_periods[b.index] = (kw == "TRANSIENT")
+        tvs = _load_tv(sopts, "TVS6", mdir, grid)
 
     # --- array-based recharge (gwf-rcha.dfn READASARRAYS)
     rcha = None
@@ -537,6 +624,15 @@ def _load_gwf_model(ws, mfname, mname, device):
         # carry the array recharge through the period-data persistence
         first_pkgs["rch"] = rcha
 
+    # --- BUY buoyancy package (gwf-buy.dfn)
+    if "BUY6" in pkg_files:
+        model.buy = make_buy(**_load_buy(pkg_files["BUY6"][0]))
+    # --- CSUB compaction and subsidence (gwf-csub.dfn)
+    if "CSUB6" in pkg_files:
+        model.csub, model.csub_state0 = make_csub(
+            grid, strt=model.strt, device=device,
+            **_load_csub(pkg_files["CSUB6"][0], grid, shp, base))
+
     # --- OC output files + period selection
     hds_path = cbc_path = oc = None
     if "OC6" in pkg_files:
@@ -545,7 +641,8 @@ def _load_gwf_model(ws, mfname, mname, device):
     return dict(name=mname, model=model, grid=grid, storage=storage,
                 sto_periods=sto_periods, pkg_periods=pkg_periods,
                 maxbound=maxbound, first_pkgs=first_pkgs,
-                hds_path=hds_path, cbc_path=cbc_path, oc=oc)
+                hds_path=hds_path, cbc_path=cbc_path, oc=oc, tvk=tvk,
+                tvs=tvs)
 
 
 def _transient_flags(tdis, storage, sto_periods):
@@ -646,6 +743,8 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     # reference failure semantics: abort on nonconvergence unless the
     # simulation CONTINUE option is set (sim-nam continue keyword)
     simulation.fail_fast = "CONTINUE" not in sopts
+    simulation.tvk = bundle["tvk"]
+    simulation.tvs = bundle["tvs"]
     _attach_period_data(simulation, bundle["pkg_periods"],
                         bundle["maxbound"], bundle["first_pkgs"], device)
     return simulation

@@ -311,3 +311,77 @@ def test_rotated_anisotropy_dis_model_launches_the_kernel(cuda):
     assert all(cg_) and (kg, ig) == (kc, ic)
     np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=0,
                                atol=1e-10)
+
+
+# ------------------------------------------------------ property packages
+
+def test_xt3d_runs_on_card_are_bitwise_equal(cuda):
+    """XT3D's full mode with rotated anisotropy on a 3 x 37 x 45 grid: the
+    cross terms reach an entry along several paths and are summed through
+    the plan's rounds, not atomics, so two runs on the card give the same
+    bits; no product goes through the stencil kernel; and the card agrees
+    with the CPU within 10 x outer_dvclose (BiCGSTAB, ROADMAP Queue C)."""
+    import chip_smoke
+    from modflow6_torch.solution.fused import make_fused_run
+    # closures the solve meets well above rounding (at the bench's own
+    # looser ones the card and the CPU may stop an outer iteration apart)
+    settings = ImsSettings(outer_dvclose=1e-8, outer_maximum=100,
+                           inner_dvclose=1e-10, inner_rclose=1e-7,
+                           inner_maximum=600, linear_acceleration="bicgstab")
+    shape = (3, 37, 45)
+    args = dict(chip_smoke.rotated_args(*shape), xt3d=1)
+    args["angle1"] = np.rad2deg(args["angle1"])
+    cpu = build_gwf("x", chip_smoke.flagship_grid(*shape), device="cpu",
+                    **args)
+    gpu = build_gwf("x", chip_smoke.flagship_grid(*shape), device=cuda,
+                    **args)
+    assert gpu.system_topo.nbr.shape[1] > gpu.dtopo.nbr.shape[1]
+    hc, kc, ic, cc = make_fused_run(cpu, settings, False, 2)(cpu.strt,
+                                                            [5.0, 5.0])
+    stencil.stencil7.launches = 0
+    run = make_fused_run(gpu, settings, False, 2)
+    first = run(gpu.strt, [5.0, 5.0])
+    again = run(gpu.strt, [5.0, 5.0])
+    assert stencil.stencil7.launches == 0
+    assert all(first[3]) and all(cc), (first[1:], kc, ic)
+    assert torch.equal(first[0], again[0]), "two card runs differ"
+    assert first[1:] == again[1:]
+    assert first[1] == kc, (first[1:], kc, ic)
+    assert all(abs(a - b) <= 0.25 * b for a, b in zip(first[2], ic)), (
+        first[2], ic)
+    np.testing.assert_allclose(first[0].cpu().numpy(), hc.numpy(), rtol=0,
+                               atol=10 * settings.outer_dvclose)
+
+
+def test_small_property_twins_on_card_match_cpu(cuda):
+    """chip_smoke.py's small twins of the property packages (XT3D full, RHS
+    and Newton, GNC, CSUB with delay beds, BUY with VSC, TVK/TVS) on the
+    card against the CPU."""
+    from chip_smoke import check_small_properties
+    check_small_properties(cuda)
+
+
+def test_csub_with_delay_beds_on_card_matches_cpu(cuda):
+    """CSUB with no-delay interbeds sharing a cell and delay interbeds,
+    advanced through Simulation on the card and on the CPU: equal counts,
+    heads within 1e-10, the compaction state within 1e-10 of its scale."""
+    import chip_smoke
+    from modflow6_torch.models.simulation import Simulation
+    from modflow6_torch.timing.tdis import StressPeriod, Tdis
+    (_, cpu, s, periods, _), (_, gpu, _, _, _) = (
+        next(m for m in chip_smoke.small_property_models(dev)
+             if m[0] == "csub delay beds") for dev in ("cpu", cuda))
+    out = []
+    for model in (cpu, gpu):
+        sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in periods)),
+                         model, ImsSettings(**s))
+        recs = sim.run()
+        out.append(([(r.outer, r.inner) for r in recs], recs[-1].head,
+                    sim.csub_state))
+    (kc, hc, sc), (kg, hg, sg) = out
+    assert kc == kg
+    np.testing.assert_allclose(hg, hc, rtol=0, atol=1e-10)
+    for name in ("comp", "db_comp", "pcs", "es0"):
+        want = getattr(sc, name).numpy()
+        np.testing.assert_allclose(getattr(sg, name).cpu().numpy(), want,
+                                   rtol=0, atol=1e-10 * np.abs(want).max())

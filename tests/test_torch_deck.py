@@ -38,7 +38,8 @@ import scipy.sparse.linalg as spla
 import torch
 
 from test_regression_decks import GOLDEN, build_npf01, ims_text, write
-from test_torch_parity import model_options
+from test_torch_parity import (csub_arrays, model_options,
+                               stencil_in_torch)
 from modflow6_tpu.ops.solvers import krylov as jkrylov
 from modflow6_tpu.utils.binary import read_budget_file as ref_read_budget
 from modflow6_tpu.utils.binary import read_head_file as ref_read_heads
@@ -89,6 +90,7 @@ def simulation_state(sim):
         if data is not None:
             arrays.update({f"{pkg}_{key}": value
                            for key, value in _pkg_fields(data).items()})
+    arrays.update(csub_arrays(m))
     return dict(
         name=m.name,
         grid=dict(nlay=g.nlay, nrow=g.nrow, ncol=g.ncol, delr=g.delr,
@@ -107,7 +109,7 @@ def simulation_state(sim):
                    for pkg in PACKAGES if getattr(pd, pkg) is not None}
             for kper, pd in sim.period_data.items()},
         oc=None if sim.oc is None else sim.oc.periods,
-        fail_fast=sim.fail_fast)
+        fail_fast=sim.fail_fast, tvk=sim.tvk, tvs=sim.tvs)
 
 
 def assert_same_state(got, want):
@@ -115,7 +117,7 @@ def assert_same_state(got, want):
     are computed, not loaded: they agree to rounding."""
     assert got.keys() == want.keys()
     for key in ("name", "npf_options", "sto_options", "model_options", "tdis",
-                "transient", "oc", "fail_fast"):
+                "transient", "oc", "fail_fast", "tvk", "tvs"):
         assert got[key] == want[key], key
     gs, ws = dict(got["settings"]), dict(want["settings"])
     for s in (gs, ws):
@@ -472,6 +474,39 @@ def _add_option(line):
                                1)
 
 
+CSUB_FILE = """BEGIN OPTIONS
+END OPTIONS
+BEGIN DIMENSIONS
+  NINTERBEDS 3
+END DIMENSIONS
+BEGIN GRIDDATA
+  CG_SKE_CR
+    CONSTANT 1.0e-5
+  CG_THETA
+    CONSTANT 0.2
+  SGM
+    CONSTANT 1.7
+  SGS
+    CONSTANT 2.0
+END GRIDDATA
+BEGIN PACKAGEDATA
+  1 2 3 3 NODELAY 0.0 2.0 1.0 1.0e-2 1.0e-4 0.3 0.0 0.0
+  2 2 3 3 NODELAY 0.0 1.0 1.0 2.0e-2 2.0e-4 0.3 0.0 0.0
+  3 1 4 2 DELAY 0.0 2.0 1.0 1.0e-3 1.0e-4 0.3 0.01 25.0
+END PACKAGEDATA
+"""
+BUY_FILE = """BEGIN OPTIONS
+  DENSEREF 1000.0
+END OPTIONS
+BEGIN DIMENSIONS
+  NRHOSPECIES 1
+END DIMENSIONS
+BEGIN PACKAGEDATA
+  1 gwt salinity 0.7 0.0
+END PACKAGEDATA
+"""
+
+
 UNSUPPORTED = {
     "DRN6": ("m.nam", _add_package("DRN6 m.drn"), {"m.drn": _list_file(
         2, ["1 2 2 27.0 3.0", "2 4 3 9.5 1.5"])}),
@@ -486,8 +521,8 @@ UNSUPPORTED = {
     "SFR6": ("m.nam", _add_package("SFR6 m.sfr")),
     "LAK6": ("m.nam", _add_package("LAK6 m.lak")),
     "UZF6": ("m.nam", _add_package("UZF6 m.uzf")),
-    "CSUB6": ("m.nam", _add_package("CSUB6 m.csub")),
-    "BUY6": ("m.nam", _add_package("BUY6 m.buy")),
+    "CSUB6": ("m.nam", _add_package("CSUB6 m.csub"), {"m.csub": CSUB_FILE}),
+    "BUY6": ("m.nam", _add_package("BUY6 m.buy"), {"m.buy": BUY_FILE}),
     "HFB6": ("m.nam", _add_package("HFB6 m.hfb")),
     "MVR6": ("m.nam", _add_package("MVR6 m.mvr")),
     "OBS6": ("m.nam", _add_package("OBS6 m.obs")),
@@ -498,10 +533,12 @@ UNSUPPORTED = {
                           _add_option("NETCDF_STRUCTURED FILEOUT m.nc")),
     "REWET": ("m.npf", _add_option("REWET WETFCT 1.0 IWETIT 1 IHDWET 0")),
     "XT3D": ("m.npf", _add_option("XT3D")),
-    "TVK6": ("m.npf", _add_option("TVK6 FILEIN m.tvk")),
+    "TVK6": ("m.npf", _add_option("TVK6 FILEIN m.tvk"), {"m.tvk": (
+        "BEGIN PERIOD 2\n  1 2 2 K 3.5\n  2 3 4 K33 0.2\nEND PERIOD\n")}),
     "ANGLE1": ("m.npf", lambda t: t.replace(
         "  K33\n", "  ANGLE1\n    CONSTANT 30.0\n  K33\n")),
-    "TVS6": ("m.sto", _add_option("TVS6 FILEIN m.tvs")),
+    "TVS6": ("m.sto", _add_option("TVS6 FILEIN m.tvs"), {"m.tvs": (
+        "BEGIN PERIOD 2\n  1 1 1 SS 2e-4\n  2 6 5 SY 0.05\nEND PERIOD\n")}),
     "AUTO_FLOW_REDUCE": ("m.wel", lambda t: "BEGIN OPTIONS\n  "
                          "AUTO_FLOW_REDUCE 0.1\nEND OPTIONS\n" + t),
     "TS6": ("m.wel", lambda t: t.replace("-40.0", "pumping")),
@@ -531,7 +568,8 @@ UNSUPPORTED = {
 # the same state as the reference's loader gives.  DISV6 and DISU6 load too,
 # from a deck of their own (the array deck's cell ids are DIS ones).
 PORTED = ("NEWTON", "REWET", "AUTO_FLOW_REDUCE", "PRECONDITIONER_LEVELS",
-          "PRECONDITIONER_DROP_TOLERANCE", "DRN6", "RIV6", "GHB6", "EVT6")
+          "PRECONDITIONER_DROP_TOLERANCE", "DRN6", "RIV6", "GHB6", "EVT6",
+          "CSUB6", "BUY6", "TVK6", "TVS6")
 GENERAL_GRIDS = {"DISV6": "disv", "DISU6": "disu"}
 
 
@@ -567,6 +605,10 @@ def test_loader_raises_outside_the_slice(key, tmp_path):
             "RIV6": "riv_rbot" in got["arrays"],
             "GHB6": "ghb_bhead" in got["arrays"],
             "EVT6": "evt_petm" in got["arrays"],
+            "CSUB6": "csub_delay_kv" in got["arrays"],
+            "BUY6": got["model_options"]["buy"] is not None,
+            "TVK6": bool(got["tvk"]),
+            "TVS6": bool(got["tvs"]),
         }.get(key, got["settings"]["preconditioner"] == "chebyshev")
         assert changed
         return
@@ -616,14 +658,14 @@ def test_load_simulation_runs_on_the_card_unless_asked(tmp_path):
 @pytest.mark.parametrize("component", sorted(
     ["sim-nam", "sim-tdis", "sln-ims", "gwf-nam", "gwf-dis", "gwf-ic",
      "gwf-npf", "gwf-sto", "gwf-chd", "gwf-wel", "gwf-rch", "gwf-rcha",
-     "gwf-oc"]))
+     "gwf-oc", "gwf-buy", "gwf-csub"]))
 def test_schema_component_is_the_reference(component):
     assert schema.load_schema()[component] == ref_schema.load_schema()[
         component]
 
 
 def test_schema_holds_only_the_loaded_components():
-    assert len(schema.load_schema()) == 19
+    assert len(schema.load_schema()) == 21
 
 
 # ------------------------------------------------------------- deck runs
@@ -727,6 +769,7 @@ def test_npf01a_first_step_counts_at_one_sum_order(npf01a, monkeypatch):
     _, port, ws = npf01a
     monkeypatch.setitem(jkrylov.bicgstab.__kwdefaults__, "dot",
                         _torch_order_dot)
+    stencil_in_torch(monkeypatch)
     ref = ref_load(str(ws))
     with jax.disable_jit():
         head, info, _ = ref.solve_step(jnp.asarray(ref.model.strt), 1, 1, 1.0)

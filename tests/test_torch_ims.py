@@ -36,6 +36,7 @@ import torch
 
 from test_fused import tight
 from test_torch_parity import build_both, convertible_args, fused_model_args
+from modflow6_tpu.ops import system as jsystem
 from modflow6_tpu.ops.solvers import krylov as jkrylov
 from modflow6_tpu.ops.solvers.precond import \
     jacobi_precondition as jax_jacobi
@@ -234,9 +235,12 @@ def test_bicgstab_outer_loop_counts_at_one_sum_order(monkeypatch):
     """The cause of the inner-count difference above: with the reference
     run op by op (no fused multiply-adds) and its dot products summed as
     PyTorch sums them, the BiCGSTAB outer loop has equal outer and inner
-    counts and heads within 1e-10."""
+    counts and heads within 1e-10.  The reference keeps its own structured
+    product here: the other tests at one sum order swap the port's plain
+    product into it (``stencil_in_torch``) to run faster."""
     monkeypatch.setitem(jkrylov.bicgstab.__kwdefaults__, "dot",
                         _torch_order_dot)
+    assert jsystem.spmv_structured is jax_spmv_structured
     settings = JaxImsSettings(**BICGSTAB_OUTER)
     with jax.disable_jit():
         want, got = _march_both(convertible_args(), settings, [5.0])

@@ -818,14 +818,18 @@ END OPTIONS"""
 # ------------------------------------------- what still names its absence
 
 def test_remaining_gaps_name_what_is_missing(tmp_path):
-    """XT3D (so also XT3D-Newton), barriers in a deck, augmented models
-    under Newton under-relaxation, and rewetting in the fused step raise
-    and say what is missing."""
+    """The XT3D deck option (which the reference's loader reads past), XT3D
+    Newton with barriers, barriers in a deck, augmented models under Newton
+    under-relaxation, and rewetting in the fused step raise and say what
+    is missing.  XT3D Newton itself is ported (tests/test_torch_xt3d.py)."""
     from modflow6_torch.models.discretization import DisGrid
     from modflow6_torch.models.gwf.builder import build_gwf
     grid = DisGrid.create(**_row(5, 1.0, 2.0))
-    with pytest.raises(NotImplementedError, match="xt3d"):
-        build_gwf("x", grid, newton=True, xt3d=1, icelltype=1, device="cpu")
+    assert build_gwf("x", grid, newton=True, xt3d=1, icelltype=1,
+                     device="cpu").xt3d is not None
+    with pytest.raises(NotImplementedError, match="HFB with XT3D"):
+        build_gwf("x", grid, newton=True, xt3d=1, icelltype=1,
+                  hfb=[(0, 1, 1e-3)], device="cpu")
     ws = str(tmp_path)
     build_newton01(ws, extra_npf="BEGIN OPTIONS\n  XT3D\nEND OPTIONS")
     with pytest.raises(NotImplementedError, match="XT3D"):

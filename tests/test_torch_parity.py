@@ -11,17 +11,20 @@ arrays.
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
 
 from modflow6_tpu.models.discretization import DisGrid as JaxDisGrid
 from modflow6_tpu.models.gwf.builder import build_gwf as jax_build_gwf
+from modflow6_tpu.ops import system as jsystem
 from modflow6_tpu.ops.system import \
     apply_dirichlet_structured as jax_apply_dirichlet_structured
 from modflow6_torch.convert import from_reference
 from modflow6_torch.models.discretization import DisGrid
 from modflow6_torch.models.gwf.builder import build_gwf
+from modflow6_torch.ops.stencil import spmv_structured
 from modflow6_torch.ops.system import apply_dirichlet_structured
 
 
@@ -113,12 +116,50 @@ def reference_arrays(model):
 
 
 def model_options(model):
-    """The Newton, flow-reduce and rewetting settings of either package's
-    GwfModel: the ``model_options`` of from_reference."""
-    return dict(inewton=int(model.inewton), inewtonur=int(model.inewtonur),
-                wel_iflowred=int(model.wel_iflowred),
-                wel_flowred=float(model.wel_flowred),
-                rewet_opts=tuple(model.rewet_opts))
+    """The Newton, flow-reduce, rewetting, XT3D, BUY, VSC and CSUB settings
+    of either package's GwfModel: the ``model_options`` of
+    from_reference."""
+    def floats(v):
+        return [float(x) for x in np.atleast_1d(np.asarray(v))]
+
+    buy, vsc, csub = model.buy, model.vsc, model.csub
+    return dict(
+        inewton=int(model.inewton), inewtonur=int(model.inewtonur),
+        wel_iflowred=int(model.wel_iflowred),
+        wel_flowred=float(model.wel_flowred),
+        rewet_opts=tuple(model.rewet_opts), ixt3d=int(model.ixt3d),
+        buy=None if buy is None else dict(
+            denseref=float(buy.denseref), drhodc=floats(buy.drhodc),
+            crhoref=floats(buy.crhoref), iform=int(buy.iform)),
+        vsc=None if vsc is None else dict(
+            viscref=float(vsc.viscref), dviscdc=floats(vsc.dviscdc),
+            cviscref=floats(vsc.cviscref), ivisc=list(vsc.ivisc),
+            a2=vsc.a2, a3=vsc.a3, a4=vsc.a4),
+        csub=None if csub is None else dict(
+            head_based=bool(csub.head_based), nlay=int(csub.nlay),
+            ncpl=int(csub.ncpl),
+            ncells=9 if csub.delay is None else int(csub.delay.ncells)))
+
+
+def csub_arrays(model):
+    """The ``csub_*`` arrays of from_reference for either package's model:
+    the package data and its initial state, as numpy."""
+    if model.csub is None:
+        return {}
+    out = {}
+    skip = ("delay", "up", "head_based", "nlay", "ncpl", "ib_plan", "plan",
+            "ncells", "db")
+    for prefix, obj in (("csub_", model.csub), ("csub_delay_",
+                                                model.csub.delay),
+                        ("csub_state_", model.csub_state0),
+                        ("csub_delay_state_", model.csub_state0.db)):
+        if obj is None:
+            continue
+        for f in dataclasses.fields(obj):
+            value = getattr(obj, f.name)
+            if f.name not in skip and value is not None:
+                out[prefix + f.name] = np.asarray(value)
+    return out
 
 
 def convert(model, device="cpu"):
@@ -174,6 +215,99 @@ def reference_in_torch_sum_order(monkeypatch):
     for solver in (jkrylov.cg, jkrylov.bicgstab):
         monkeypatch.setitem(solver.__kwdefaults__, "dot",
                             lambda a, b: torch_sum(a * b))
+    stencil_in_torch(monkeypatch)
+
+
+def stencil_in_torch(monkeypatch):
+    """The reference's structured products (``spmv_structured`` and the
+    multigrid levels' ``_matvec3``) computed by the port's plain version:
+    op by op they are the same bits, and the port's runs some fifty times
+    faster.  The first product at each shape and type is held bit for bit
+    against the reference's own, op by op, on the system the test solves,
+    so a divergence fails the test that meets it."""
+    import jax
+    from modflow6_tpu.ops.solvers import mg as jmg
+    own_spmv, own_matvec3 = jsystem.spmv_structured, jmg._matvec3
+    checked = set()
+
+    def checked_once(key, got, own):
+        if key not in checked:
+            with jax.disable_jit():
+                np.testing.assert_array_equal(np.asarray(got),
+                                              np.asarray(own()), err_msg=str(key))
+            checked.add(key)
+        return got
+
+    def spmv(shape, diag, off, x):
+        got = plain_stencil_in_torch(shape, diag, off, x)
+        return checked_once(("spmv_structured", tuple(shape), got.dtype), got,
+                            lambda: own_spmv(shape, diag, off, x))
+
+    def matvec3(d3, c, x3):
+        got = jnp.reshape(plain_stencil_in_torch(
+            d3.shape, jnp.reshape(d3, -1), jnp.reshape(c, (-1, 6)),
+            jnp.reshape(x3, -1)), d3.shape)
+        return checked_once(("_matvec3", tuple(d3.shape), got.dtype), got,
+                            lambda: own_matvec3(d3, c, x3))
+
+    monkeypatch.setattr(jsystem, "spmv_structured", spmv)
+    monkeypatch.setattr(jmg, "_matvec3", matvec3)
+
+
+def plain_stencil_in_torch(shape, diag, off, x):
+    """The reference's ``spmv_structured`` computed by the port's plain
+    version (the same elementwise operations in the same order)."""
+    def t(a):
+        return torch.from_numpy(np.array(a))
+    return jnp.asarray(spmv_structured(shape, t(diag), t(off), t(x)).numpy())
+
+
+# random systems at an odd shape, at the flagship model's that the
+# op-by-op count tests solve, and at a multigrid level below it
+# (stencil_in_torch checks every other shape those tests meet)
+@pytest.mark.parametrize("shape", [(3, 7, 9), (2, 12, 10), (2, 6, 5)])
+def test_reference_stencil_op_by_op_is_the_port_plain_bitwise(shape):
+    """Run op by op, the reference's structured products (``spmv_structured``
+    and the multigrid levels' ``_matvec3``) and the port's plain version
+    give the same bits, in float64 and float32; and ``stencil_in_torch``
+    holds the two against each other where they meet."""
+    import jax
+    from modflow6_tpu.ops.solvers import mg as jmg
+    rng = np.random.default_rng(3)
+    n = int(np.prod(shape))
+    for dtype in (np.float64, np.float32):
+        diag = rng.normal(size=n).astype(dtype)
+        off = rng.normal(size=(n, 6)).astype(dtype)
+        x = rng.normal(size=n).astype(dtype)
+        with jax.disable_jit():
+            want = np.asarray(jsystem.spmv_structured(
+                shape, jnp.asarray(diag), jnp.asarray(off), jnp.asarray(x)))
+        got = np.asarray(plain_stencil_in_torch(shape, diag, off, x))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        with jax.disable_jit():
+            want3 = np.asarray(jmg._matvec3(
+                jnp.asarray(diag.reshape(shape)),
+                jnp.asarray(off.reshape(shape + (6,))),
+                jnp.asarray(x.reshape(shape))))
+        np.testing.assert_array_equal(got.reshape(shape), want3)
+
+
+def test_stencil_in_torch_fails_where_the_products_differ(monkeypatch):
+    """The swap's own check: a reference product that differs from the
+    port's plain version in its last bit fails the first call."""
+    import jax
+    jnp_spmv = jsystem.spmv_structured
+    monkeypatch.setattr(jsystem, "spmv_structured",
+                        lambda *a: jnp_spmv(*a) * (1 + 2.0 ** -50))
+    stencil_in_torch(monkeypatch)
+    rng = np.random.default_rng(4)
+    shape = (2, 6, 5)
+    n = int(np.prod(shape))
+    args = (jnp.asarray(rng.normal(size=n)),
+            jnp.asarray(rng.normal(size=(n, 6))), jnp.asarray(rng.normal(size=n)))
+    with jax.disable_jit(), pytest.raises(AssertionError):
+        jsystem.spmv_structured(shape, *args)
 
 
 def _same_reference_model(a, b):

@@ -48,7 +48,7 @@ from test_robustness import _laplacian_system
 from test_torch_ims import (_assert_same_march, _port_settings,
                             _torch_order_dot)
 from test_torch_parity import (build_both, convertible_args, flagship_args,
-                               fused_model_args)
+                               fused_model_args, stencil_in_torch)
 from modflow6_tpu.models.discretization import DisGrid as JaxDisGrid
 from modflow6_tpu.models.gwf.builder import build_gwf as jax_build_gwf
 from modflow6_tpu.ops.solvers import cg as jax_cg
@@ -494,6 +494,7 @@ def test_flagship_counts_follow_the_sum_order(pc, monkeypatch):
                  port.strt, lambda h: h.numpy(), delts=(3.0,))
     _assert_same_march(jitted, got, 1e-10, inner=False)
     monkeypatch.setitem(jkrylov.cg.__kwdefaults__, "dot", _torch_order_dot)
+    stencil_in_torch(monkeypatch)
     with jax.disable_jit():
         same_order = _march(JaxNumericalSolution(ref, settings),
                             jnp.asarray(ref.strt), np.asarray, delts=(3.0,))
