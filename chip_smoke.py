@@ -21,7 +21,14 @@ against the structured run (the gather product over the extended table),
 XT3D with rotated anisotropy in full and RHS mode through ``Simulation``,
 the bench model with CSUB interbeds (delay beds among them) and TVK/TVS
 over two periods, BUY and VSC with a seawater wedge, and small XT3D, GNC,
-CSUB, BUY/VSC and TVK/TVS twins on the card against the CPU.
+CSUB, BUY/VSC and TVK/TVS twins on the card against the CPU; and the
+advanced packages (``advanced``): the bench model with 1024 multi-layer
+wells, 256 lakes and a 4160-reach stream network through ``Simulation``
+twice (bitwise equal, no stencil launch: the augmented table has no grid
+shape), the same model as a MAW6/LAK6/SFR6 deck with a second period
+through the command-line entry, the gather product at the table's width,
+and small MAW, LAK, SFR and repeated-sum twins on the card against the
+CPU.
 
 Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          without one, and on any failed
@@ -37,7 +44,8 @@ Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
 Output of the smoke run, in order: the device, the kernel build,
 kernel-vs-plain checks with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
-general-path runs, the property-package runs, one JSON line
+general-path runs, the property-package runs, the advanced-package runs,
+one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -68,8 +76,13 @@ from modflow6_torch import cuda_device                       # noqa: E402
 from modflow6_torch.__main__ import main as cli_main         # noqa: E402
 from modflow6_torch.models.discretization import (DisGrid,   # noqa: E402
                                                   DisuGrid, DisvGrid)
-from modflow6_torch.models.gwf.builder import build_gwf      # noqa: E402
+from modflow6_torch.models.gwf import advanced               # noqa: E402
+from modflow6_torch.models.gwf.advanced import (             # noqa: E402
+    AugmentedGwfModel, build_lak, build_maw, build_sfr)
+from modflow6_torch.models.gwf.builder import (              # noqa: E402
+    build_gwf, chd_data)
 from modflow6_torch.models.gwf.gnc import build_gnc          # noqa: E402
+from modflow6_torch.models.gwf.model import PackageData      # noqa: E402
 from modflow6_torch.models.simulation import Simulation      # noqa: E402
 from modflow6_torch.ops import stencil                       # noqa: E402
 from modflow6_torch.ops.solvers.mg import make_mg_preconditioner  # noqa: E402
@@ -484,7 +497,8 @@ def _write(ws, name, text):
 
 def write_deck(ws, *, name, shape, delr, top, botm, kfield, strt, icelltype,
                ss, sy, sto_periods, chd, wel_period, wel, tdis, ims, acc,
-               rcha=None, oc_last=False, newton=None, linear_extra=""):
+               rcha=None, oc_last=False, newton=None, linear_extra="",
+               extra_packages=(), oc_extra=""):
     """Write an MF6 input deck for one DIS GWF model into ``ws``.
 
     ``kfield`` goes into an OPEN/CLOSE (BINARY) array file (a 52-byte
@@ -495,7 +509,8 @@ def write_deck(ws, *, name, shape, delr, top, botm, kfield, strt, icelltype,
     ``rcha`` a constant READASARRAYS recharge; ``oc_last`` saves heads and
     budget at the last step of each period; ``newton`` is the name file's
     NEWTON option line; ``linear_extra`` a further line of the IMS LINEAR
-    block."""
+    block; ``extra_packages`` further name-file lines (their files written
+    by the caller); ``oc_extra`` further lines of the OC PERIOD 1 block."""
     nlay, nrow, ncol = shape
     packages = ["DIS6 m.dis", "IC6 m.ic", "NPF6 m.npf", "STO6 m.sto",
                 "CHD6 m.chd", "WEL6 m.wel"]
@@ -606,22 +621,25 @@ END OPTIONS
 BEGIN PERIOD 1
   SAVE HEAD LAST
   SAVE BUDGET LAST
-END PERIOD
+""" + oc_extra + """END PERIOD
 """)
+    packages += list(extra_packages)
     options = f"BEGIN OPTIONS\n  {newton}\nEND OPTIONS\n" if newton else ""
     _write(ws, "m.nam", options + "BEGIN PACKAGES\n"
            + "".join(f"  {line}\n" for line in packages) + "END PACKAGES\n")
 
 
 def write_flagship_deck(ws, nlay, nrow, ncol, unconfined=False,
-                        linear_extra=""):
+                        linear_extra="", **deck):
     """``flagship(nlay, nrow, ncol)`` as a deck: one period of three steps
     of 5.0, bench.py's IMS settings with CG, heads and budget saved at the
     last step.  ``unconfined``: the same grid, K field and stresses with
     every cell convertible (ICELLTYPE 1, ICONVERT 1, SY 0.1; the water
-    table lies in layer 1), NEWTON UNDER_RELAXATION and BICGSTAB."""
-    write_deck(
-        ws, name="FLAGSHIP", shape=(nlay, nrow, ncol), delr=10.0, top=50.0,
+    table lies in layer 1), NEWTON UNDER_RELAXATION and BICGSTAB.  ``deck``
+    overrides ``write_deck``'s other arguments (``tdis``, ``acc``,
+    ``extra_packages``, ``oc_extra``)."""
+    args = dict(
+        name="FLAGSHIP", shape=(nlay, nrow, ncol), delr=10.0, top=50.0,
         botm=[float(b) for b in np.linspace(0.0, -50.0, nlay)],
         kfield=flagship_kfield(nlay, nrow, ncol), strt=40.0,
         icelltype=1 if unconfined else 0,
@@ -633,6 +651,8 @@ def write_flagship_deck(ws, nlay, nrow, ncol, unconfined=False,
         acc="BICGSTAB" if unconfined else "CG", oc_last=True,
         newton="NEWTON UNDER_RELAXATION" if unconfined else None,
         linear_extra=linear_extra)
+    args.update(deck)
+    write_deck(ws, **args)
 
 
 def write_npf01b_deck(ws, n=21):
@@ -1995,6 +2015,672 @@ def run_properties(device, dis_head):
     return launches
 
 
+# ------------------------------------------------------- advanced phase
+
+def advanced_layout(nlay, nrow, ncol):
+    """Where the MAW, LAK and SFR features of the ``advanced`` phase lie
+    on the bench grid, by (row, column) of layer 1: a well every 32 cells
+    from (16, 16), screened in every layer; a lake on the 3 x 3 patch round
+    every 64th cell from (40, 40); two tributaries down whole columns, a
+    main stem of twice their length down one column and up the next, and a
+    side channel of nrow / 16 reaches fed by a diversion.  No cell holds
+    two features."""
+    wells = [(i, j) for i in range(16, nrow, 32) for j in range(16, ncol, 32)]
+    lakes = [(i, j) for i in range(40, nrow, 64) for j in range(40, ncol, 64)]
+    col = {name: ncol * c // 1024 for name, c in
+           (("a", 300), ("b", 724), ("main", 500), ("side", 900))}
+    trib_a = [(i, col["a"]) for i in range(nrow)]
+    trib_b = [(i, col["b"]) for i in range(nrow)]
+    main = [(i, col["main"]) for i in range(nrow)] + \
+        [(i, col["main"] + 1) for i in reversed(range(nrow))]
+    side = [(i, col["side"]) for i in range(nrow // 16)]
+    cells = [(0, i, j) for i, j in trib_a + trib_b + main + side]
+    cells += [(k, i, j) for i, j in wells for k in range(nlay)]
+    cells += [(0, i + di, j + dj) for i, j in lakes for di in (-1, 0, 1)
+              for dj in (-1, 0, 1)]
+    if len(set(cells)) != len(cells):
+        raise AssertionError("two features share a cell")
+    return wells, lakes, trib_a + trib_b + main + side, len(trib_a), \
+        len(main), len(side)
+
+
+def advanced_features(grid, kfield):
+    """(MAW, LAK, SFR) descriptions of the ``advanced`` phase, each a list
+    of per-feature records that ``advanced_specs`` turns into the
+    in-memory specs and ``write_advanced_files`` into MAW6/LAK6/SFR6/TAB6
+    files; period 2 halves the wells' rates and raises the tributaries'
+    inflow (pumping harder would draw the RATE_SCALING wells into their
+    ramp, where Picard iterates jump across it: tests/test_advanced.py:311
+    damps that case with DBD)."""
+    nlay, nrow, ncol = grid.shape
+    ncpl = nrow * ncol
+    top, bot = grid.top, grid.bot
+    wells, lakes, path, ntrib, nmain, nside = advanced_layout(nlay, nrow,
+                                                              ncol)
+    maw = []
+    for w, (i, j) in enumerate(wells):
+        conns = []
+        for k in range(nlay):
+            n = k * ncpl + i * ncol + j
+            conns.append((n, float(top[n]), float(bot[n])))
+        rec = dict(cell=(i, j), conns=conns, thiem=w % 2 == 1,
+                   rate=-20.0, rate2=-10.0)
+        if w % 8 in (0, 4):
+            rec["head_limit"] = 36.0
+        if w % 8 == 2:
+            rec["rate_scaling"] = (30.0, 5.0)
+        if w % 8 == 4:
+            rec["shut_off"] = (0.5, 1.0)
+        maw.append(rec)
+    table = [(38.0 + z, 900.0 * z + 50.0 * z * z, 900.0 + 100.0 * z)
+             for z in np.linspace(0.0, 6.0, 13).tolist()]
+    lak = []
+    for lk, (i, j) in enumerate(lakes):
+        cells = [i * ncol + j + di * ncol + dj for di in (-1, 0, 1)
+                 for dj in (-1, 0, 1)]
+        lak.append(dict(cells=cells, strt=40.5, bedleak=0.01, belev=39.5,
+                        table=table if lk % 2 == 0 else None,
+                        rain=0.002, evap=0.001))
+    outlets = []
+    for lk in range(0, len(lakes) - 1, 2):
+        outlets.append(dict(lake=lk, to=lk + 1, type="weir", invert=40.6,
+                            width=1.0, rough=0.03, slope=1e-3))
+        outlets.append(dict(lake=lk + 1, to=-1, type="manning",
+                            invert=40.2, width=2.0, rough=0.03, slope=1e-3))
+    xfrac = [0.0, 0.1, 0.25, 0.4, 0.6, 0.75, 0.9, 1.0]
+    height = [3.0, 1.5, 0.5, 0.0, 0.0, 0.5, 1.5, 3.0]
+    manfrac = [1.0, 1.2, 1.0, 1.0, 1.0, 1.0, 1.2, 1.0]
+    sfr = []
+    main0, side0 = 2 * ntrib, 2 * ntrib + nmain
+    div_reach = main0 + nmain // 2
+    for r, (i, j) in enumerate(path):
+        # beds that fall 2 m along each tributary and along the main stem,
+        # from above the initial heads (losing) to below them (gaining)
+        if r < ntrib:
+            strtop = 40.5 - 2.0 * r / ntrib
+        elif r < main0:
+            strtop = 40.3 - 2.0 * (r - ntrib) / ntrib
+        elif r < side0:
+            strtop = 38.3 - 2.0 * (r - main0) / nmain
+        else:
+            strtop = 38.3 - 2.0 * (div_reach - main0) / nmain - 0.1 \
+                - 0.5 * (r - side0) / nside
+        down = r + 1
+        if r in (ntrib - 1, main0 - 1):
+            down = main0
+        if r in (side0 - 1, side0 + nside - 1):
+            down = None
+        rec = dict(node=i * ncol + j, strtop=strtop, down=down,
+                   inflow=5.0 if r in (0, ntrib) else 0.0,
+                   inflow2=6.0 if r in (0, ntrib) else 0.0)
+        if main0 + 100 <= r < main0 + 100 + nside:
+            rec["xsection"] = (xfrac, height, manfrac)
+        if r == div_reach:
+            rec["diversion"] = (side0, "upto", 2.0)
+        sfr.append(rec)
+    return maw, (lak, outlets), sfr
+
+
+SFR_REACH = dict(rlen=10.0, rwid=5.0, rgrd=1e-3, rbth=1.0, rhk=0.1,
+                 man=0.03)
+
+
+def advanced_specs(features, grid, kfield):
+    """The in-memory specs of build_maw, build_lak and build_sfr for
+    ``advanced_features``, built as MF6 defines the deck's records (the
+    loader's conventions: SFR strt = rtp + 0.1, lake area the sum of its
+    vertical connections' cell areas, rainfall and evaporation rates times
+    that area)."""
+    maw, (lak, outlets), sfr = features
+    area = grid.area
+    wells = []
+    for rec in maw:
+        conns = []
+        for n, ctop, cbot in rec["conns"]:
+            conns.append((n, dict(condeqn="THIEM", scrn_top=ctop,
+                                  scrn_bot=cbot, hk_skin=1.0,
+                                  radius_skin=0.2) if rec["thiem"]
+                          else 50.0))
+        w = dict(radius=0.1, bottom=-50.0, strt=40.0, rate=rec["rate"],
+                 connections=conns)
+        if "head_limit" in rec:
+            w["head_limit"] = rec["head_limit"]
+        if "rate_scaling" in rec:
+            w["pumpelev"], w["reduction_length"] = rec["rate_scaling"]
+        if "shut_off" in rec:
+            w["shut_off"] = rec["shut_off"]
+        wells.append(w)
+    lakes = []
+    for rec in lak:
+        sa = 0.0
+        conns = []
+        for n in rec["cells"]:
+            conns.append((n, rec["bedleak"] * area[n], rec["belev"],
+                          rec["belev"], 0))
+            sa += area[n]
+        spec = dict(strt=rec["strt"], surf_area=sa, connections=conns,
+                    rainfall=rec["rain"] * sa, evap=rec["evap"] * sa)
+        if rec["table"] is not None:
+            spec["table"] = [tuple(row) for row in rec["table"]]
+        lakes.append(spec)
+    p = SFR_REACH
+    reaches = [dict(node=rec["node"], strtop=rec["strtop"], width=p["rwid"],
+                    rough=p["man"], slope=p["rgrd"], length=p["rlen"],
+                    cond=p["rhk"] * p["rwid"] * p["rlen"] / p["rbth"],
+                    strt=rec["strtop"] + 0.1, inflow=rec["inflow"],
+                    upstream=[], diversions=[]) for rec in sfr]
+    for u, rec in enumerate(sfr):
+        if rec["down"] is not None:
+            reaches[rec["down"]]["upstream"].append((u, 1.0))
+        if "xsection" in rec:
+            xf, ht, mf = rec["xsection"]
+            reaches[u]["xsection"] = (np.asarray(xf), np.asarray(ht),
+                                      np.asarray(mf[:-1]))
+        if "diversion" in rec:
+            to, rule, flow = rec["diversion"]
+            reaches[u]["diversions"].append(dict(to=to, cprior=rule,
+                                                 flow=flow))
+    return (build_maw(wells, grid, k11=kfield),
+            build_lak(lakes, outlets), build_sfr(reaches))
+
+
+def write_advanced_files(ws, features, grid):
+    """MAW6, LAK6 (with TAB6 tables), SFR6 (with its cross sections' TAB6
+    files) of ``advanced_features``; PERIOD 2 changes the wells' rates and
+    the tributaries' inflow.  Returns the name-file lines."""
+    maw, (lak, outlets), sfr = features
+    _, nrow, ncol = grid.shape
+    ncpl = nrow * ncol
+
+    def cellid(n):
+        k, rest = divmod(n, ncpl)
+        i, j = divmod(rest, ncol)
+        return f"{k + 1} {i + 1} {j + 1}"
+
+    nconn = len(maw[0]["conns"])
+    pdata, cdata, per1, per2 = [], [], [], []
+    for w, rec in enumerate(maw, 1):
+        pdata.append(f"  {w} 0.1 -50.0 40.0 "
+                     f"{'THIEM' if rec['thiem'] else 'SPECIFIED'} {nconn}")
+        for c, (n, ctop, cbot) in enumerate(rec["conns"], 1):
+            hk = "1.0 0.2" if rec["thiem"] else "50.0 0.0"
+            cdata.append(f"  {w} {c} {cellid(n)} {ctop!r} {cbot!r} {hk}")
+        per1.append(f"  {w} RATE {rec['rate']!r}")
+        per2.append(f"  {w} RATE {rec['rate2']!r}")
+        if "head_limit" in rec:
+            per1.append(f"  {w} HEAD_LIMIT {rec['head_limit']!r}")
+        if "rate_scaling" in rec:
+            per1.append(f"  {w} RATE_SCALING {rec['rate_scaling'][0]!r} "
+                        f"{rec['rate_scaling'][1]!r}")
+        if "shut_off" in rec:
+            per1.append(f"  {w} SHUT_OFF {rec['shut_off'][0]!r} "
+                        f"{rec['shut_off'][1]!r}")
+    _write(ws, "m.maw", f"""BEGIN DIMENSIONS
+  NMAWWELLS {len(maw)}
+END DIMENSIONS
+BEGIN PACKAGEDATA
+""" + "\n".join(pdata) + "\nEND PACKAGEDATA\nBEGIN CONNECTIONDATA\n"
+           + "\n".join(cdata) + "\nEND CONNECTIONDATA\nBEGIN PERIOD 1\n"
+           + "\n".join(per1) + "\nEND PERIOD\nBEGIN PERIOD 2\n"
+           + "\n".join(per2) + "\nEND PERIOD\n")
+
+    tables = [lk for lk, rec in enumerate(lak) if rec["table"] is not None]
+    lines = [f"BEGIN DIMENSIONS\n  NLAKES {len(lak)}\n  NOUTLETS "
+             f"{len(outlets)}\n  NTABLES {len(tables)}\nEND DIMENSIONS",
+             "BEGIN PACKAGEDATA"]
+    lines += [f"  {lk} {rec['strt']!r} {len(rec['cells'])}"
+              for lk, rec in enumerate(lak, 1)]
+    lines.append("END PACKAGEDATA\nBEGIN CONNECTIONDATA")
+    for lk, rec in enumerate(lak, 1):
+        for c, n in enumerate(rec["cells"], 1):
+            lines.append(f"  {lk} {c} {cellid(n)} VERTICAL "
+                         f"{rec['bedleak']!r} {rec['belev']!r} "
+                         f"{rec['belev']!r} 0.0 0.0")
+    lines.append("END CONNECTIONDATA\nBEGIN TABLES")
+    for lk in tables:
+        lines.append(f"  {lk + 1} TAB6 FILEIN lake{lk + 1}.tab")
+        _write(ws, f"lake{lk + 1}.tab", "BEGIN DIMENSIONS\n  NROW "
+               f"{len(lak[lk]['table'])}\n  NCOL 3\nEND DIMENSIONS\n"
+               "BEGIN TABLE\n" + "".join(
+                   f"  {s!r} {v!r} {a!r}\n" for s, v, a in lak[lk]["table"])
+               + "END TABLE\n")
+    lines.append("END TABLES\nBEGIN OUTLETS")
+    for o, rec in enumerate(outlets, 1):
+        lines.append(f"  {o} {rec['lake'] + 1} {rec['to'] + 1} "
+                     f"{rec['type'].upper()} {rec['invert']!r} "
+                     f"{rec['width']!r} {rec['rough']!r} {rec['slope']!r}")
+    lines.append("END OUTLETS\nBEGIN PERIOD 1")
+    for lk, rec in enumerate(lak, 1):
+        lines.append(f"  {lk} RAINFALL {rec['rain']!r}")
+        lines.append(f"  {lk} EVAPORATION {rec['evap']!r}")
+    lines.append("END PERIOD")
+    _write(ws, "m.lak", "\n".join(lines) + "\n")
+
+    p = SFR_REACH
+    ups = {r: [] for r in range(len(sfr))}
+    for u, rec in enumerate(sfr):
+        if rec["down"] is not None:
+            ups[rec["down"]].append(u)
+    lines = [f"BEGIN DIMENSIONS\n  NREACHES {len(sfr)}\nEND DIMENSIONS",
+             "BEGIN PACKAGEDATA"]
+    for r, rec in enumerate(sfr):
+        ncon = len(ups[r]) + (rec["down"] is not None)
+        lines.append(f"  {r + 1} {cellid(rec['node'])} {p['rlen']!r} "
+                     f"{p['rwid']!r} {p['rgrd']!r} {rec['strtop']!r} "
+                     f"{p['rbth']!r} {p['rhk']!r} {p['man']!r} {ncon} 1.0 "
+                     f"{int('diversion' in rec)}")
+    lines.append("END PACKAGEDATA\nBEGIN CONNECTIONDATA")
+    for r, rec in enumerate(sfr):
+        conn = [str(u + 1) for u in ups[r]]
+        if rec["down"] is not None:
+            conn.append(str(-(rec["down"] + 1)))
+        lines.append(f"  {r + 1} " + " ".join(conn))
+    lines.append("END CONNECTIONDATA\nBEGIN CROSSSECTIONS")
+    for r, rec in enumerate(sfr):
+        if "xsection" in rec:
+            lines.append(f"  {r + 1} TAB6 FILEIN xs{r + 1}.tab")
+            rows = list(zip(*rec["xsection"]))
+            _write(ws, f"xs{r + 1}.tab", "BEGIN DIMENSIONS\n  NROW "
+                   f"{len(rows)}\n  NCOL 3\nEND DIMENSIONS\nBEGIN TABLE\n"
+                   + "".join(f"  {a!r} {b!r} {c!r}\n" for a, b, c in rows)
+                   + "END TABLE\n")
+    lines.append("END CROSSSECTIONS\nBEGIN DIVERSIONS")
+    per1, per2 = [], []
+    for r, rec in enumerate(sfr):
+        if "diversion" in rec:
+            to, rule, flow = rec["diversion"]
+            lines.append(f"  {r + 1} 1 {to + 1} {rule.upper()}")
+            per1.append(f"  {r + 1} DIVERSION 1 {flow!r}")
+        if rec["inflow"]:
+            per1.append(f"  {r + 1} INFLOW {rec['inflow']!r}")
+            per2.append(f"  {r + 1} INFLOW {rec['inflow2']!r}")
+    lines.append("END DIVERSIONS\nBEGIN PERIOD 1")
+    lines += per1
+    lines.append("END PERIOD\nBEGIN PERIOD 2")
+    lines += per2
+    lines.append("END PERIOD")
+    _write(ws, "m.sfr", "\n".join(lines) + "\n")
+    return ["MAW6 m.maw", "LAK6 m.lak", "SFR6 m.sfr"]
+
+
+def advanced_model(device, shape):
+    """The bench model with the features of ``advanced_features`` as an
+    ``AugmentedGwfModel`` on ``device``.  Returns (model, seconds of
+    ``_build_ext_table``, seconds of the whole build)."""
+    grid, kfield = flagship_grid(*shape), flagship_kfield(*shape)
+    t0 = time.perf_counter()
+    base = build_gwf("flagship", grid, device=device, **flagship_args(*shape))
+    features = advanced_features(grid, kfield)
+    maw, lak, sfr = advanced_specs(features, grid, kfield)
+    table_s = []
+    build_table = advanced._build_ext_table
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = build_table(*args)
+        table_s.append(time.perf_counter() - t)
+        return out
+
+    advanced._build_ext_table = timed
+    try:
+        model = AugmentedGwfModel(base, maw=maw, lak=lak, sfr=sfr)
+    finally:
+        advanced._build_ext_table = build_table
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return model, table_s[0], time.perf_counter() - t0
+
+
+def feature_balances(model, x, x_old, delt):
+    """The largest relative imbalance of any lake and of any reach at the
+    step from x_old to x: the sum of a feature's terms (rain, evaporation,
+    withdrawal, the aquifer exchange, outlet flows out and in, storage; a
+    reach's external terms, routed and diverted inflow, outflow and
+    exchange) over the sum of their sizes."""
+    bud = {k: v.cpu().numpy() for k, v in model.advanced_budget(
+        x, x_old, delt, False).items()}
+    lak = model.lak
+    L = lak.nlakes
+    terms = [bud["LAK-RAIN"], bud["LAK-EVAP"], bud["LAK-WDRL"], bud["LAK-STO"]]
+    gwf = np.zeros(L)
+    np.add.at(gwf, lak.conn_lake.cpu().numpy(), -bud["LAK-GWF"])
+    out_src, out_dst = np.zeros(L), np.zeros(L)
+    np.add.at(out_src, np.asarray(lak.out_lake), bud["LAK-OUT"])
+    dst = np.asarray(lak.out_to)
+    np.add.at(out_dst, dst[dst >= 0], -bud["LAK-OUT"][dst >= 0])
+    terms += [gwf, out_src, out_dst]
+    lake = _relative(terms)
+    sfr = model.sfr
+    stage = x[model._sfr_offset:model._sfr_offset + sfr.nreaches]
+    q, _ = sfr._manning(stage)
+    q_route, div_in = sfr.routing(q)
+    routed = (q_route[sfr.upstream] * sfr.frac).sum(dim=1).cpu().numpy()
+    terms = [bud["SFR-EXT"], routed, div_in.cpu().numpy(), bud["SFR-OUT"],
+             -bud["SFR-GWF"]]
+    return float(lake.max()), float(_relative(terms).max())
+
+
+def _relative(terms):
+    """|Σ terms| / Σ |terms| per feature, over the features whose Σ |terms|
+    exceeds 1e-6 of the largest one's (a dry reach carries flows at the
+    rounding level, which no balance can hold)."""
+    size = sum(np.abs(t) for t in terms)
+    return np.divide(np.abs(sum(terms)), size, out=np.zeros_like(size),
+                     where=size > 1e-6 * size.max())
+
+
+def advanced_settings():
+    return ImsSettings(**BENCH, linear_acceleration="bicgstab")
+
+
+def run_advanced_memory(device, shape=BENCH_SHAPE):
+    """(a) The bench model with 1024 wells, 256 lakes and 4160 reaches
+    through ``Simulation`` (3 transient steps of 5.0, BiCGSTAB, Jacobi,
+    ``f64``); (b) the same run again, bitwise equal; (d) the gather product
+    at width Ktot.  Returns (records of (a), the stencil7 launches of (a)
+    and (b))."""
+    torch.cuda.reset_peak_memory_stats()
+    model, table_s, build_s = advanced_model(device, shape)
+    N, R, ktot = model.n_grid, model.n_extra, model.Ktot
+    nbr_bytes = model.dtopo.nbr.numel() * model.dtopo.nbr.element_size()
+    print(f"advanced model: cells={N} feature_rows={R} (wells="
+          f"{model.maw.nwells} lakes={model.lak.nlakes} outlets="
+          f"{len(model.lak.out_type)} reaches={model.sfr.nreaches}) "
+          f"rows={N + R} Kb={model.Kb} Ktot={ktot} table_bytes={nbr_bytes} "
+          f"off_bytes={(N + R) * ktot * 8} build_ext_table_s={table_s!r} "
+          f"build_s={build_s!r} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    if model.use_structured or model.dtopo.grid_shape is not None:
+        raise AssertionError("the augmented model has a grid shape")
+    maw0 = model.maw
+    runs, launches = [], 0
+    for label in ("a", "b"):
+        model.maw = maw0
+        torch.cuda.reset_peak_memory_stats()
+        sim, recs, seconds, counts = simulate(model, [(15.0, 3, 1.0)],
+                                              advanced_settings())
+        disc = check_budget(f"advanced ({label})", sim, recs)
+        inner, outers, inners, ms = totals(recs, seconds)
+        x = torch.as_tensor(recs[-1].head, device=device)
+        x_old = torch.as_tensor(recs[-2].head, device=device)
+        lake, reach = feature_balances(model, x, x_old, 5.0)
+        table = recs[-1].budget_table.splitlines()
+        terms = {line.split()[0]: line.split()[1:3] for line in table
+                 if line.split()[:1] in (["MAW"], ["LAK"], ["SFR"])}
+        print(f"advanced ({label}) Simulation bicgstab f64 rows={N + R} "
+              f"steps=3 inner_total={inner} outers={outers} inners={inners} "
+              f"converged={all(r.converged for r in recs)} seconds={seconds!r} "
+              f"ms_per_inner={ms!r} stencil7_launches={counts['launches']} "
+              f"budget_percent_discrepancy={disc!r} "
+              f"feature_rates_in_out={terms} "
+              f"max_lake_imbalance={lake!r} max_reach_imbalance={reach!r} "
+              f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        launches += counts["launches"]
+        if counts["launches"] or counts["plain_on_cuda"]:
+            raise AssertionError("the augmented run went through the "
+                                 "stencil")
+        if not all(np.isfinite(r.head).all() and r.head.shape == (N + R,)
+                   for r in recs):
+            raise AssertionError("the augmented run's heads")
+        runs.append(recs)
+    same = all(np.array_equal(p.head, q.head) for p, q in zip(*runs))
+    counts_same = [(r.outer, r.inner) for r in runs[0]] == [
+        (r.outer, r.inner) for r in runs[1]]
+    print(f"advanced (b) vs (a): heads and feature rows bitwise equal="
+          f"{same} counts equal={counts_same}")
+    if not (same and counts_same):
+        raise AssertionError("two card runs of the augmented model differ")
+    model.maw = maw0
+    diag, off, rhs, h = first_system(model)
+    mv = make_matvec(model.system_topo, diag, off)
+    ms = back_to_back_ms(lambda: mv(h))
+    plain = back_to_back_ms(lambda: spmv(model.dtopo.nbr, diag, off, h))
+    bound = ell_bound_ms(N + R, ktot)
+    print(f"ell product f64 rows={N + R} K={ktot}: ms={ms!r} (100 products "
+          f"per event pair; spmv called directly: {plain!r}) "
+          f"bound_ms={bound!r} bound_by=bytes bound_share={bound / ms!r}")
+    return runs[0], launches
+
+
+def run_advanced_deck(device, memory_recs, shape=BENCH_SHAPE):
+    """(c) The model of (a) written as a deck (MAW6, LAK6 with TAB6 tables,
+    SFR6 with cross-section TAB6 files), with a PERIOD 2 block of one step
+    that changes the wells' rates and the tributaries' inflow, run through
+    the command-line entry: period 1 has (a)'s counts and heads within
+    DECK_FUSED_ATOL, period 2 converges with its budget closed.  Returns
+    the run's stencil7 launches."""
+    from modflow6_torch.utils.mf6io import loader as loader_mod
+    nlay, nrow, ncol = shape
+    grid = flagship_grid(*shape)
+    with tempfile.TemporaryDirectory() as ws:
+        t0 = time.perf_counter()
+        files = write_advanced_files(ws, advanced_features(
+            grid, flagship_kfield(*shape)), grid)
+        write_flagship_deck(ws, nlay, nrow, ncol, acc="BICGSTAB",
+                            tdis=[(15.0, 3, 1.0), (5.0, 1, 1.0)],
+                            extra_packages=files,
+                            oc_extra="  PRINT BUDGET ALL\n")
+        print(f"advanced deck written in {time.perf_counter() - t0:.2f} s: "
+              f"{len(os.listdir(ws))} files")
+        builds = []
+        augmented = loader_mod._augmented
+
+        def timed(*args):
+            t = time.perf_counter()
+            model = augmented(*args)
+            torch.cuda.synchronize()
+            builds.append(time.perf_counter() - t)
+            return model
+
+        loader_mod._augmented = timed
+        lst = os.path.join(ws, "cli.lst")
+        out = io.StringIO()
+        try:
+            with counted_run() as counts, contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                code = cli_main([ws, "--lst", lst])
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - t0
+        finally:
+            loader_mod._augmented = augmented
+        cli_counts = listing_counts(lst)
+        discs = [float(v) for v in re.findall(
+            r"PERCENT DISCREPANCY:\s*(\S+)", open(lst).read())]
+        layers = read_head_file(os.path.join(ws, "m.hds"))
+        saved = {}
+        for rec in layers:
+            saved.setdefault((rec["kper"], rec["kstp"]), []).append(
+                rec["data"])
+        N = nlay * nrow * ncol
+        err = float(np.abs(np.stack(saved[(1, 3)]).reshape(-1)
+                           - memory_recs[-1].head[:N]).max())
+        want = [(r.outer, r.inner) for r in memory_recs]
+        print(f"advanced (c) deck cli exit={code} wall_s={cli_s!r} "
+              f"counts={cli_counts} (a)={want} "
+              f"build_s={builds[0]!r} period2_rebuild_s={builds[1:]!r} "
+              f"budget_percent_discrepancy_per_step={discs} "
+              f"max|h_period1 - h_(a)|={err!r} bar={DECK_FUSED_ATOL!r} "
+              f"stencil7_launches={counts['launches']} "
+              f"saved={sorted(saved)} "
+              f"stdout={out.getvalue().strip()!r}")
+        if code != 0 or "Normal termination of simulation" not in \
+                out.getvalue():
+            raise AssertionError("the advanced deck did not end normally")
+        if cli_counts[:3] != want or len(cli_counts) != 4:
+            raise AssertionError("the deck's period-1 counts differ from "
+                                 "(a)'s")
+        if not (err <= DECK_FUSED_ATOL and len(builds) == 2
+                and len(discs) == 4 and abs(discs[-1]) < BUDGET_PERCENT):
+            raise AssertionError("the advanced deck failed its checks")
+        if counts["launches"] or counts["plain_on_cuda"]:
+            raise AssertionError("the advanced deck went through the "
+                                 "stencil")
+    return counts["launches"]
+
+
+def small_advanced_models(dev):
+    """(name, model, settings, steps) of the small augmented twins:
+    ``steps`` [(delt, iss)] of NumericalSolution, or "sim" for a
+    Simulation over three periods with a falling and rising boundary."""
+    bic = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
+               inner_rclose=1e-7, inner_maximum=600,
+               linear_acceleration="bicgstab")
+    cg = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
+              inner_rclose=1e-9, inner_maximum=600)
+    g = DisGrid.create(1, 1, 6, 100.0, 100.0, 50.0, np.zeros((1, 1, 6)))
+    chd = dict(chd=[(0, 40.0), (5, 40.0)])
+    out = []
+
+    def aug(name, base_kw, settings, steps, maw=None, lak=None, sfr=None,
+            grid=g):
+        base = build_gwf(name, grid, device=dev, **base_kw)
+        out.append((name, AugmentedGwfModel(
+            base, maw=None if maw is None else build_maw(maw, grid),
+            lak=None if lak is None else build_lak(*lak),
+            sfr=None if sfr is None else build_sfr(sfr)), settings, steps))
+
+    base = dict(k=10.0, strt=40.0, **chd)
+    # the rate-scaling ramp needs damping (tests/test_advanced.py:311)
+    dbd = dict(bic, under_relaxation="dbd", theta=0.7, akappa=1e-3,
+               gamma=0.0, amomentum=0.0)
+    aug("maw limits", base, dbd, [(1.0, True)], maw=[
+        dict(radius=0.25, strt=40.0, rate=-500.0, head_limit=35.0,
+             connections=[(1, 25.0)]),
+        dict(radius=0.25, strt=40.0, rate=-300.0, pumpelev=30.0,
+             reduction_length=8.0, connections=[(3, 25.0)]),
+        dict(radius=0.25, strt=45.0, rate=0.0, connections=[(4, 25.0)],
+             flowing=dict(elev=39.0, cond=5.0, rlen=0.5))])
+    aug("maw shut-off", dict(k=20.0, strt=30.0, chd=[(0, 30.0), (5, 30.0)],
+                             storage={"ss": 1e-5, "iconvert": 0}), bic,
+        "sim", maw=[dict(radius=0.3, strt=30.0, rate=-100.0,
+                         head_limit=25.0, shut_off=(40.0, 60.0),
+                         connections=[(2, 10.0)])])
+    table = [(30.0 + z, 1e4 * z + 500.0 * z * z, 1e4 + 1000.0 * z)
+             for z in np.linspace(0.0, 6.0, 13)]
+    aug("lak table cascade", dict(base, k=5.0), bic, [(2e4, False)] * 3,
+        lak=([dict(strt=32.2, bottom=30.0, surf_area=5e3, rainfall=3.0,
+                   table=table, connections=[(1, 1e-3, 30.0)]),
+              dict(strt=25.3, bottom=24.0, surf_area=5e3,
+                   connections=[(2, 1e-3, 24.0),
+                                (3, 40.0, 28.0, 36.0, 1)])],
+             [dict(lake=0, to=1, type="weir", invert=32.0, width=3.0),
+              dict(lake=1, to=-1, type="manning", invert=25.0, width=2.0,
+                   rough=0.03, slope=1e-3)]))
+    common = dict(cond=0.5, width=3.0, rough=0.03, slope=1e-3, length=100.0)
+    aug("sfr diversions", dict(base, k=5.0), bic, [(1e4, False)] * 3, sfr=[
+        dict(node=1, strtop=41.0, strt=41.4, inflow=6.0, diversions=[
+            dict(to=2, cprior="upto", flow=1.0),
+            dict(to=3, cprior="fraction", flow=0.2),
+            dict(to=4, cprior="threshold", flow=0.5),
+            dict(to=5, cprior="excess", flow=2.0)], **common),
+        dict(node=2, strtop=40.9, strt=41.2, upstream=[(0, 1.0)],
+             xsection=([0.0, 0.2, 0.5, 0.8, 1.0], [2.0, 0.5, 0.0, 0.5, 2.0]),
+             **common),
+        dict(node=3, strtop=40.8, strt=41.1, **common),
+        dict(node=4, strtop=40.8, strt=41.1, **common),
+        dict(node=5, strtop=40.8, strt=41.1, **common),
+        dict(node=0, strtop=40.8, strt=41.1, upstream=[(1, 1.0), (2, 1.0)],
+             **common)])
+    g2 = DisGrid.create(1, 8, 10, 10.0, 10.0, 20.0, np.zeros((1, 8, 10)))
+    aug("newton maw nur", dict(k=5.0, strt=15.0, icelltype=1,
+                               newton="under_relaxation",
+                               chd=[(i * 10, 16.0) for i in range(8)]),
+        dict(bic, outer_maximum=300, inner_maximum=2000), [(1.0, True)],
+        maw=[dict(radius=0.3, strt=15.0, rate=-40.0,
+                  connections=[(36, 80.0)])], grid=g2)
+    return out
+
+
+def c1_twin(dev):
+    """Two wells in one cell and a river cellid given twice, beside two
+    MAW wells screened in one cell: every repeated sum in one model."""
+    g = DisGrid.create(2, 4, 5, 10.0, 10.0, 20.0,
+                       np.stack([np.full((4, 5), 10.0), np.zeros((4, 5))]))
+    base = build_gwf("c1", g, k=2.0, strt=15.0, device=dev,
+                     storage={"ss": 1e-5, "iconvert": 0},
+                     chd=[(0, 16.0), (19, 14.0)],
+                     wel=[(7, -1.5), (7, -2.25), (12, 0.5), (7, -0.125)],
+                     riv=[(13, 15.5, 0.7, 14.0), (13, 15.25, 0.3, 14.0)])
+    maw = build_maw([dict(radius=0.2, strt=15.0, rate=-3.0,
+                          connections=[(8, 2.0), (28, 1.5)]),
+                     dict(radius=0.2, strt=15.0, rate=-1.0,
+                          connections=[(8, 1.0)])], g)
+    return AugmentedGwfModel(base, maw=maw)
+
+
+def check_small_advanced(device):
+    """(e) Small augmented twins on the card against the CPU: MAW with
+    HEAD_LIMIT, RATE_SCALING, a flowing well and SHUT_OFF; a LAK table with
+    a weir cascade and a horizontal connection; SFR's four diversion rules
+    and an n-point section; Newton with MAW and the under-relaxation
+    (BiCGSTAB: the bars of ROADMAP Queue C, equal outer counts and heads
+    within 10 x outer_dvclose).  And the C1 twin (CG): two runs on the card
+    bitwise equal, equal counts on the CPU and heads within 1e-12 there."""
+    def run(dev):
+        out = {}
+        for name, model, s, steps in small_advanced_models(dev):
+            if steps == "sim":
+                periods = [(50.0, 3, 1.0)] * 3
+                sim = Simulation(Tdis(tuple(StressPeriod(*p)
+                                            for p in periods)),
+                                 model, ImsSettings(**s))
+                for kper, h in ((2, 27.0), (3, 32.0)):
+                    sim.period_data[kper] = PackageData(chd=chd_data(
+                        [(0, h), (5, h)], device=dev))
+                recs = sim.run()
+                out[name] = (torch.as_tensor(recs[-1].head),
+                             [r.outer for r in recs],
+                             all(r.converged for r in recs), s)
+                continue
+            sol = NumericalSolution(model, ImsSettings(**s))
+            x, outers, conv = model.strt, [], True
+            for kstp, (delt, iss) in enumerate(steps, 1):
+                x, info, _ = sol.solve_timestep(x, delt, kstp=kstp, iss=iss)
+                outers.append(info.outer_iterations)
+                conv = conv and info.converged
+            out[name] = (x.cpu(), outers, conv, s)
+        return out
+
+    cpu, card = run("cpu"), run(device)
+    for name, (h, k, c, s) in card.items():
+        h0, k0, c0, _ = cpu[name]
+        err = float((h - h0).abs().max())
+        bar = CLOSURE_FACTOR * s["outer_dvclose"]
+        print(f"small {name}: card outers={k} converged={c}; cpu outers={k0}"
+              f" converged={c0}; max|dx|={err!r} bar={bar!r} (bicgstab)")
+        if not (c and c0 and k == k0 and err <= bar):
+            raise AssertionError(f"small {name}: the card disagrees with "
+                                 "the CPU")
+    settings = ImsSettings(**dict(TIGHT, inner_maximum=600))
+    out = []
+    for dev in ("cpu", device, device):
+        model = c1_twin(dev)
+        sim = Simulation(Tdis((StressPeriod(2.0, 2, 1.0),)), model,
+                         settings)
+        recs = sim.run()
+        out.append(([(r.outer, r.inner) for r in recs], recs[-1].head,
+                    all(r.converged for r in recs)))
+    (kc, hc, cc), (k1, h1, c1), (k2, h2, c2) = out
+    err = float(np.abs(h1 - hc).max())
+    print(f"small c1 twin (two wells in one cell, a repeated river cellid, "
+          f"two MAW wells in one cell; cg): card counts={k1} cpu counts={kc}"
+          f" card runs bitwise equal={np.array_equal(h1, h2)} "
+          f"max|dx| card-cpu={err!r} bar=1e-12")
+    if not (cc and c1 and c2 and k1 == kc == k2 and np.array_equal(h1, h2)
+            and err <= 1e-12):
+        raise AssertionError("the C1 twin failed its checks")
+
+
+def run_advanced(device, shape=BENCH_SHAPE):
+    """The advanced phase: (a)-(b) and (d) at 4x1024x1024, (c) the deck,
+    (e) the small twins.  Returns the stencil7 launches of (a)-(c), which
+    must be none: an augmented model has no grid shape."""
+    recs, launches = run_advanced_memory(device, shape)
+    launches += run_advanced_deck(device, recs, shape)
+    check_small_advanced(device)
+    return launches
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -2081,7 +2767,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
-          "unstructured", "properties")
+          "unstructured", "properties", "advanced")
 
 
 def main():
@@ -2162,6 +2848,8 @@ def main():
         launches["general"] = run_rotated(device)
     if "properties" in phases:
         launches["properties"] = run_properties(device, fused_head)
+    if "advanced" in phases:
+        advanced_launches = run_advanced(device)
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -2182,6 +2870,7 @@ def main():
         "launches_newton_deck_path": launches["newton"],
         "launches_general_assembly_path": launches["general"],
         "launches_properties_path": launches["properties"],
+        "launches_advanced_path": advanced_launches,
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

@@ -4,13 +4,16 @@ simulator, for one NVIDIA Hopper GPU.
 The port covers the GWF model on DIS, DISV and DISU grids: NPF (standard
 or Newton, rewetting, rotated anisotropy, horizontal-flow barriers, XT3D
 with its Newton form), STO, CHD/WEL/RCH/DRN/RIV/GHB/EVT, GNC, BUY, VSC,
-CSUB with delay interbeds, TVK/TVS, preconditioned CG or BiCGSTAB (``f64`` or
-``mixed`` precision), in the fused time step and on the deck path
+CSUB with delay interbeds, TVK/TVS, the advanced packages MAW, LAK and SFR
+(``models.gwf.advanced.AugmentedGwfModel``), preconditioned CG or BiCGSTAB
+(``f64`` or ``mixed`` precision), in the fused time step and on the deck
+path
 (``python -m modflow6_torch <workspace>``: ``mfsim.nam`` loader,
 ``Simulation``, ``NumericalSolution``, ``.hds``/``.cbc``/``.grb``/listing
 output).  A DIS model without angles runs on dense planes through the
 stencil kernel; every other model over its edge list and an ELL neighbour
-table.  Everything outside these slices raises ``NotImplementedError``.
+table (a model with MAW, LAK or SFR rows over the table widened by their
+slots).  Everything outside these slices raises ``NotImplementedError``.
 ``modflow6_tpu`` is the reference the port is tested against; this
 package never imports JAX.
 

@@ -36,7 +36,13 @@ Keys of ``arrays``:
 - with CSUB: ``csub_{field}`` for the fields of the reference's
   ``CsubData``, ``csub_delay_{field}`` for its ``DelayData``, and
   ``csub_state_{field}`` / ``csub_delay_state_{field}`` for the initial
-  ``CsubState`` and ``DelayState``.
+  ``CsubState`` and ``DelayState``;
+- with MAW, LAK or SFR rows: ``maw_{field}``, ``lak_{field}``,
+  ``sfr_{field}`` for the fields of ``FEATURE_FIELDS`` (the reference's
+  ``MawData``, ``LakData`` and ``SfrData``, ``augmented_state`` lists them
+  for either package's model); ``from_reference`` then returns an
+  ``AugmentedGwfModel`` on the base model, and raises where the slots it
+  builds differ from the given ones.
 
 ``npf_options`` and ``sto_options`` hold the fields of the reference's
 ``NpfOptions`` and ``StoOptions`` (``inewton`` and ``satomega`` among
@@ -53,12 +59,14 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from . import resolve_device
 from .models.discretization import DisGrid, DisuGrid, DisvGrid
 from .models.gwf import bnd, csub as csub_mod, gnc as gnc_mod, npf, sto
 from .models.gwf import xt3d as xt3d_mod
+from .models.gwf.advanced import AugmentedGwfModel
 from .models.gwf.buy import make_buy
 from .models.gwf.vsc import make_vsc
 from .models.gwf.model import GwfModel, PackageData
@@ -71,6 +79,32 @@ _BOUNDS = dict(chd=bnd.ChdData, wel=bnd.WelData, rch=bnd.RchData,
                drn=bnd.DrnData, riv=bnd.RivData, ghb=bnd.GhbData,
                evt=bnd.EvtData)
 _GRIDS = dict(dis=DisGrid, disv=DisvGrid, disu=DisuGrid)
+# the fields of the reference's MawData, LakData and SfrData; the ones of
+# _DERIVED the augmented model builds itself
+FEATURE_FIELDS = {
+    "maw": ("conn_well", "conn_node", "cond", "area", "bottom", "rate",
+            "strt", "slot_cw", "slot_wc", "active", "head_limit", "pumpelev",
+            "reduction_length", "fw_elev", "fw_cond", "fw_rlen", "shut_min",
+            "shut_max", "shut", "nwells", "storage"),
+    "lak": ("conn_lake", "conn_node", "cond", "belev", "surf_area", "bottom",
+            "strt", "rainfall", "evap", "withdrawal", "out_invert",
+            "out_width", "out_rough", "out_slope", "out_rate", "slot_cl",
+            "slot_lc", "active", "tab_stage", "tab_volume", "tab_sarea",
+            "conn_telev", "conn_ihc", "conn_conv", "nlakes", "noutlets",
+            "out_type", "out_lake", "out_to", "convfact", "out_slot"),
+    "sfr": ("cond", "strtop", "width", "rough", "slope", "length",
+            "upstream", "frac", "inflow", "rainfall", "evap", "runoff",
+            "node", "strt", "slot_cr", "slot_rc", "active", "divflow",
+            "xs_station", "xs_height", "xs_rf", "xs_rect", "up_pair_r",
+            "up_pair_u", "up_pair_f", "up_pair_slot", "nreaches", "div_src",
+            "div_to", "div_rule"),
+}
+_DERIVED = ("slot_cw", "slot_wc", "slot_cl", "slot_lc", "slot_cr", "slot_rc",
+            "active", "out_slot", "up_pair_r", "up_pair_u", "up_pair_f",
+            "up_pair_slot")
+# the reference pads a lake package without outlets to one dummy outlet
+_OUTLET_FIELDS = ("out_invert", "out_width", "out_rough", "out_slope",
+                  "out_rate", "out_lake", "out_to")
 _TOPOLOGY = ("edge_n", "edge_m", "ihc", "cl1", "cl2", "hwva", "anglex", "nbr",
              "slot_nm", "slot_mn")
 
@@ -161,13 +195,74 @@ def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
                 dtopo, nbr=extra["xt3d"].nbr_ext)
     for key in ("buy", "vsc", "csub"):
         options.pop(key, None)
-    return GwfModel(
+    model = GwfModel(
         name=name, dtopo=dtopo, npf_opts=npf.NpfOptions(**npf_options),
         npf_arrays=npf_arrays, strt=f64("strt"), ibound0=i32("ibound0"),
         delr=delr, delc=delc, area=area, sto_opts=sto_opts,
         sto_arrays=sto_arrays, condsat3=condsat3, grid=grid, topo=topo,
         wetdry=f64("wetdry") if "wetdry" in arrays else None,
         **options, **extra, **packages)
+    specs = {pkg: _prefixed(arrays, pkg + "_") for pkg in FEATURE_FIELDS
+             if any(key.startswith(pkg + "_") for key in arrays)}
+    return _augmented(model, specs) if specs else model
+
+
+def _host(value):
+    if isinstance(value, torch.Tensor):
+        return value.cpu().numpy()
+    return value if isinstance(value, (tuple, int, float, bool, str)) \
+        else np.asarray(value)
+
+
+def augmented_state(model) -> dict:
+    """``{pkg_field: value}`` of the MAW, LAK and SFR data of either
+    package's augmented model (numpy arrays, tuples and numbers), outlet
+    fields cut to the lake package's outlets."""
+    out = {}
+    for pkg, fields in FEATURE_FIELDS.items():
+        data = getattr(model, pkg, None)
+        if data is None:
+            continue
+        for field in fields:
+            value = getattr(data, field)
+            if value is None:
+                continue
+            value = _host(value)
+            if field in _OUTLET_FIELDS:
+                value = value[:len(data.out_type)]
+            out[f"{pkg}_{field}"] = value
+    return out
+
+
+# host values of the data classes that are not arrays
+_META = dict(out_type=tuple, out_lake=tuple, out_to=tuple, div_src=tuple,
+             div_to=tuple, div_rule=tuple, nwells=int, nlakes=int,
+             noutlets=int, nreaches=int, storage=bool, convfact=float)
+
+
+def _meta(key, value):
+    if key not in _META:
+        return value
+    kind = _META[key]
+    return kind(np.asarray(value).tolist()) if kind is tuple \
+        else kind(np.asarray(value))
+
+
+def _augmented(base, specs):
+    """The augmented model of ``base`` from feature fields; the fields
+    that it derives must equal the given ones."""
+    model = AugmentedGwfModel(base, **{
+        pkg: {key: _meta(key, value) for key, value in spec.items()
+              if key not in _DERIVED}
+        for pkg, spec in specs.items()})
+    built = augmented_state(model)
+    for pkg, spec in specs.items():
+        for key in _DERIVED:
+            if key in spec and not np.array_equal(
+                    np.asarray(built[f"{pkg}_{key}"]), np.asarray(spec[key])):
+                raise ValueError(f"{pkg}_{key} differs from the augmented "
+                                 "table built on this base")
+    return model
 
 
 def _prefixed(arrays: dict, prefix: str) -> dict:

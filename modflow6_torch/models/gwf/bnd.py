@@ -6,23 +6,41 @@ bnd_cf + bnd_fc, gwf-chd.f90, gwf-wel.f90, gwf-rch.f90, gwf-drn.f90
 drn_cf :340-373 + get_drain_factor :534-574, gwf-riv.f90:270-299,
 gwf-ghb.f90:245-265, gwf-evt.f90 evt_cf).  Entries are padded to a fixed
 ``maxbound`` with ``mask=False``.  Node indices are int64 tensors, as
-``index_add_`` and advanced indexing take them.
+advanced indexing takes them.
 
-``scatter_terms`` adds with ``index_add``.  On CUDA that uses atomics, so
-entries that share a node are summed in an order that varies from run to
-run; the difference is at the 1e-15 level.
+``scatter_terms`` adds each entry's terms at its node through the data
+object's ``add_plan`` (``ops/scatter.py:AddPlan``), which sums the entries
+that share a node (two wells in one cell, a repeated cellid) in entry
+order, the reference's ``.at[node].add`` order, with no atomics: the sums
+are the same on every run, on the card and on the CPU.  The plan is built
+from the nodes on the host at its first use, once per data object: a
+period's data, not an assembly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import cached_property
 from typing import Optional
 
 import torch
 
 from ...constants import DONE, DZERO
+from ...ops.scatter import AddPlan
 from ...ops.smoothing import (quadratic_saturation, sq_saturation,
                               sq_saturation_derivative)
+
+
+class _Entries:
+    """What the per-entry data classes share: ``node`` and ``mask``."""
+
+    @cached_property
+    def add_plan(self) -> AddPlan:
+        """The plan of ``out[node[i]] += v[i]`` over the entries with
+        ``mask``, in entry order (``AddPlan.add`` only)."""
+        sel = torch.nonzero(self.mask).squeeze(1)
+        return AddPlan.build(self.node[sel], self.node.device, 0,
+                             sources=sel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,21 +51,21 @@ class ChdData:
 
 
 @dataclasses.dataclass(frozen=True)
-class WelData:
+class WelData(_Entries):
     node: torch.Tensor
     q: torch.Tensor
     mask: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
-class RchData:
+class RchData(_Entries):
     node: torch.Tensor
     recharge: torch.Tensor  # flux per unit area
     mask: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
-class DrnData:
+class DrnData(_Entries):
     node: torch.Tensor
     elev: torch.Tensor
     cond: torch.Tensor
@@ -56,7 +74,7 @@ class DrnData:
 
 
 @dataclasses.dataclass(frozen=True)
-class RivData:
+class RivData(_Entries):
     node: torch.Tensor
     stage: torch.Tensor
     cond: torch.Tensor
@@ -65,7 +83,7 @@ class RivData:
 
 
 @dataclasses.dataclass(frozen=True)
-class GhbData:
+class GhbData(_Entries):
     node: torch.Tensor
     bhead: torch.Tensor
     cond: torch.Tensor
@@ -73,7 +91,7 @@ class GhbData:
 
 
 @dataclasses.dataclass(frozen=True)
-class EvtData:
+class EvtData(_Entries):
     node: torch.Tensor
     surface: torch.Tensor
     rate: torch.Tensor
@@ -221,11 +239,12 @@ def evt_terms(evt: EvtData, head, ibound, area):
     return hcof, rhs
 
 
-def scatter_terms(diag, rhs_vec, node, mask, hcof, rhs):
-    """bnd_fc: add per-entry hcof→diag, rhs→rhs at each entry's node."""
-    diag = diag.index_add(0, node, torch.where(mask, hcof, DZERO))
-    rhs_vec = rhs_vec.index_add(0, node, torch.where(mask, rhs, DZERO))
-    return diag, rhs_vec
+def scatter_terms(diag, rhs_vec, data, hcof, rhs):
+    """bnd_fc: add per-entry hcof→diag, rhs→rhs at each entry's node, over
+    the entries of ``data`` with ``mask`` (the others add zeros in the
+    reference)."""
+    plan = data.add_plan
+    return plan.add(diag, hcof), plan.add(rhs_vec, rhs)
 
 
 def bound_flows(node, mask, hcof, rhs, head, ibound):

@@ -5,9 +5,9 @@ Port of modflow6_tpu/models/gwf/model.py (``PackageData``,
 ``use_structured``, ``finalize_setup`` with the HFB barriers and XT3D,
 ``is_linear``, ``packages``, ``boundary_state``, ``assemble`` with its
 Newton terms, XT3D (full, RHS and Newton forms), GNC, CSUB, BUY and VSC,
-``edge_conductances``, ``edge_flows``, ``boundary_budget``).  The UZF and
-advanced-package couplings (``PackageData.uzf``, the augmented models) are
-outside the ported slices.
+``edge_conductances``, ``edge_flows``, ``boundary_budget``).  MAW, LAK and
+SFR wrap this model in ``advanced.AugmentedGwfModel``; the UZF coupling
+(``PackageData.uzf``) is outside the ported slices.
 
 Two paths, chosen by ``use_structured`` as in the reference.  A DIS model
 without rotated anisotropy, XT3D or VSC keeps no edge list on the device:
@@ -380,18 +380,15 @@ class GwfModel:
 
         if pkgs.wel is not None:
             hcof, r = self._wel_terms(pkgs.wel, head, ibound)
-            diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.wel.node,
-                                          pkgs.wel.mask, hcof, r)
+            diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.wel, hcof, r)
         if pkgs.rch is not None:
             hcof, r = bnd.rch_terms(pkgs.rch, ibound, self.area)
-            diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.rch.node,
-                                          pkgs.rch.mask, hcof, r)
+            diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.rch, hcof, r)
         for name in _HEAD_PACKAGES:
             data = getattr(pkgs, name)
             if data is not None:
                 hcof, r = self._head_package_terms(name, data, head, ibound)
-                diag, rhs = bnd.scatter_terms(diag, rhs, data.node,
-                                              data.mask, hcof, r)
+                diag, rhs = bnd.scatter_terms(diag, rhs, data, hcof, r)
 
         if self.inewton and newton:
             # (XT3D's Newton terms are part of its own assembly)
@@ -413,8 +410,8 @@ class GwfModel:
                                          arrays.icelltype, arrays.top,
                                          arrays.bot, self.wel_iflowred,
                                          self.wel_flowred)
-                diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.wel.node,
-                                              pkgs.wel.mask, hcof, r)
+                diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.wel, hcof,
+                                              r)
         return diag, off, rhs
 
     def _buy_terms(self, arrays, conc, head, ibound, sat, diag, off, rhs):

@@ -1,17 +1,23 @@
 """Simulation: the create→define→time-loop→finalize core loop.
 
 Port of modflow6_tpu/models/simulation.py for one GWF model (on a DIS,
-DISV or DISU grid) and one IMS solution (reference core loop src/mf6core.f90: Mf6Initialize:70,
-Mf6PrepareTimestep:498, Mf6DoTimestep:620, Mf6FinalizeTimestep:708): walk
-the TDIS periods and steps, apply the TVK/TVS changes at each period's
-start, solve each step with the numerical solution, advance the CSUB
-state, compute flows and budgets, and write the heads, budget, grid and
-listing files.  The transport coupling (``gwt``, which would hand the
-concentrations to BUY and VSC), UZF, MAW, PRT, observation, NetCDF and
-adaptive-time-step branches of the reference are outside the ported
-slice: ``gwt`` raises, and the loader raises for decks that ask for the
-others.  Without transport BUY and VSC see a concentration only where
-``period_data`` sets ``buy_conc``, as in the reference.
+DISV or DISU grid, alone or with MAW, LAK and SFR rows as an
+``AugmentedGwfModel``) and one IMS solution (reference core loop
+src/mf6core.f90: Mf6Initialize:70, Mf6PrepareTimestep:498,
+Mf6DoTimestep:620, Mf6FinalizeTimestep:708): walk the TDIS periods and
+steps, call the ``period_hooks`` and apply the TVK/TVS changes at each
+period's start, solve each step with the numerical solution, advance the
+CSUB state and the MAW SHUT_OFF flags, compute flows and budgets (the
+MAW, LAK and SFR exchanges with the aquifer among them), and write the
+heads, budget, grid and listing files.  The files hold the grid rows of
+an augmented model; it gets no ``.grb`` file, as in the reference, whose
+composites have no single user grid.  The transport coupling (``gwt``,
+which would hand the concentrations to BUY and VSC), UZF, MVR, PRT,
+observation, NetCDF and adaptive-time-step branches of the reference are
+outside the ported slice: ``gwt`` raises, and the loader raises for decks
+that ask for the others.  Without transport BUY and VSC see a
+concentration only where ``period_data`` sets ``buy_conc``, as in the
+reference.
 
 The output phase works on the model's device.  Face flows, their per-cell
 sums (the CHD flows) and the storage rates are computed there from the
@@ -99,6 +105,9 @@ class Simulation:
         self.tvs: dict = {}
         # CSUB state (csub.CsubState), committed at step end
         self.csub_state = model.csub_state0
+        # f(kper) called once at each period's start, after the TVK/TVS
+        # changes (the <pkg>_rp role: the advanced packages' PERIOD blocks)
+        self.period_hooks = []
         self._inner_csv = None    # lazy CSV_INNER_OUTPUT writer
         # a failed time step aborts the run unless the simulation CONTINUE
         # option is set (the loader clears this flag then)
@@ -117,6 +126,9 @@ class Simulation:
         model = self.model
         if model.ixt3d:
             raise NotImplementedError("TVK with XT3D not supported yet")
+        if hasattr(model, "n_extra"):
+            raise NotImplementedError(
+                "TVK/TVS with MAW, LAK or SFR is not ported")
 
         def changed(arrays, fields, changes, key):
             host = {f: getattr(arrays, f).cpu().numpy().copy()
@@ -185,6 +197,14 @@ class Simulation:
             self.csub_state = csub_mod.advance_state(
                 model.csub, self.csub_state, a.top, a.bot, model.area,
                 a.icelltype, head, head_old, ibound, delt)
+        maw = getattr(model, "maw", None)
+        if maw is not None and maw.shut is not None:
+            # MAW SHUT_OFF hysteresis advances at the accepted solution
+            # (gwf-maw.f90 shutoffmin/max); one host read per step
+            new_shut = maw.advance_shutoff(head, model._maw_offset)
+            if bool(torch.any(new_shut != maw.shut)):
+                model.maw = dataclasses.replace(maw, shut=new_shut)
+                self.solution = NumericalSolution(model, self.solution.s)
         self._sync()
         t1 = time.perf_counter()
         if self.outer_csv:
@@ -237,9 +257,11 @@ class Simulation:
         save_budget = (self.oc.active("SAVE", "BUDGET", kper, kstp, nstp)
                        if has_oc else True)
         shape3d = self._shape3d()
+        # the grid rows (an augmented model's feature rows follow them)
+        ng = getattr(model, "n_grid", model.nodes)
         if self.hds and save_head:
-            out = head_np.copy()
-            out[ibound.cpu().numpy() == 0] = DHNOFLO
+            out = head_np[:ng].copy()
+            out[ibound[:ng].cpu().numpy() == 0] = DHNOFLO
             self.hds.write_step(kstp, kper, pertim, totim,
                                 out.reshape(shape3d))
         if self.cbc and save_budget:
@@ -251,7 +273,7 @@ class Simulation:
         if has_oc and self.oc.active("PRINT", "HEAD", kper, kstp, nstp):
             # OC PRINT HEAD: formatted layer arrays in the listing
             self._lst_lines.append(self._format_array(
-                head_np.reshape(shape3d),
+                head_np[:ng].reshape(shape3d),
                 f"HEAD IN LAYER   AT END OF TIME STEP {kstp}, "
                 f"STRESS PERIOD {kper}"))
         rec.solve_seconds = t1 - t0
@@ -273,7 +295,7 @@ class Simulation:
     def _write_grb(self):
         """Write the binary grid file beside the heads output (the
         reference writes it at DIS initialization unless NOGRB)."""
-        if not self.hds_path:
+        if not self.hds_path or hasattr(self.model, "n_extra"):
             return
         path = str(self.hds_path)
         path = (path[:-4] if path.endswith(".hds") else path) + ".grb"
@@ -324,6 +346,8 @@ class Simulation:
         for kper, kstp, delt, pertim, totim in self.tdis.walk():
             if kper != last_kper:
                 self._apply_time_varying(kper)
+                for hook in self.period_hooks:
+                    hook(kper)
                 last_kper = kper
             head = self.do_step(head, kper, kstp, delt, pertim, totim,
                                 save_heads_every)
@@ -364,10 +388,20 @@ class Simulation:
                 a.icelltype, head, head_old, ibound, delt)
             flows["CSUB"] = d_c * head - r_c
 
+        # MAW, LAK and SFR: the exchange with the aquifer is this model's
+        # budget entry (the features' own terms belong to the package
+        # budgets, reference lak_bd/sfr_bd/maw_bd)
+        ng = getattr(model, "n_grid", model.nodes)
+        if ng != model.nodes:
+            terms = model.advanced_budget(head, head_old, delt, iss, pkgs)
+            for key in ("MAW", "LAK", "SFR"):
+                if f"{key}-GWF" in terms:
+                    flows[key] = terms[f"{key}-GWF"]
+
         # storage rates: into the cell, like sto_cq
         if model.sto_arrays is not None and not iss:
             flows["STO-SS"], flows["STO-SY"] = self._storage_rates(
-                head, head_old, ibound, delt)
+                head[:ng], head_old[:ng], ibound[:ng], delt)
 
         # boundary packages; CHD: net flow from constant-head cells into the
         # model = -(sum of the face flows into the chd cell)
@@ -398,10 +432,10 @@ class Simulation:
         shape3d = self._shape3d()
         mname = model.name.upper()
         for name, q in flows.items():
-            if name == "CSUB":
-                continue        # the reference writes no CSUB record
+            if name in ("CSUB", "MAW", "LAK", "SFR"):
+                continue        # the reference writes no record of these
             if name.startswith("STO-"):
-                nodes = np.arange(model.nodes)
+                nodes = np.arange(q.shape[0])
                 qv = q.cpu().numpy()
             else:
                 data = getattr(pkgs, name.lower())

@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 
-
 def running_count(values) -> np.ndarray:
     """For each element, how many equal elements stand before it."""
     order = np.argsort(values, kind="stable")
@@ -70,7 +69,11 @@ class AddPlan:
 
     def add(self, out, values):
         """``out`` plus the planned sums of ``values`` (a new tensor)."""
-        out = out.clone()
+        return self.add_(out.clone(), values)
+
+    def add_(self, out, values):
+        """The planned sums of ``values`` added into ``out`` itself (a
+        tensor, or a view of one, that the caller owns)."""
         for pos, src in self.rounds:
             out[pos] += values[src]
         return out

@@ -8,7 +8,9 @@ reads each loop's exit flag once per iteration.
 Covered: CG or BiCGSTAB in ``f64`` or ``mixed`` precision with every
 preconditioner, the hoisted assembly of a linear model and the
 per-iteration assembly of a nonlinear one, pseudo-transient continuation
-and the Newton under-relaxation, and ``under_relaxation`` "none" or
+and the Newton under-relaxation, a model with MAW, LAK and SFR rows
+(``AugmentedGwfModel``, the gather product over its table), and
+``under_relaxation`` "none" or
 "simple" (the reference's fused step reads no other scheme; here the
 others raise).  The PTC state (ptcdel and the last residual norm) is
 carried as 0-d tensors and never read on the host.
@@ -19,10 +21,10 @@ from __future__ import annotations
 import torch
 
 from ..constants import DZERO
-from ..models.gwf import npf as npf_mod
 from ..ops.solvers.krylov import bicgstab, cg, epfact, refined_solve
 from ..ops.system import make_matvec
-from .ims import ImsSettings, _make_precond, fix_system, ptc_terms
+from .ims import (ImsSettings, _make_precond, fix_system,
+                  newton_under_relax, ptc_terms)
 from .ims import use_ptc as ptc_applies
 
 
@@ -112,9 +114,7 @@ def make_fused_step(model, settings: ImsSettings, iss: bool, kper: int = 1):
                                 head + s.gamma * (x - head))
             if model.inewton and model.inewtonur:
                 dxold = torch.where(active > 0, x - head, DZERO)
-                x_nur = npf_mod.under_relax(
-                    model.npf_arrays, ibound, x, head, dxold,
-                    model.npf_arrays.bot)[0]
+                x_nur = newton_under_relax(model, ibound, x, head, dxold)[0]
                 x = torch.where(conv, x, x_nur)
             head = x
             kiter += 1

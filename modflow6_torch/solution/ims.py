@@ -7,11 +7,12 @@ sln_underrelax :2989-3114, sln_backtracking :2680-2776, complexity presets
 sln_setouter :2623-2671): ``ImsSettings``, ``SolveInfo`` and
 ``NumericalSolution`` for a model on the structured or the general path
 (``fix_system`` picks the Dirichlet fixup; the solver reads the model's
-``system_topo``, XT3D's extended table in its full mode), with pseudo-transient
+``system_topo``, XT3D's extended table in its full mode, or an augmented
+model's table with its MAW, LAK and SFR rows), with pseudo-transient
 continuation (sln_ls :2484-2569 + gwf_ptc gwf.f90:625-687), the Newton
 under-relaxation with its convergence rescue (npf_nur +
-sln_nur_has_converged) and the wetting/drying sweep before each outer
-iteration (npf_cf).
+sln_nur_has_converged; on the grid rows of an augmented model) and the
+wetting/drying sweep before each outer iteration (npf_cf).
 
 The reference runs each outer iteration as one jitted device computation
 and reads ``converged``, ``inner`` and ``dxmax`` on the host once per outer
@@ -114,6 +115,10 @@ def _make_precond(s, model, dtopo, matvec, diag, off):
     anisotropy) gets Chebyshev instead, as in the reference; everything
     else goes through ops.solvers.precond.make_preconditioner, Chebyshev
     with at least order 4."""
+    if s.preconditioner == "mg" and hasattr(model, "n_extra"):
+        raise NotImplementedError(
+            "the multigrid preconditioner on an augmented model (MAW, LAK "
+            "or SFR rows have no grid shape to coarsen)")
     if s.preconditioner == "mg" and model.use_structured:
         return make_mg_preconditioner(dtopo.grid_shape, diag, off)
     kind = "chebyshev" if s.preconditioner == "mg" else s.preconditioner
@@ -133,6 +138,20 @@ def use_ptc(model, s, iss, kper=1) -> bool:
     return not (s.no_ptc == "first" and kper == 1)
 
 
+def newton_under_relax(model, ibound, x, xtemp, dxold):
+    """npf_nur on the grid rows (gwf_nur works per gwf node): (x, dx,
+    applied) over all rows, the feature rows of an augmented model
+    unchanged with dx 0."""
+    a = model.npf_arrays
+    ng = getattr(model, "n_grid", x.shape[0])
+    xg, dxg, applied, _ = npf_mod.under_relax(a, ibound[:ng], x[:ng],
+                                              xtemp[:ng], dxold[:ng], a.bot)
+    if ng == x.shape[0]:
+        return xg, dxg, applied
+    return (torch.cat([xg, x[ng:]]),
+            torch.cat([dxg, torch.zeros_like(x[ng:])]), applied)
+
+
 def ptc_terms(model, s, diag, off, rhs, head, active, delt, prev):
     """The PTC update shared by ``NumericalSolution._apply_ptc`` and the
     fused step: (diag', rhs', ptcdel, l2norm).  ``prev`` is None at the
@@ -144,6 +163,10 @@ def ptc_terms(model, s, diag, off, rhs, head, active, delt, prev):
     a = model.npf_arrays
     vol = model.area * (a.top - a.bot)
     vol = torch.where(vol > DZERO, vol, DONE)
+    if vol.shape[0] != resid.shape[0]:
+        # an augmented model: gwf_ptc measures the grid cells; the feature
+        # rows keep a unit pseudo-volume
+        vol = torch.cat([vol, vol.new_ones(resid.shape[0] - vol.shape[0])])
     ptcf = torch.where(active > 0, resid.abs() / vol, DZERO).max()
     ptcf = torch.where(ptcf == DZERO, DONE / (delt * 10.0), ptcf)
     if prev is None:
@@ -259,14 +282,9 @@ class NumericalSolution:
         # NEWTON UNDER_RELAXATION option (gwf.f90 gwf_nur gates on
         # this%inewtonur)
         if model.inewton and model.inewtonur:
-            if getattr(model, "n_grid", x.shape[0]) != x.shape[0]:
-                raise NotImplementedError(
-                    "Newton under-relaxation of an augmented model (rows "
-                    "beyond the grid's, n_grid) is not ported")
             dxold = torch.where(active > 0, x - xtemp, DZERO)
-            x_nur, dx_nur, applied, _ = npf_mod.under_relax(
-                model.npf_arrays, ibound, x, xtemp, dxold,
-                model.npf_arrays.bot)
+            x_nur, dx_nur, applied = newton_under_relax(model, ibound, x,
+                                                        xtemp, dxold)
             x = torch.where(converged, x, x_nur)
             # NUR convergence rescue (sln_nur_has_converged,
             # NumericalSolution.f90): BOTH the max change at unrelaxed

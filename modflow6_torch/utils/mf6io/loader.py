@@ -9,7 +9,10 @@ src/Utilities/Idm/IdmLoad.f90, src/SimulationCreate.f90:200-729):
 packages DIS6/DISV6/DISU6, IC6, NPF6, STO6, CHD6, WEL6, DRN6, RIV6, GHB6,
 EVT6 (with NSEG segments), RCH6 (list or READASARRAYS), BUY6, CSUB6 (no-delay
 and delay interbeds, the first period's settings; the reference's
-``advanced_loader.load_csub``) and OC6, with MF6's stress-period
+``advanced_loader.load_csub``), MAW6, LAK6 (with TAB6 tables) and SFR6
+(``advanced_loader``; their later PERIOD blocks rebuild the augmented model
+at each such period's start, as the reference's
+``_attach_advanced_periods`` does) and OC6, with MF6's stress-period
 persistence; the GWF
 name-file option NEWTON [UNDER_RELAXATION], NPF REWET (WETFCT, IWETIT,
 IHDWET) with the WETDRY array, the NPF TVK6 and STO TVS6 subpackages (to
@@ -21,8 +24,8 @@ order 4 with a warning).
 Everything else a deck can ask for raises ``NotImplementedError`` naming
 the package or keyword: other model types, several models, exchanges,
 XT3D (which the reference's loader reads past, running the two-point
-scheme), TS6/TAS6 series, HFB6 and the advanced packages, OBS6,
-NetCDF, ATS6 and HPC6.  The reference's loader reads neither the NPF
+scheme), TS6/TAS6 series, HFB6, UZF6, MVR6 and the list packages' MOVER
+option, OBS6, NetCDF, ATS6 and HPC6.  The reference's loader reads neither the NPF
 ANGLE1/2/3 arrays nor the DRN AUXDEPTHNAME option (rotated anisotropy,
 like HFB, reaches a model only through ``build_gwf``); this one raises on
 them by name rather than run without them.
@@ -47,13 +50,16 @@ import torch
 from ... import resolve_device
 from ...models.discretization import DisGrid, DisuGrid, DisvGrid
 from ...models.gwf import bnd, builder
+from ...models.gwf.advanced import (AugmentedGwfModel, build_lak, build_maw,
+                                    build_sfr)
 from ...models.gwf.buy import make_buy
 from ...models.gwf.csub import make_csub
 from ...models.gwf.model import PackageData
 from ...models.simulation import Simulation
-from ...solution.ims import ImsSettings
+from ...solution.ims import ImsSettings, NumericalSolution
 from ...timing.tdis import StressPeriod, Tdis
 from ..oc import OutputControl, parse_spec
+from . import advanced_loader as adv_ld
 from . import schema
 from .arrays import read_grid_array
 from .reader import BlockFile
@@ -61,7 +67,7 @@ from .reader import BlockFile
 # package types of a GWF name file that the slice covers
 _SUPPORTED_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "NPF6", "STO6", "CHD6",
                        "WEL6", "DRN6", "RIV6", "GHB6", "EVT6", "RCH6", "BUY6",
-                       "CSUB6", "OC6")
+                       "CSUB6", "MAW6", "LAK6", "SFR6", "OC6")
 # options of a list package that would change its flows and are not ported
 _UNPORTED_LIST_OPTIONS = ("TS6", "OBS6", "MOVER", "AUXMULTNAME",
                           "AUXDEPTHNAME", "SURF_RATE_SPECIFIED")
@@ -633,16 +639,81 @@ def _load_gwf_model(ws, mfname, mname, device):
             grid, strt=model.strt, device=device,
             **_load_csub(pkg_files["CSUB6"][0], grid, shp, base))
 
+    # --- MAW, LAK and SFR: the augmented model (gwf-maw/lak/sfr.dfn); the
+    # PERIOD blocks of later periods wait for _attach_advanced_periods
+    def cellid(toks, start):
+        return _cellid_to_node(toks, grid, start=start)
+
+    adv, adv_periods = {}, {}
+    for ftype, name in (("MAW6", "maw"), ("LAK6", "lak"), ("SFR6", "sfr")):
+        if ftype not in pkg_files:
+            continue
+        if len(pkg_files[ftype]) > 1:
+            raise _not_ported(f"{mfname}: several {ftype} packages")
+        path = pkg_files[ftype][0]
+        if name == "maw":
+            adv[name], periods = adv_ld.load_maw(path, grid, cellid)
+        elif name == "lak":
+            adv[name], periods = adv_ld.load_lak(path, grid, cellid, mdir)
+        else:
+            adv[name], periods = adv_ld.load_sfr(path, grid, cellid, mdir)
+        for kper, lines in periods.items():
+            adv_periods.setdefault(kper, {})[name] = lines
+    base_model = model
+    if adv:
+        model = _augmented(base_model, adv, grid)
+
     # --- OC output files + period selection
     hds_path = cbc_path = oc = None
     if "OC6" in pkg_files:
         hds_path, cbc_path, oc = load_oc(pkg_files["OC6"][0], mdir)
 
-    return dict(name=mname, model=model, grid=grid, storage=storage,
+    return dict(name=mname, model=model, base_model=base_model, grid=grid,
+                adv_specs=adv, adv_periods=adv_periods, storage=storage,
                 sto_periods=sto_periods, pkg_periods=pkg_periods,
                 maxbound=maxbound, first_pkgs=first_pkgs,
                 hds_path=hds_path, cbc_path=cbc_path, oc=oc, tvk=tvk,
                 tvs=tvs)
+
+
+def _augmented(base, specs, grid):
+    """The augmented model of ``base`` and the feature specs; THIEM-type MAW
+    conductances from the base's K11/K22."""
+    a = base.npf_arrays
+    return AugmentedGwfModel(
+        base,
+        maw=build_maw(specs["maw"], grid, k11=a.k11, k22=a.k22)
+        if "maw" in specs else None,
+        lak=build_lak(*specs["lak"]) if "lak" in specs else None,
+        sfr=build_sfr(specs["sfr"]) if "sfr" in specs else None)
+
+
+def _attach_advanced_periods(simulation, bundle):
+    """The advanced packages' later PERIOD blocks (the reference's
+    loader.py:748-794): at each such period's start the settings are
+    applied to the specs, which persist, and the augmented model is
+    rebuilt on the same base, with the same rows.  Unlike the reference's
+    rebuild, this one passes K11/K22 to ``build_maw`` as the first build
+    does, so a THIEM-type well runs; like it, the rebuild starts every MAW
+    SHUT_OFF flag open."""
+    specs, periods = bundle["adv_specs"], bundle["adv_periods"]
+    apply = dict(maw=adv_ld.apply_maw_period,
+                 lak=lambda spec, lines: adv_ld.apply_lak_period(*spec,
+                                                                 lines),
+                 sfr=adv_ld.apply_sfr_period)
+
+    def hook(kper):
+        changes = periods.get(kper)
+        if not changes:
+            return
+        for name, lines in changes.items():
+            apply[name](specs[name], lines)
+        simulation.model = _augmented(simulation.model.base, specs,
+                                      bundle["grid"])
+        simulation.solution = NumericalSolution(simulation.model,
+                                                simulation.solution.s)
+
+    simulation.period_hooks.append(hook)
 
 
 def _transient_flags(tdis, storage, sto_periods):
@@ -725,12 +796,14 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
 
     mfname, mname = entries[0]
     bundle = _load_gwf_model(ws, mfname, mname, device)
-    # Newton Jacobians are asymmetric: CG diverges there (the reference
-    # program requires BICGSTAB for asymmetric systems); upgrade with a
-    # warning
-    if bundle["model"].inewton and settings.linear_acceleration == "cg":
+    # SFR routing, the LAK cascade and Newton Jacobians are asymmetric: CG
+    # diverges there (the reference program requires BICGSTAB for
+    # asymmetric systems); upgrade with a warning
+    if (bundle["model"].inewton or "sfr" in bundle["adv_specs"]
+            or "lak" in bundle["adv_specs"]) \
+            and settings.linear_acceleration == "cg":
         warnings.warn("deck requests CG but the system is asymmetric "
-                      "(Newton); using BICGSTAB", stacklevel=2)
+                      "(SFR/LAK/Newton); using BICGSTAB", stacklevel=2)
         settings = dataclasses.replace(settings,
                                        linear_acceleration="bicgstab")
     transient = _transient_flags(tdis, bundle["storage"],
@@ -745,6 +818,8 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     simulation.fail_fast = "CONTINUE" not in sopts
     simulation.tvk = bundle["tvk"]
     simulation.tvs = bundle["tvs"]
+    if bundle["adv_periods"]:
+        _attach_advanced_periods(simulation, bundle)
     _attach_period_data(simulation, bundle["pkg_periods"],
                         bundle["maxbound"], bundle["first_pkgs"], device)
     return simulation

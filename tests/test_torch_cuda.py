@@ -2,7 +2,9 @@
 its plain version, a fused step on the card against the CPU (with each
 preconditioner), one multigrid application whose every level launches the
 kernel, a small input deck run through the deck path on the card against
-the CPU, and the small Newton, PTC and rewetting models of chip_smoke.py.
+the CPU, the small Newton, PTC and rewetting models of chip_smoke.py,
+and its small MAW, LAK and SFR models with repeated sums (two card runs
+bitwise equal).
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -385,3 +387,38 @@ def test_csub_with_delay_beds_on_card_matches_cpu(cuda):
         want = getattr(sc, name).numpy()
         np.testing.assert_allclose(getattr(sg, name).cpu().numpy(), want,
                                    rtol=0, atol=1e-10 * np.abs(want).max())
+
+
+def test_small_advanced_twins_on_card_match_cpu(cuda):
+    """chip_smoke.py's small augmented twins (MAW limits and SHUT_OFF, a
+    LAK table with a weir cascade and a horizontal connection, SFR's four
+    diversion rules and an n-point section, Newton with MAW and the
+    under-relaxation) on the card against the CPU, and the C1 twin: two
+    wells in one cell, a repeated river cellid and two MAW wells in one
+    cell, run twice on the card bitwise equal and within 1e-12 of the
+    CPU."""
+    from chip_smoke import check_small_advanced
+    check_small_advanced(cuda)
+
+
+def test_augmented_runs_on_card_are_bitwise_equal(cuda):
+    """The augmented bench model at 4 x 128 x 128 (16 wells, 4 lakes, 520
+    reaches) through Simulation twice on the card: the same bits in the
+    heads and the feature rows, the same counts, no stencil7 launch."""
+    import chip_smoke
+    from modflow6_torch.models.simulation import Simulation
+    from modflow6_torch.timing.tdis import StressPeriod, Tdis
+    model, _, _ = chip_smoke.advanced_model(cuda, (4, 128, 128))
+    maw0 = model.maw
+    out = []
+    stencil.stencil7.launches = 0
+    for _ in range(2):
+        model.maw = maw0
+        sim = Simulation(Tdis((StressPeriod(10.0, 2, 1.0),)), model,
+                         chip_smoke.advanced_settings())
+        recs = sim.run()
+        assert all(r.converged for r in recs)
+        out.append(([(r.outer, r.inner) for r in recs], recs[-1].head))
+    assert stencil.stencil7.launches == 0
+    assert out[0][0] == out[1][0]
+    assert np.array_equal(out[0][1], out[1][1])

@@ -45,7 +45,7 @@ from modflow6_tpu.utils.binary import read_budget_file as ref_read_budget
 from modflow6_tpu.utils.binary import read_head_file as ref_read_heads
 from modflow6_tpu.utils.mf6io import load_simulation as ref_load
 from modflow6_tpu.utils.mf6io import schema as ref_schema
-from modflow6_torch.convert import simulation_from_reference
+from modflow6_torch.convert import augmented_state, simulation_from_reference
 from modflow6_torch.models.simulation import ConvergenceFailure
 from modflow6_torch.ops import stencil
 from modflow6_torch.ops.system import apply_dirichlet_structured
@@ -74,7 +74,7 @@ def simulation_state(sim):
     """What a loader produced, as numpy: the argument of
     ``simulation_from_reference``.  Works on either package's Simulation
     (``np.asarray`` reads JAX arrays and CPU tensors alike)."""
-    m, g = sim.model, sim.model.grid
+    m, g = getattr(sim.model, "base", sim.model), sim.model.grid
     a = m.npf_arrays
     arrays = dict(k11=a.k11, k22=a.k22, k33=a.k33, icelltype=a.icelltype,
                   top=a.top, bot=a.bot, strt=m.strt, ibound0=m.ibound0,
@@ -91,6 +91,8 @@ def simulation_state(sim):
             arrays.update({f"{pkg}_{key}": value
                            for key, value in _pkg_fields(data).items()})
     arrays.update(csub_arrays(m))
+    if m is not sim.model:
+        arrays.update(augmented_state(sim.model))
     return dict(
         name=m.name,
         grid=dict(nlay=g.nlay, nrow=g.nrow, ncol=g.ncol, delr=g.delr,
@@ -506,6 +508,81 @@ BEGIN PACKAGEDATA
 END PACKAGEDATA
 """
 
+# two wells that share a cell, a reach network with a diversion, a lake
+# with a vertical and a horizontal connection, a table and an outlet
+MAW_FILE = """BEGIN DIMENSIONS
+  NMAWWELLS 2
+END DIMENSIONS
+BEGIN PACKAGEDATA
+  1 0.25 0.0 25.0 SPECIFIED 2
+  2 0.2 0.0 25.0 SPECIFIED 1
+END PACKAGEDATA
+BEGIN CONNECTIONDATA
+  1 1 1 3 3 20.0 10.0 30.0 0.5
+  1 2 2 3 3 20.0 10.0 30.0 0.5
+  2 1 1 3 3 20.0 10.0 12.0 0.5
+END CONNECTIONDATA
+BEGIN PERIOD 1
+  1 RATE -20.0
+  2 RATE -5.0
+  2 HEAD_LIMIT 15.0
+END PERIOD
+"""
+SFR_FILE = """BEGIN DIMENSIONS
+  NREACHES 3
+END DIMENSIONS
+BEGIN PACKAGEDATA
+  1 1 1 1 100.0 3.0 1.0e-3 27.0 1.0 0.5 0.03 1 1.0 0
+  2 1 2 1 100.0 3.0 1.0e-3 26.9 1.0 0.5 0.03 2 1.0 1
+  3 1 3 1 100.0 3.0 1.0e-3 26.8 1.0 0.5 0.03 1 1.0 0
+END PACKAGEDATA
+BEGIN CONNECTIONDATA
+  1 -2
+  2 1 -3
+  3 2
+END CONNECTIONDATA
+BEGIN DIVERSIONS
+  2 1 3 UPTO
+END DIVERSIONS
+BEGIN PERIOD 1
+  1 INFLOW 2.0
+  2 DIVERSION 1 0.5
+END PERIOD
+"""
+LAK_FILE = """BEGIN DIMENSIONS
+  NLAKES 1
+  NOUTLETS 1
+  NTABLES 1
+END DIMENSIONS
+BEGIN PACKAGEDATA
+  1 25.0 2
+END PACKAGEDATA
+BEGIN CONNECTIONDATA
+  1 1 1 5 4 VERTICAL 0.1 20.0 30.0 0.0 0.0
+  1 2 1 5 5 HORIZONTAL 0.1 12.0 20.0 50.0 10.0
+END CONNECTIONDATA
+BEGIN TABLES
+  1 TAB6 FILEIN lak.tab
+END TABLES
+BEGIN OUTLETS
+  1 1 0 MANNING 24.0 2.0 0.03 0.001
+END OUTLETS
+BEGIN PERIOD 1
+  1 RAINFALL 0.001
+  1 EVAPORATION 0.0005
+END PERIOD
+"""
+LAK_TABLE = """BEGIN DIMENSIONS
+  NROW 3
+  NCOL 3
+END DIMENSIONS
+BEGIN TABLE
+  20.0 0.0 100.0
+  25.0 600.0 140.0
+  30.0 1400.0 180.0
+END TABLE
+"""
+
 
 UNSUPPORTED = {
     "DRN6": ("m.nam", _add_package("DRN6 m.drn"), {"m.drn": _list_file(
@@ -517,9 +594,10 @@ UNSUPPORTED = {
     "EVT6": ("m.nam", _add_package("EVT6 m.evt"), {"m.evt": _list_file(
         3, [f"1 {i} 3 29.0 1e-3 4.0 0.4 0.6" for i in (1, 2, 3)],
         dims="  NSEG 2\n")}),
-    "MAW6": ("m.nam", _add_package("MAW6 m.maw")),
-    "SFR6": ("m.nam", _add_package("SFR6 m.sfr")),
-    "LAK6": ("m.nam", _add_package("LAK6 m.lak")),
+    "MAW6": ("m.nam", _add_package("MAW6 m.maw"), {"m.maw": MAW_FILE}),
+    "SFR6": ("m.nam", _add_package("SFR6 m.sfr"), {"m.sfr": SFR_FILE}),
+    "LAK6": ("m.nam", _add_package("LAK6 m.lak"), {"m.lak": LAK_FILE,
+                                                   "lak.tab": LAK_TABLE}),
     "UZF6": ("m.nam", _add_package("UZF6 m.uzf")),
     "CSUB6": ("m.nam", _add_package("CSUB6 m.csub"), {"m.csub": CSUB_FILE}),
     "BUY6": ("m.nam", _add_package("BUY6 m.buy"), {"m.buy": BUY_FILE}),
@@ -569,7 +647,7 @@ UNSUPPORTED = {
 # from a deck of their own (the array deck's cell ids are DIS ones).
 PORTED = ("NEWTON", "REWET", "AUTO_FLOW_REDUCE", "PRECONDITIONER_LEVELS",
           "PRECONDITIONER_DROP_TOLERANCE", "DRN6", "RIV6", "GHB6", "EVT6",
-          "CSUB6", "BUY6", "TVK6", "TVS6")
+          "CSUB6", "BUY6", "TVK6", "TVS6", "MAW6", "SFR6", "LAK6")
 GENERAL_GRIDS = {"DISV6": "disv", "DISU6": "disu"}
 
 
@@ -609,6 +687,9 @@ def test_loader_raises_outside_the_slice(key, tmp_path):
             "BUY6": got["model_options"]["buy"] is not None,
             "TVK6": bool(got["tvk"]),
             "TVS6": bool(got["tvs"]),
+            "MAW6": "maw_rate" in got["arrays"],
+            "SFR6": "sfr_divflow" in got["arrays"],
+            "LAK6": "lak_tab_stage" in got["arrays"],
         }.get(key, got["settings"]["preconditioner"] == "chebyshev")
         assert changed
         return
@@ -658,14 +739,15 @@ def test_load_simulation_runs_on_the_card_unless_asked(tmp_path):
 @pytest.mark.parametrize("component", sorted(
     ["sim-nam", "sim-tdis", "sln-ims", "gwf-nam", "gwf-dis", "gwf-ic",
      "gwf-npf", "gwf-sto", "gwf-chd", "gwf-wel", "gwf-rch", "gwf-rcha",
-     "gwf-oc", "gwf-buy", "gwf-csub"]))
+     "gwf-oc", "gwf-buy", "gwf-csub", "gwf-maw", "gwf-lak", "gwf-sfr",
+     "utl-laktab", "utl-sfrtab"]))
 def test_schema_component_is_the_reference(component):
     assert schema.load_schema()[component] == ref_schema.load_schema()[
         component]
 
 
 def test_schema_holds_only_the_loaded_components():
-    assert len(schema.load_schema()) == 21
+    assert len(schema.load_schema()) == 26
 
 
 # ------------------------------------------------------------- deck runs

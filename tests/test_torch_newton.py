@@ -819,9 +819,11 @@ END OPTIONS"""
 
 def test_remaining_gaps_name_what_is_missing(tmp_path):
     """The XT3D deck option (which the reference's loader reads past), XT3D
-    Newton with barriers, barriers in a deck, augmented models under Newton
-    under-relaxation, and rewetting in the fused step raise and say what
-    is missing.  XT3D Newton itself is ported (tests/test_torch_xt3d.py)."""
+    Newton with barriers, barriers in a deck, and rewetting in the fused
+    step raise and say what is missing.  XT3D Newton itself is ported
+    (tests/test_torch_xt3d.py), and so is the Newton under-relaxation of
+    an augmented model, on its grid rows: the NUR scenario with a MAW well
+    that exchanges nothing solves to the plain scenario's heads."""
     from modflow6_torch.models.discretization import DisGrid
     from modflow6_torch.models.gwf.builder import build_gwf
     grid = DisGrid.create(**_row(5, 1.0, 2.0))
@@ -841,12 +843,19 @@ def test_remaining_gaps_name_what_is_missing(tmp_path):
     with pytest.raises(NotImplementedError, match="HFB6"):
         load_simulation(ws, device="cpu")
 
+    from modflow6_torch.models.gwf.advanced import (AugmentedGwfModel,
+                                                    build_maw)
     args, s = _nur_scenario()
     port = build_both(args)[1]
-    port.n_grid = port.nodes - 1      # as a model with feature rows has it
-    with pytest.raises(NotImplementedError, match="n_grid"):
-        NumericalSolution(port, ImsSettings(**s)).solve_timestep(
-            port.strt, 1.0, iss=True)
+    plain, info, _ = NumericalSolution(port, ImsSettings(**s)) \
+        .solve_timestep(port.strt, 1.0, iss=True)
+    aug = AugmentedGwfModel(port, maw=build_maw(
+        [dict(radius=0.1, strt=5.0, connections=[(3, 0.0)])], port.grid))
+    head, ainfo, _ = NumericalSolution(aug, ImsSettings(**s)) \
+        .solve_timestep(aug.strt, 1.0, iss=True)
+    assert info.converged and ainfo.converged
+    np.testing.assert_allclose(head[:port.nodes].numpy(), plain.numpy(),
+                               rtol=0, atol=10 * s["outer_dvclose"])
 
     args, s = _rewet_scenario()
     port = build_both(args)[1]

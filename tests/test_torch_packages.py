@@ -134,7 +134,7 @@ def test_package_terms_match_reference(kind):
     d0, r0 = rng.normal(size=ncell), rng.normal(size=ncell)
     for g, w in zip(
             bnd.scatter_terms(torch.as_tensor(d0), torch.as_tensor(r0),
-                              tdata.node, tdata.mask, *got),
+                              tdata, *got),
             jbnd.scatter_terms(jnp.asarray(d0), jnp.asarray(r0), jdata.node,
                                jdata.mask, *want)):
         _close(g, w, 1e-12)
