@@ -28,7 +28,15 @@ twice (bitwise equal, no stencil launch: the augmented table has no grid
 shape), the same model as a MAW6/LAK6/SFR6 deck with a second period
 through the command-line entry, the gather product at the table's width,
 and small MAW, LAK, SFR and repeated-sum twins on the card against the
-CPU.
+CPU; and the coupling (``coupling``): UZF columns on every top cell of the
+bench grid through ``Simulation`` twice (bitwise equal, the structured
+solve through the stencil kernel) and as a UZF6 deck with a second period
+through the command-line entry, about 320 movers on the advanced phase's
+model twice (bitwise equal) and as an MVR6 deck, and the bench grid split
+into two models joined by GWF6-GWF6 exchanges, merged and run over the
+gather against the single model, and as a two-model deck through the
+command-line entry; with small UZF, mover-chain and exchange-mover twins
+on the card against the CPU in the ``small`` phase.
 
 Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          without one, and on any failed
@@ -45,7 +53,7 @@ Output of the smoke run, in order: the device, the kernel build,
 kernel-vs-plain checks with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
 general-path runs, the property-package runs, the advanced-package runs,
-one JSON line
+the coupling runs, one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -498,7 +506,7 @@ def _write(ws, name, text):
 def write_deck(ws, *, name, shape, delr, top, botm, kfield, strt, icelltype,
                ss, sy, sto_periods, chd, wel_period, wel, tdis, ims, acc,
                rcha=None, oc_last=False, newton=None, linear_extra="",
-               extra_packages=(), oc_extra=""):
+               extra_packages=(), oc_extra="", wel_options=""):
     """Write an MF6 input deck for one DIS GWF model into ``ws``.
 
     ``kfield`` goes into an OPEN/CLOSE (BINARY) array file (a 52-byte
@@ -510,10 +518,12 @@ def write_deck(ws, *, name, shape, delr, top, botm, kfield, strt, icelltype,
     budget at the last step of each period; ``newton`` is the name file's
     NEWTON option line; ``linear_extra`` a further line of the IMS LINEAR
     block; ``extra_packages`` further name-file lines (their files written
-    by the caller); ``oc_extra`` further lines of the OC PERIOD 1 block."""
+    by the caller); ``oc_extra`` further lines of the OC PERIOD 1 block;
+    ``wel_options`` lines of the WEL OPTIONS block (no WEL file without
+    ``wel`` rows)."""
     nlay, nrow, ncol = shape
     packages = ["DIS6 m.dis", "IC6 m.ic", "NPF6 m.npf", "STO6 m.sto",
-                "CHD6 m.chd", "WEL6 m.wel"]
+                "CHD6 m.chd"] + (["WEL6 m.wel"] if wel else [])
     _write(ws, "mfsim.nam", f"""BEGIN TIMING
   TDIS6 sim.tdis
 END TIMING
@@ -595,7 +605,9 @@ BEGIN PERIOD 1
 END PERIOD
 """)
     wel_lines = "\n".join(f"  {k} {i} {j} {v!r}" for k, i, j, v in wel)
-    _write(ws, "m.wel", f"""BEGIN DIMENSIONS
+    _write(ws, "m.wel", f"""BEGIN OPTIONS
+{wel_options}END OPTIONS
+BEGIN DIMENSIONS
   MAXBOUND {len(wel)}
 END DIMENSIONS
 BEGIN PERIOD {wel_period}
@@ -2681,6 +2693,802 @@ def run_advanced(device, shape=BENCH_SHAPE):
     return launches
 
 
+# ----------------------------------------------------------------- coupling
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes(device):
+    return (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else 0)
+
+
+# the UZF columns of the coupling phase: one per top cell, land surface
+# (LANDFLAG) at the top less SURFDEP, the cell's bottom the layer-1 bottom
+UZF_SURFDEP = 1.0
+UZF_FLAGS = dict(nz=20, ietflag=1, iseepflag=1, igwetflag=1)
+
+
+def uzf_columns(shape):
+    """Column arrays of ``make_uzf`` for every top cell of the bench grid:
+    vks lognormal from the seed, clipped to [0.01, 1.0] (its largest value
+    sets the sub-step count: vks·eps/(θs−θr)·delt/dz·1.05 ≈ 25 at 1.0),
+    finf 1e-4, pet 2e-4, extinction 12 m below land surface."""
+    nlay, nrow, ncol = shape
+    n = nrow * ncol
+    rng = np.random.default_rng(2031)
+    grid = flagship_grid(*shape)
+    return dict(
+        node=np.arange(n), vks=np.clip(rng.lognormal(np.log(0.02), 1.0, n),
+                                       0.01, 1.0),
+        thtr=np.full(n, 0.05), thts=np.full(n, 0.35), thti=np.full(n, 0.15),
+        eps=np.full(n, 3.5), celtop=grid.top[:n] - UZF_SURFDEP,
+        celbot=grid.bot[:n], surfdep=np.full(n, UZF_SURFDEP),
+        area=grid.area[:n], finf=np.full(n, 1e-4), pet=np.full(n, 2e-4),
+        extdp=np.full(n, 12.0), extwc=np.full(n, 0.05))
+
+
+# the water table under the UZF columns needs a specific yield: in the
+# confined bench model (storage ss·b ≈ 7e-4) the march's uz_rise release
+# (θ − θr per metre of water-table rise) raises the head more than the rise
+# that released it, and the package-convergence passes diverge (on the CPU
+# at 4 x 128 x 128: 50 outer iterations a step, a 26 % budget error);
+# with SY 0.2 each pass gives back half the rise before
+UZF_STORAGE = dict(ss=1e-5, sy=0.2, iconvert=1)
+
+
+def uzf_base(device, shape):
+    """The bench model with convertible cells (ICELLTYPE 1, SY 0.2) and
+    without its recharge, which the UZF columns replace."""
+    args = flagship_args(*shape)
+    del args["rch"]
+    args.update(icelltype=1, storage=UZF_STORAGE)
+    return build_gwf("uzf", flagship_grid(*shape), device=device, **args)
+
+
+def counted_solves(sim):
+    """[(outer, inner)] of every solve of ``sim`` from now on (a step's
+    uzf_cc re-solves among them; a record keeps only the accepted one)."""
+    out = []
+    solve = sim.solution.solve_timestep
+
+    def counted(*args, **kwargs):
+        result = solve(*args, **kwargs)
+        out.append((result[1].outer_iterations, result[1].inner_iterations))
+        return result
+
+    sim.solution.solve_timestep = counted
+    return out
+
+
+@contextlib.contextmanager
+def timed_advances(device):
+    """Wall seconds (device work finished) and sub-steps of every UZF
+    march in the block."""
+    from modflow6_torch.models.gwf import uzf as uzf_mod
+    out = []
+    advance = uzf_mod.advance
+
+    def timed(*args, **kwargs):
+        sync(device)
+        t = time.perf_counter()
+        res = advance(*args, **kwargs)
+        sync(device)
+        out.append((time.perf_counter() - t, res.nsub))
+        return res
+
+    uzf_mod.advance = timed
+    try:
+        yield out
+    finally:
+        uzf_mod.advance = advance
+
+
+def budget_terms(table, names):
+    """{name: (rate in, rate out)} of a budget table's rows."""
+    out = {}
+    for line in table.splitlines():
+        words = line.split()
+        if words and words[0] in names:
+            out[words[0]] = tuple(words[1:3])
+    return out
+
+
+def run_uzf_memory(device, shape):
+    """(u1) UZF on every top cell of the bench grid through ``Simulation``
+    (3 steps of 5.0, CG with Jacobi, ``f64``); (u2) the same run again,
+    bitwise equal.  Returns ((u1)'s records, the stencil7 launches of both
+    runs)."""
+    from modflow6_torch.models.gwf import uzf as uzf_mod
+    runs, launches = [], 0
+    for label in ("u1", "u2"):
+        reset_peak(device)
+        t0 = time.perf_counter()
+        model = uzf_base(device, shape)
+        columns = uzf_mod.make_uzf(uzf_columns(shape), device=device,
+                                   **UZF_FLAGS)
+        sync(device)
+        build_s = time.perf_counter() - t0
+        sim = Simulation(Tdis((StressPeriod(15.0, 3, 1.0),)), model,
+                         ImsSettings(**BENCH))
+        sim.uzf = columns
+        solves = counted_solves(sim)
+        with timed_advances(device) as marches, \
+                counted_run() as counts:
+            t0 = time.perf_counter()
+            recs = sim.run()
+            sync(device)
+            seconds = time.perf_counter() - t0
+        disc = check_budget(f"coupling ({label})", sim, recs)
+        inner = sum(i for _, i in solves)
+        outers = [r.outer for r in recs]
+        inners = [r.inner for r in recs]
+        ms = seconds / inner * 1e3
+        terms = budget_terms(recs[-1].budget_table,
+                             ("UZF-GWRCH", "UZF-GWD", "UZF-GWET", "CHD",
+                              "WEL"))
+        print(f"coupling ({label}) uzf Simulation cg f64 cells="
+              f"{model.nodes} columns={columns.node.shape[0]} nz="
+              f"{columns.nz} steps=3 solves={len(solves)} "
+              f"inner_total_all_solves={inner} outer_total_all_solves="
+              f"{sum(o for o, _ in solves)} per_solve_outer_inner={solves} "
+              f"accepted_outers={outers} accepted_inners={inners} "
+              f"uzf_cc_resolves="
+              f"{[r.uzf_resolves for r in recs]} marches={len(marches)} "
+              f"nsub={sorted({n for _, n in marches})} "
+              f"ms_per_advance={[s * 1e3 for s, _ in marches]!r} "
+              f"seconds={seconds!r} ms_per_inner={ms!r} "
+              f"build_s={build_s!r} stencil7_launches={counts['launches']} "
+              f"plain_on_cuda={counts['plain_on_cuda']} "
+              f"budget_percent_discrepancy={disc!r} "
+              f"last_step_rates_in_out={terms} "
+              f"max_memory_allocated={peak_bytes(device)}")
+        if counts["launches"] < inner or counts["plain_on_cuda"]:
+            raise AssertionError("the UZF run did not multiply through the "
+                                 "stencil kernel")
+        if "UZF-GWRCH" not in terms or "UZF-GWET" not in terms:
+            raise AssertionError("the UZF budget terms are missing")
+        launches += counts["launches"]
+        runs.append(recs)
+    same = all(np.array_equal(p.head, q.head) for p, q in zip(*runs))
+    counts_same = [(r.outer, r.inner, r.uzf_resolves) for r in runs[0]] == \
+        [(r.outer, r.inner, r.uzf_resolves) for r in runs[1]]
+    print(f"coupling (u2) vs (u1): heads bitwise equal={same} counts "
+          f"equal={counts_same}")
+    if not (same and counts_same):
+        raise AssertionError("two card runs of the UZF model differ")
+    return runs[0], launches
+
+
+def write_uzf_file(ws, columns, periods, ncol):
+    """The UZF6 file of ``uzf_columns`` on a grid of ``ncol`` columns
+    (LANDFLAG 1 on every column) with one PERIOD block per entry of
+    ``periods``, each a FINF multiplier."""
+    nrow_ncol = columns["node"].shape[0]
+    ids = np.arange(1, nrow_ncol + 1)
+    with open(os.path.join(ws, "m.uzf"), "w") as f:
+        f.write("BEGIN OPTIONS\n  SIMULATE_ET\n  LINEAR_GWET\n"
+                "  SIMULATE_GWSEEP\nEND OPTIONS\nBEGIN DIMENSIONS\n"
+                f"  NUZFCELLS {nrow_ncol}\nEND DIMENSIONS\n"
+                "BEGIN PACKAGEDATA\n")
+        f.writelines(
+            f"  {u} 1 {i} {j} 1 0 {UZF_SURFDEP!r} {v!r} 0.05 0.35 0.15 "
+            "3.5\n" for u, i, j, v in zip(
+                ids, columns["node"] // ncol + 1, columns["node"] % ncol + 1,
+                columns["vks"].tolist()))
+        f.write("END PACKAGEDATA\n")
+        for kper, factor in enumerate(periods, 1):
+            f.write(f"BEGIN PERIOD {kper}\n")
+            f.writelines(f"  {u} {1e-4 * factor!r} 2e-4 12.0 0.05\n"
+                         for u in ids.tolist())
+            f.write("END PERIOD\n")
+    return ["UZF6 m.uzf"]
+
+
+def run_uzf_deck(device, memory_recs, shape):
+    """(u3) The model of (u1) written as a deck (UZF6 with a second period
+    of one step at twice the infiltration) through the command-line entry:
+    period 1 has (u1)'s counts and heads within DECK_FUSED_ATOL.  Returns
+    the run's stencil7 launches."""
+    from modflow6_torch.utils import mf6io
+    from modflow6_torch.utils.mf6io import loader as loader_mod
+    nlay, nrow, ncol = shape
+    with tempfile.TemporaryDirectory() as ws:
+        t0 = time.perf_counter()
+        files = write_uzf_file(ws, uzf_columns(shape), [1.0, 2.0], ncol)
+        write_flagship_deck(ws, nlay, nrow, ncol, rcha=None, icelltype=1,
+                            sy=UZF_STORAGE["sy"],
+                            tdis=[(15.0, 3, 1.0), (5.0, 1, 1.0)],
+                            extra_packages=files,
+                            oc_extra="  PRINT BUDGET ALL\n")
+        write_s = time.perf_counter() - t0
+        loads, builds = [], []
+        load = mf6io.load_simulation
+        build = loader_mod._build_uzf
+
+        def timed_load(*args, **kwargs):
+            t = time.perf_counter()
+            sim = load(*args, **kwargs)
+            sync(device)
+            loads.append(time.perf_counter() - t)
+            return sim
+
+        def timed_build(*args):
+            t = time.perf_counter()
+            out = build(*args)
+            sync(device)
+            builds.append(time.perf_counter() - t)
+            return out
+
+        mf6io.load_simulation = timed_load
+        loader_mod._build_uzf = timed_build
+        lst = os.path.join(ws, "cli.lst")
+        out = io.StringIO()
+        try:
+            with counted_run() as counts, contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                code = cli_main([ws, "--lst", lst]
+                                + ([] if torch.device(device).type == "cuda"
+                                   else ["--device", "cpu"]))
+                sync(device)
+                cli_s = time.perf_counter() - t0
+        finally:
+            mf6io.load_simulation = load
+            loader_mod._build_uzf = build
+        cli_counts = listing_counts(lst)
+        discs = [float(v) for v in re.findall(
+            r"PERCENT DISCREPANCY:\s*(\S+)", open(lst).read())]
+        layers = read_head_file(os.path.join(ws, "m.hds"))
+        saved = {}
+        for rec in layers:
+            saved.setdefault((rec["kper"], rec["kstp"]), []).append(
+                rec["data"])
+        err = float(np.abs(np.stack(saved[(1, 3)]).reshape(-1)
+                           - memory_recs[-1].head).max())
+        want = [(r.outer, r.inner) for r in memory_recs]
+        print(f"coupling (u3) uzf deck cli exit={code} written_s={write_s!r}"
+              f" wall_s={cli_s!r} load_s={loads!r} uzf_build_s={builds[:1]!r}"
+              f" period2_rebuild_s={builds[1:]!r} counts={cli_counts} "
+              f"(u1)={want} budget_percent_discrepancy_per_step={discs} "
+              f"max|h_period1 - h_(u1)|={err!r} bar={DECK_FUSED_ATOL!r} "
+              f"stencil7_launches={counts['launches']} "
+              f"stdout={out.getvalue().strip()!r}")
+        if code != 0 or "Normal termination" not in out.getvalue():
+            raise AssertionError("the UZF deck did not end normally")
+        if cli_counts[:3] != want or len(cli_counts) != 4:
+            raise AssertionError("the UZF deck's period-1 counts differ "
+                                 "from (u1)'s")
+        if not (err <= DECK_FUSED_ATOL and len(builds) == 2
+                and len(discs) == 4 and max(map(abs, discs)) < BUDGET_PERCENT):
+            raise AssertionError("the UZF deck failed its checks")
+        if counts["launches"] == 0 or counts["plain_on_cuda"]:
+            raise AssertionError("the UZF deck did not multiply through the "
+                                 "stencil kernel")
+    return counts["launches"]
+
+
+def coupling_movers(shape):
+    """The movers of the (m) runs on ``advanced_features``'s layout (about
+    320 at full width), as build_mvr dicts and as MVR6 records: extracting
+    wells into lakes (FACTOR 0.5), the Manning outlets into reaches along
+    the tributaries (UPTO), side-channel reaches into lakes (THRESHOLD),
+    the bench well into reach 0 (FACTOR 1.0), and the main stem's last
+    reach into lake 0 (EXCESS) and then lake 1 (UPTO): one provider entry
+    with two movers."""
+    nlay, nrow, ncol = shape
+    wells, lakes, path, ntrib, nmain, nside = advanced_layout(*shape)
+    main0, side0 = 2 * ntrib, 2 * ntrib + nmain
+    L = len(lakes)
+    movers = []
+
+    def add(provider, iprov, receiver, ircv, rule, value):
+        movers.append(dict(provider=provider, iprov=iprov,
+                           receiver=receiver, ircv=ircv, mvrtype=rule,
+                           value=value))
+
+    step = max(len(wells) // (L // 2), 1)
+    for j in range(L // 2):
+        add("maw", j * step, "lak", 2 * j, "factor", 0.5)
+    for j in range(L // 2):
+        add("lak", 2 * j + 1, "sfr", (j * 2 * ntrib) // (L // 2), "upto",
+            0.2)
+    for j in range(nside):
+        add("sfr", side0 + j, "lak", (2 * j + 1) % L, "threshold", 0.05)
+    add("wel", 0, "sfr", 0, "factor", 1.0)
+    add("sfr", side0 - 1, "lak", 0, "excess", 1.0)
+    add("sfr", side0 - 1, "lak", 1, "upto", 0.5)
+    names = dict(maw="MAW-1", lak="LAK-1", sfr="SFR-1", wel="WEL-1")
+    records = [f"  {names[m['provider']]} {m['iprov'] + 1} "
+               f"{names[m['receiver']]} {m['ircv'] + 1} "
+               f"{m['mvrtype'].upper()} {m['value']!r}" for m in movers]
+    return movers, records
+
+
+def mvr_model(device, shape):
+    """``advanced_model``'s model with the movers of ``coupling_movers``."""
+    grid, kfield = flagship_grid(*shape), flagship_kfield(*shape)
+    base = build_gwf("flagship", grid, device=device, **flagship_args(*shape))
+    maw, lak, sfr = advanced_specs(advanced_features(grid, kfield), grid,
+                                   kfield)
+    movers, _ = coupling_movers(shape)
+    return AugmentedGwfModel(base, maw=maw, lak=lak, sfr=sfr, mvr=movers)
+
+
+def mover_totals(model, x, x_old, delt):
+    """(Σ qto, Σ qfrom, the movers' budget terms summed) at x."""
+    ib, _ = model.boundary_state(x)
+    _, qto, qfrom = model.eval_movers(x, ib)
+    bud = model.advanced_budget(x, x_old, delt, False)
+    terms = {k: float(v.sum()) for k, v in bud.items() if "MVR" in k}
+    return (float(sum(v.sum() for v in qto.values())),
+            float(sum(v.sum() for v in qfrom.values())), terms)
+
+
+def eager_chain(mvr, avail, recv_sizes):
+    """The reference's mover chain as it reads, one mover at a time (a
+    gather, the rule, three indexed adds), run eagerly: the comparison for
+    the rounds of ``mvr.run_movers``."""
+    from modflow6_torch.constants import DZERO
+    qa = {k: v.clone() for k, v in avail.items()}
+    qto = {k: torch.zeros_like(v) for k, v in avail.items()}
+    qfrom = {k: avail[next(iter(avail))].new_zeros(n)
+             for k, n in recv_sizes.items()}
+    qps = []
+    for i in range(mvr.nmovers):
+        pk, pi = mvr.prov_pkg[i], mvr.prov_id[i]
+        rk, ri = mvr.recv_pkg[i], mvr.recv_id[i]
+        a, ta, v = qa[pk][pi], avail[pk][pi], mvr.value[i]
+        typ = mvr.mvrtype[i]
+        if typ == "factor":
+            qr = torch.minimum(torch.where(ta > DZERO, ta * v, DZERO), a)
+        elif typ == "excess":
+            qr = torch.clamp(a - v, min=DZERO)
+        elif typ == "threshold":
+            qr = torch.where(v > a, DZERO, v)
+        else:
+            qr = torch.minimum(a, v)
+        qr = torch.clamp(qr, min=DZERO)
+        qa[pk][pi] -= qr
+        qto[pk][pi] += qr
+        if rk in qfrom:
+            qfrom[rk][ri] += qr
+        qps.append(qr)
+    return torch.stack(qps), qto, qfrom
+
+
+def time_mover_chain(model, x):
+    """ms of one evaluation of the mover chain on the card in rounds
+    (``run_movers``) and one mover at a time (``eager_chain``), at the
+    availabilities of x, and whether the two agree bitwise."""
+    from modflow6_torch.models.gwf import mvr as mvr_mod
+    ib, _ = model.boundary_state(x)
+    avail = model.available_water(x, ib)
+    sizes = model._recv_sizes()
+    rounds = mvr_mod.run_movers(model.mvr, avail, sizes)
+    eager = eager_chain(model.mvr, avail, sizes)
+    same = torch.equal(rounds[0], eager[0]) and all(
+        torch.equal(r[k], e[k]) for r, e in zip(rounds[1:], eager[1:])
+        for k in r)
+    ms = back_to_back_ms(lambda: mvr_mod.run_movers(model.mvr, avail,
+                                                    sizes), launches=20,
+                         runs=5, warmup=3)
+    eager_ms = back_to_back_ms(lambda: eager_chain(model.mvr, avail, sizes),
+                               launches=2, runs=3, warmup=1)
+    return ms, eager_ms, same
+
+
+def run_mvr_memory(device, shape):
+    """(m1) The advanced phase's model with about 320 movers through
+    ``Simulation`` (3 steps of 5.0, BiCGSTAB with Jacobi, ``f64``); (m2)
+    the same run again, bitwise equal; neither launches stencil7.  Returns
+    (m1)'s records."""
+    runs = []
+    for label in ("m1", "m2"):
+        reset_peak(device)
+        t0 = time.perf_counter()
+        model = mvr_model(device, shape)
+        sync(device)
+        build_s = time.perf_counter() - t0
+        sim, recs, seconds, counts = simulate(model, [(15.0, 3, 1.0)],
+                                              advanced_settings())
+        disc = check_budget(f"coupling ({label})", sim, recs)
+        inner, outers, inners, ms = totals(recs, seconds)
+        x = torch.as_tensor(recs[-1].head, device=device)
+        x_old = torch.as_tensor(recs[-2].head, device=device)
+        qto, qfrom, terms = mover_totals(model, x, x_old, 5.0)
+        rel = abs(qto - qfrom) / max(abs(qto), 1e-300)
+        table = budget_terms(recs[-1].budget_table,
+                             ("WEL", "WEL-TO-MVR", "MAW", "LAK", "SFR"))
+        print(f"coupling ({label}) mvr Simulation bicgstab f64 rows="
+              f"{model.nodes} movers={model.mvr.nmovers} rounds="
+              f"{len(model.mvr.rounds)} steps=3 inner_total={inner} "
+              f"outers={outers} inners={inners} seconds={seconds!r} "
+              f"ms_per_inner={ms!r} build_s={build_s!r} "
+              f"stencil7_launches={counts['launches']} "
+              f"budget_percent_discrepancy={disc!r} model_rates_in_out="
+              f"{table} mover_terms={terms} sum_qto={qto!r} "
+              f"sum_qfrom={qfrom!r} relative={rel!r} "
+              f"max_memory_allocated={peak_bytes(device)}")
+        if counts["launches"] or counts["plain_on_cuda"]:
+            raise AssertionError("the mover run went through the stencil")
+        if not rel <= 1e-12 or "WEL-TO-MVR" not in table:
+            raise AssertionError("the movers' totals disagree")
+        runs.append(recs)
+    same = all(np.array_equal(p.head, q.head) for p, q in zip(*runs))
+    counts_same = [(r.outer, r.inner) for r in runs[0]] == [
+        (r.outer, r.inner) for r in runs[1]]
+    print(f"coupling (m2) vs (m1): heads and feature rows bitwise equal="
+          f"{same} counts equal={counts_same}")
+    if not (same and counts_same):
+        raise AssertionError("two card runs of the mover model differ")
+    if torch.device(device).type == "cuda":
+        ms, eager_ms, same = time_mover_chain(model, x)
+        print(f"coupling (m) mover chain, {model.mvr.nmovers} movers: "
+              f"rounds ms={ms!r} one mover at a time ms={eager_ms!r} "
+              f"bitwise equal={same}")
+        if not same:
+            raise AssertionError("the rounds disagree with the mover-by-"
+                                 "mover chain")
+    return runs[0]
+
+
+def run_mvr_deck(device, memory_recs, shape):
+    """(m3) The model of (m1) written as a deck (MAW6, LAK6, SFR6 and
+    MVR6, the MOVER option on WEL, MAW, LAK and SFR) through
+    ``load_simulation`` and ``Simulation``: heads within DECK_FUSED_ATOL
+    of (m1)'s."""
+    nlay, nrow, ncol = shape
+    grid = flagship_grid(*shape)
+    _, records = coupling_movers(shape)
+    with tempfile.TemporaryDirectory() as ws:
+        files = write_advanced_files(ws, advanced_features(
+            grid, flagship_kfield(*shape)), grid)
+        for name in ("m.maw", "m.lak", "m.sfr"):
+            path = os.path.join(ws, name)
+            text = open(path).read()
+            _write(ws, name, "BEGIN OPTIONS\n  MOVER\nEND OPTIONS\n" + text)
+        _write(ws, "m.mvr", "BEGIN DIMENSIONS\n  MAXMVR "
+               f"{len(records)}\n  MAXPACKAGES 4\nEND DIMENSIONS\n"
+               "BEGIN PACKAGES\n  WEL-1\n  MAW-1\n  LAK-1\n  SFR-1\n"
+               "END PACKAGES\nBEGIN PERIOD 1\n" + "\n".join(records)
+               + "\nEND PERIOD\n")
+        write_flagship_deck(ws, nlay, nrow, ncol, acc="BICGSTAB",
+                            tdis=[(15.0, 3, 1.0)], wel_options="  MOVER\n",
+                            extra_packages=files + ["MVR6 m.mvr"])
+        t0 = time.perf_counter()
+        sim = load_simulation(ws, device=device)
+        sync(device)
+        load_s = time.perf_counter() - t0
+        with counted_run() as counts:
+            t0 = time.perf_counter()
+            recs = sim.run()
+            sync(device)
+            run_s = time.perf_counter() - t0
+    err = max(float(np.abs(g.head - w.head).max())
+              for g, w in zip(recs, memory_recs))
+    counts_equal = [(r.outer, r.inner) for r in recs] == [
+        (r.outer, r.inner) for r in memory_recs]
+    print(f"coupling (m3) mvr deck load_s={load_s!r} run_s={run_s!r} "
+          f"movers={sim.model.mvr.nmovers} outers={[r.outer for r in recs]} "
+          f"inners={[r.inner for r in recs]} counts equal to (m1)="
+          f"{counts_equal} max|x - x_(m1)|={err!r} bar={DECK_FUSED_ATOL!r} "
+          f"budget_percent_discrepancy={sim.budget.percent_discrepancy()!r}"
+          f" stencil7_launches={counts['launches']}")
+    if not (all(r.converged for r in recs) and err <= DECK_FUSED_ATOL):
+        raise AssertionError("the mover deck failed its checks")
+    if counts["launches"]:
+        raise AssertionError("the mover deck went through the stencil")
+
+
+def two_model_args(shape):
+    """(west, east) build_gwf arguments of the bench model split down the
+    middle column, each 4 x nrow x ncol/2, and the exchange arrays: one
+    pair per layer and row joining west column ncol/2 to east column 1
+    (ihc 1, cl1 = cl2 = 5, hwva 10), the bench connection across that
+    face."""
+    nlay, nrow, ncol = shape
+    half = ncol // 2
+    k = flagship_kfield(*shape).reshape(nlay, nrow, ncol)
+    st = flagship_stresses(nrow, ncol)
+    common = dict(strt=40.0, storage={"ss": 1e-5, "iconvert": 0})
+    west = dict(k=k[:, :, :half].reshape(-1), **common,
+                chd=[(i * half, 45.0) for i in range(nrow)],
+                rch=[(n, 1e-4) for n in range(nrow * half)])
+    well = st["wel"][0][0]
+    east = dict(k=k[:, :, half:].reshape(-1), **common,
+                chd=[(i * half + half - 1, 35.0) for i in range(nrow)],
+                wel=[((well // ncol) * half + well % ncol - half, -500.0)],
+                rch=[(n, 1e-4) for n in range(nrow * half)])
+    lay, row = np.divmod(np.arange(nlay * nrow), nrow)
+    base = lay * nrow * half + row * half
+    pairs = dict(node1=base + half - 1, node2=base, ihc=np.ones_like(base),
+                 cl1=np.full(base.size, 5.0), cl2=np.full(base.size, 5.0),
+                 hwva=np.full(base.size, 10.0),
+                 angldegx=np.zeros(base.size))
+    return west, east, pairs
+
+
+def merged_order(shape):
+    """For each node of the single bench model, its row in the merged
+    (west, east) model."""
+    nlay, nrow, ncol = shape
+    half = ncol // 2
+    k, i, j = np.unravel_index(np.arange(nlay * nrow * ncol),
+                               (nlay, nrow, ncol))
+    west = (k * nrow + i) * half + j
+    east = nlay * nrow * half + (k * nrow + i) * half + j - half
+    return np.where(j < half, west, east)
+
+
+def run_two_models(device, shape):
+    """(x1) The bench grid as west and east models joined by GWF6-GWF6
+    pairs, merged and run over the gather through ``Simulation`` (CG with
+    Jacobi, ``f64``) against the single structured model's run: equal
+    outer counts, heads within 1e-6, no stencil7 launch in the merged run.
+    Returns (x1)'s records."""
+    from modflow6_torch.models.gwf import exchange
+    half = shape[2] // 2
+    reset_peak(device)
+    single = flagship(*shape, device)
+    settings = ImsSettings(**BENCH)
+    _, srecs, sseconds, scounts = simulate(single, [(15.0, 3, 1.0)],
+                                           settings)
+    single_peak = peak_bytes(device)
+    del single
+    west, east, pairs = two_model_args(shape)
+    reset_peak(device)
+    t0 = time.perf_counter()
+    grid = flagship_grid(shape[0], shape[1], half)
+    members = [build_gwf(name, grid, device=device, **kw)
+               for name, kw in (("west", west), ("east", east))]
+    merged = exchange.merge_gwf_models(
+        members, [exchange.GwfGwfExchange(0, 1, pairs)])
+    sync(device)
+    merge_s = time.perf_counter() - t0
+    sim, recs, seconds, counts = simulate(merged, [(15.0, 3, 1.0)],
+                                          settings)
+    disc = check_budget("coupling (x1)", sim, recs)
+    order = merged_order(shape)
+    err = max(float(np.abs(r.head[order] - s.head).max())
+              for r, s in zip(recs, srecs))
+    inner, outers, inners, ms = totals(recs, seconds)
+    s_inner, s_outers, s_inners, s_ms = totals(srecs, sseconds)
+    print(f"coupling (x1) two models merged: cells={merged.nodes} "
+          f"edges={merged.topo.nedges} pairs={pairs['node1'].size} "
+          f"K={merged.dtopo.max_degree} merge_s={merge_s!r} cg f64 "
+          f"inner_total={inner} outers={outers} inners={inners} "
+          f"seconds={seconds!r} ms_per_inner={ms!r} "
+          f"stencil7_launches={counts['launches']} budget_percent_"
+          f"discrepancy={disc!r}; single structured model: inner_total="
+          f"{s_inner} outers={s_outers} inners={s_inners} seconds="
+          f"{sseconds!r} ms_per_inner={s_ms!r} stencil7_launches="
+          f"{scounts['launches']} max_memory_allocated={single_peak}; "
+          f"max|h_merged - h_single|={err!r} bar=1e-06 "
+          f"max_memory_allocated={peak_bytes(device)}")
+    if counts["launches"] or counts["plain_on_cuda"]:
+        raise AssertionError("the merged run went through the stencil")
+    if outers != s_outers or not err <= 1e-6:
+        raise AssertionError("the merged run disagrees with the single "
+                             "model's")
+    return recs
+
+
+def write_two_model_deck(ws, shape):
+    """The (x1) models as a deck: west/ and east/ each a bench-model deck
+    of half the width (K from the bench field, RCHA 1e-4, CHD on the outer
+    column, the well in the east), mfsim.nam with both models, the
+    GWF6-GWF6 exchange file and one IMS solution; the merged heads go to
+    west/m.hds."""
+    nlay, nrow, ncol = shape
+    half = ncol // 2
+    west, east, pairs = two_model_args(shape)
+    well = east["wel"][0][0]
+    for name, kw, chd_col in (("west", west, 1), ("east", east, half)):
+        sub = os.path.join(ws, name)
+        os.makedirs(sub)
+        write_flagship_deck(
+            sub, nlay, nrow, half, name=name.upper(),
+            kfield=kw["k"], chd=[(1, i + 1, chd_col, kw["chd"][0][1])
+                                 for i in range(nrow)],
+            wel=[(1, (well % (nrow * half)) // half + 1, well % half + 1,
+                  -500.0)] if name == "east" else [],
+            oc_last=name == "west")
+    _write(ws, "mfsim.nam", """BEGIN TIMING
+  TDIS6 sim.tdis
+END TIMING
+BEGIN MODELS
+  GWF6 west/m.nam WEST
+  GWF6 east/m.nam EAST
+END MODELS
+BEGIN EXCHANGES
+  GWF6-GWF6 we.exg WEST EAST
+END EXCHANGES
+BEGIN SOLUTIONGROUP 1
+  IMS6 west/sim.ims WEST EAST
+END SOLUTIONGROUP
+""")
+    _write(ws, "sim.tdis", open(os.path.join(ws, "west", "sim.tdis")).read())
+    lay, rest = np.divmod(pairs["node1"], nrow * half)
+    row = rest // half
+    lines = "".join(f"  {k + 1} {i + 1} {half} {k + 1} {i + 1} 1 1 5.0 5.0 "
+                    "10.0\n" for k, i in zip(lay.tolist(), row.tolist()))
+    _write(ws, "we.exg", f"BEGIN DIMENSIONS\n  NEXG {lay.size}\n"
+           f"END DIMENSIONS\nBEGIN EXCHANGEDATA\n{lines}END EXCHANGEDATA\n")
+
+
+def run_two_model_deck(device, memory_recs, shape):
+    """(x2) The two-model deck through the command-line entry: equal
+    counts and the merged heads within DECK_FUSED_ATOL of (x1)'s."""
+    with tempfile.TemporaryDirectory() as ws:
+        write_two_model_deck(ws, shape)
+        lst = os.path.join(ws, "cli.lst")
+        out = io.StringIO()
+        with counted_run() as counts, contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            code = cli_main([ws, "--lst", lst]
+                            + ([] if torch.device(device).type == "cuda"
+                               else ["--device", "cpu"]))
+            sync(device)
+            cli_s = time.perf_counter() - t0
+        cli_counts = listing_counts(lst)
+        heads = read_head_file(os.path.join(ws, "west", "m.hds"))
+        grb = [f for f in os.listdir(os.path.join(ws, "west"))
+               if f.endswith(".grb")]
+    want = [(r.outer, r.inner) for r in memory_recs]
+    err = float(np.abs(heads[-1]["data"].reshape(-1)
+                       - memory_recs[-1].head).max()) if heads else np.inf
+    print(f"coupling (x2) two-model deck cli exit={code} wall_s={cli_s!r} "
+          f"counts={cli_counts} (x1)={want} heads_records="
+          f"{[(r['kper'], r['kstp'], r['data'].shape) for r in heads]} "
+          f"grb_files={grb} max|h - h_(x1)|={err!r} "
+          f"bar={DECK_FUSED_ATOL!r} stencil7_launches={counts['launches']} "
+          f"stdout={out.getvalue().strip()!r}")
+    if code != 0 or cli_counts != want or not err <= DECK_FUSED_ATOL \
+            or grb or counts["launches"]:
+        raise AssertionError("the two-model deck failed its checks")
+
+
+def small_coupling_models(dev):
+    """(name, run) of the small coupling twins: ``run()`` returns (x on
+    the CPU, [(outer, inner)], converged, settings)."""
+    from modflow6_torch.models.gwf import exchange, uzf as uzf_mod
+    tight = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
+                 inner_rclose=1e-9, inner_maximum=600)
+    bic = dict(tight, outer_maximum=200, inner_maximum=500,
+               linear_acceleration="bicgstab")
+
+    def uzf_twin():
+        # a 1 x 3 x 5 model mounded near land surface: seepage and
+        # groundwater ET active under the columns
+        g = DisGrid.create(1, 3, 5, 10.0, 10.0, 12.0, np.zeros((1, 3, 5)))
+        model = build_gwf("uzf", g, k=0.05, strt=10.5, device=dev,
+                          storage={"ss": 1e-4, "iconvert": 0},
+                          chd=[(0, 10.0), (10, 9.5)])
+        sim = Simulation(Tdis((StressPeriod(20.0, 4, 1.2),)), model,
+                         ImsSettings(**tight))
+        rng = np.random.default_rng(3)
+        sim.uzf = uzf_mod.make_uzf(dict(
+            node=np.arange(1, 15), vks=rng.uniform(0.05, 0.5, 14),
+            thtr=np.full(14, 0.05), thts=np.full(14, 0.35),
+            thti=np.full(14, 0.12), eps=np.full(14, 3.5),
+            celtop=np.full(14, 11.0), celbot=np.zeros(14),
+            surfdep=np.full(14, 0.5), area=np.full(14, 100.0),
+            finf=rng.uniform(0.01, 0.05, 14), pet=np.full(14, 0.01),
+            extdp=np.full(14, 3.0), extwc=np.full(14, 0.06)), nz=10,
+            device=dev, ietflag=1, iseepflag=1, igwetflag=1)
+        recs = sim.run()
+        return (torch.as_tensor(recs[-1].head),
+                [(r.outer, r.inner, r.uzf_resolves) for r in recs],
+                all(r.converged for r in recs), tight)
+
+    def chain_twin():
+        # tests/test_mvr.py:100: SFR's last reach into a lake, the lake's
+        # specified outlet into a well
+        g = DisGrid.create(1, 1, 8, 100.0, 100.0, 50.0, np.zeros((1, 1, 8)))
+        base = build_gwf("m", g, k=5.0, strt=30.0, device=dev,
+                         chd=[(0, 30.0), (7, 30.0)], drn=[(3, 35.0, 2.0)])
+        reaches = [dict(node=r + 2, cond=0.0, strtop=40.0 + 0.1 * (4 - r),
+                        width=3.0, rough=0.03, slope=1e-3, length=100.0,
+                        strt=40.3 + 0.1 * (4 - r),
+                        inflow=2.0 if r == 0 else 0.0,
+                        upstream=[(r - 1, 1.0)] if r > 0 else [])
+                   for r in range(4)]
+        model = AugmentedGwfModel(
+            base, maw=build_maw([dict(radius=0.2, strt=30.0, rate=0.0,
+                                      connections=[(6, 10.0)])], g),
+            lak=build_lak([dict(strt=20.0, surf_area=1e4, bottom=15.0,
+                                connections=[(5, 1e-6, 18.0)])],
+                          [dict(lake=0, to=-1, type="specified",
+                                rate=0.8)]),
+            sfr=build_sfr(reaches),
+            mvr=[dict(provider="sfr", iprov=3, receiver="lak", ircv=0,
+                      mvrtype="factor", value=1.0),
+                 dict(provider="lak", iprov=0, receiver="maw", ircv=0,
+                      mvrtype="factor", value=1.0)])
+        return solve_steps(model, bic, 20, 2e4)
+
+    def exchange_twin():
+        # tests/test_exchange_mvr.py:64: A's terminal reach moved across
+        # the exchange into B's first reach
+        g = DisGrid.create(1, 1, 4, 100.0, 100.0, 50.0, np.zeros((1, 1, 4)))
+        members = [build_gwf(n, g, k=1e-8, strt=30.0, device=dev,
+                             chd=[(0, 30.0)]) for n in ("a", "b")]
+        merged = exchange.merge_gwf_models(members, [
+            exchange.GwfGwfExchange(0, 1, [exchange.ExchangePair(
+                3, 0, ihc=1, cl1=50.0, cl2=50.0, hwva=100.0)])])
+        reach = dict(cond=0.0, width=3.0, rough=0.03, slope=1e-3,
+                     length=100.0)
+        reaches = []
+        for m, off in enumerate(merged.grid.offsets):
+            r0 = 2 * m
+            reaches += [dict(node=int(off) + 1, strtop=40.0, strt=40.1,
+                             inflow=2.0 if m == 0 else 0.0, **reach),
+                        dict(node=int(off) + 2, strtop=39.9, strt=40.0,
+                             upstream=[(r0, 1.0)], **reach)]
+        model = AugmentedGwfModel(merged, sfr=build_sfr(reaches), mvr=[
+            dict(provider="sfr", iprov=1, receiver="sfr", ircv=2,
+                 mvrtype="factor", value=1.0)])
+        return solve_steps(model, bic, 10, 2e3)
+
+    def solve_steps(model, s, steps, delt):
+        sol = NumericalSolution(model, ImsSettings(**s))
+        x, counts, conv = model.strt, [], True
+        for kstp in range(1, steps + 1):
+            x, info, _ = sol.solve_timestep(x, delt, kstp=kstp, iss=False)
+            counts.append((info.outer_iterations,))
+            conv = conv and info.converged
+        return x.cpu(), counts, conv, s
+
+    return [("uzf seepage and gw et", uzf_twin),
+            ("sfr-lak-maw mover chain", chain_twin),
+            ("two-model exchange mover", exchange_twin)]
+
+
+def check_small_coupling(device, names=None):
+    """Small coupling twins on the card against the CPU: a UZF column model
+    with seepage and groundwater ET (CG: equal outer and inner counts and
+    uzf_cc passes, heads within CARD_CPU_ATOL), the reference's SFR→LAK→MAW
+    mover chain and a two-model SFR→SFR exchange mover (BiCGSTAB: equal
+    outer counts, heads within 10 × outer_dvclose)."""
+    cpu = dict(small_coupling_models("cpu"))
+    for name, run in small_coupling_models(device):
+        if names is not None and name not in names:
+            continue
+        h, k, c, s = run()
+        h0, k0, c0, _ = cpu[name]()
+        err = float((h - h0).abs().max())
+        cg = s.get("linear_acceleration", "cg") == "cg"
+        bar = CARD_CPU_ATOL if cg else CLOSURE_FACTOR * s["outer_dvclose"]
+        print(f"small {name}: card counts={k} converged={c}; cpu counts={k0}"
+              f" converged={c0}; max|dx|={err!r} bar={bar!r}")
+        if not (c and c0 and k == k0 and err <= bar):
+            raise AssertionError(f"small {name}: the card disagrees with "
+                                 "the CPU")
+
+
+def run_coupling(device, shape=BENCH_SHAPE):
+    """The coupling phase: (u1)-(u3) UZF, (m1)-(m3) MVR, (x1)-(x2) two
+    models, at ``shape`` (the small twins run in the small phase).
+    Returns the stencil7
+    launches of the UZF runs, which must be some: the UZF model keeps its
+    grid shape."""
+    recs, launches = run_uzf_memory(device, shape)
+    launches += run_uzf_deck(device, recs, shape)
+    run_mvr_deck(device, run_mvr_memory(device, shape), shape)
+    run_two_model_deck(device, run_two_models(device, shape), shape)
+    if not launches:
+        raise AssertionError("the UZF runs launched no stencil7 kernel")
+    return launches
+
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -2767,7 +3575,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
-          "unstructured", "properties", "advanced")
+          "unstructured", "properties", "advanced", "coupling")
 
 
 def main():
@@ -2819,6 +3627,7 @@ def main():
         check_small_deck(device)
         check_small_newton(device)
         check_small_general(device)
+        check_small_coupling(device)
     if "bench" in phases:
         launches["fused"], _, _, mixed_inners, _ = run_bench(device, "mixed")
         f64_launches, fused_head, kiters, inners, _ = run_bench(device, "f64")
@@ -2850,6 +3659,8 @@ def main():
         launches["properties"] = run_properties(device, fused_head)
     if "advanced" in phases:
         advanced_launches = run_advanced(device)
+    if "coupling" in phases:
+        launches["coupling"] = run_coupling(device)
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -2871,6 +3682,7 @@ def main():
         "launches_general_assembly_path": launches["general"],
         "launches_properties_path": launches["properties"],
         "launches_advanced_path": advanced_launches,
+        "launches_coupling_path": launches["coupling"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

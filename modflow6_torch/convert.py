@@ -40,9 +40,15 @@ Keys of ``arrays``:
 - with MAW, LAK or SFR rows: ``maw_{field}``, ``lak_{field}``,
   ``sfr_{field}`` for the fields of ``FEATURE_FIELDS`` (the reference's
   ``MawData``, ``LakData`` and ``SfrData``, ``augmented_state`` lists them
-  for either package's model); ``from_reference`` then returns an
-  ``AugmentedGwfModel`` on the base model, and raises where the slots it
-  builds differ from the given ones.
+  for either package's model), and with movers ``mvr_{field}`` for the
+  fields of the reference's ``MvrData``; ``from_reference`` then returns
+  an ``AugmentedGwfModel`` on the base model, and raises where the slots
+  it builds differ from the given ones;
+- a merged model (several models joined by GWF6-GWF6 exchanges) is a
+  model on the general path whose topology holds the exchange pairs as
+  edges: its ``offsets`` (the first node of each member) make its grid a
+  ``MergedGrid`` with the merged topology, for ``split_heads`` and the
+  output files.
 
 ``npf_options`` and ``sto_options`` hold the fields of the reference's
 ``NpfOptions`` and ``StoOptions`` (``inewton`` and ``satomega`` among
@@ -66,7 +72,10 @@ from . import resolve_device
 from .models.discretization import DisGrid, DisuGrid, DisvGrid
 from .models.gwf import bnd, csub as csub_mod, gnc as gnc_mod, npf, sto
 from .models.gwf import xt3d as xt3d_mod
+from .models.discretization.topology import Topology
 from .models.gwf.advanced import AugmentedGwfModel
+from .models.gwf.exchange import MergedGrid
+from .models.gwf.uzf import COLUMN_FIELDS, make_uzf
 from .models.gwf.buy import make_buy
 from .models.gwf.vsc import make_vsc
 from .models.gwf.model import GwfModel, PackageData
@@ -98,6 +107,8 @@ FEATURE_FIELDS = {
             "xs_station", "xs_height", "xs_rf", "xs_rect", "up_pair_r",
             "up_pair_u", "up_pair_f", "up_pair_slot", "nreaches", "div_src",
             "div_to", "div_rule"),
+    "mvr": ("value", "prov_pkg", "prov_id", "recv_pkg", "recv_id",
+            "mvrtype"),
 }
 _DERIVED = ("slot_cw", "slot_wc", "slot_cl", "slot_lc", "slot_cr", "slot_rc",
             "active", "out_slot", "up_pair_r", "up_pair_u", "up_pair_f",
@@ -202,6 +213,17 @@ def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
         sto_arrays=sto_arrays, condsat3=condsat3, grid=grid, topo=topo,
         wetdry=f64("wetdry") if "wetdry" in arrays else None,
         **options, **extra, **packages)
+    if "offsets" in arrays:
+        model.topo = Topology(**{key: arrays[key] for key in (
+            "edge_n", "edge_m", "ihc", "cl1", "cl2", "hwva", "anglex")},
+            nodes=len(arrays["strt"]),
+            direction=np.full(len(arrays["edge_n"]), -1, np.int32))
+        model.grid = MergedGrid(
+            nodes=len(arrays["strt"]), area=np.asarray(arrays["area"]),
+            top=np.asarray(arrays["top"]), bot=np.asarray(arrays["bot"]),
+            idomain=np.asarray(arrays["ibound0"]),
+            shape=(len(arrays["strt"]),),
+            offsets=np.asarray(arrays["offsets"]))
     specs = {pkg: _prefixed(arrays, pkg + "_") for pkg in FEATURE_FIELDS
              if any(key.startswith(pkg + "_") for key in arrays)}
     return _augmented(model, specs) if specs else model
@@ -237,7 +259,9 @@ def augmented_state(model) -> dict:
 # host values of the data classes that are not arrays
 _META = dict(out_type=tuple, out_lake=tuple, out_to=tuple, div_src=tuple,
              div_to=tuple, div_rule=tuple, nwells=int, nlakes=int,
-             noutlets=int, nreaches=int, storage=bool, convfact=float)
+             noutlets=int, nreaches=int, storage=bool, convfact=float,
+             prov_pkg=tuple, prov_id=tuple, recv_pkg=tuple, recv_id=tuple,
+             mvrtype=tuple)
 
 
 def _meta(key, value):
@@ -248,10 +272,22 @@ def _meta(key, value):
         else kind(np.asarray(value))
 
 
+def _movers(spec):
+    """The ``build_mvr`` movers of ``mvr_`` fields."""
+    m = {key: _meta(key, value) for key, value in spec.items()}
+    return [dict(provider=p, iprov=i, receiver=r, ircv=j, mvrtype=t,
+                 value=float(v))
+            for p, i, r, j, t, v in zip(m["prov_pkg"], m["prov_id"],
+                                        m["recv_pkg"], m["recv_id"],
+                                        m["mvrtype"], np.asarray(m["value"]))]
+
+
 def _augmented(base, specs):
-    """The augmented model of ``base`` from feature fields; the fields
-    that it derives must equal the given ones."""
-    model = AugmentedGwfModel(base, **{
+    """The augmented model of ``base`` from feature and mover fields; the
+    fields that it derives must equal the given ones."""
+    specs = dict(specs)
+    movers = _movers(specs.pop("mvr")) if "mvr" in specs else None
+    model = AugmentedGwfModel(base, mvr=movers, **{
         pkg: {key: _meta(key, value) for key, value in spec.items()
               if key not in _DERIVED}
         for pkg, spec in specs.items()})
@@ -301,7 +337,8 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
     - ``period_data``: {kper: {package: the arrays of its data class's
       fields, in their order ((node, value, mask) for chd, wel and rch)}};
     - ``oc``: {kper: {(verb, what): spec}} or None; ``fail_fast``;
-    - optional ``tvk``, ``tvs``: {kper: [(node, PROP, value)]}.
+    - optional ``tvk``, ``tvs``: {kper: [(node, PROP, value)]};
+    - optional ``uzf``: ``uzf_state`` of the reference's UZF columns.
     """
     device = resolve_device(device)
     grid = _GRIDS[state.get("grid_class", "dis")].create(**state["grid"])
@@ -318,6 +355,9 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
     sim.fail_fast = bool(state["fail_fast"])
     sim.tvk = dict(state.get("tvk") or {})
     sim.tvs = dict(state.get("tvs") or {})
+    if state.get("uzf") is not None:
+        u = state["uzf"]
+        sim.uzf = make_uzf(u["columns"], device=device, **u["flags"])
     for kper, pkgs in state["period_data"].items():
         sim.period_data[int(kper)] = PackageData(**{
             pkg: _package(_BOUNDS[pkg], dict(zip(
@@ -325,3 +365,13 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
                 device)
             for pkg, values in pkgs.items()})
     return sim
+
+
+def uzf_state(uzf) -> dict:
+    """The ``uzf`` entry of ``simulation_from_reference``'s state from
+    either package's UZF columns: {"columns": {field: array}, "flags":
+    {nz, ietflag, iseepflag, igwetflag}}."""
+    return dict(columns={k: np.asarray(_host(getattr(uzf, k)))
+                         for k in COLUMN_FIELDS},
+                flags={k: int(getattr(uzf, k)) for k in
+                       ("nz", "ietflag", "iseepflag", "igwetflag")})

@@ -253,3 +253,24 @@ class Topology:
         deg = (np.bincount(self.edge_n, minlength=self.nodes)
                + np.bincount(self.edge_m, minlength=self.nodes))
         return np.bincount(deg)
+
+
+def concat_topologies(topos, node_offsets) -> Topology:
+    """Concatenate disjoint topologies (multi-model coupling into one
+    system): the reference's ``concat_topologies``, the edges of each
+    shifted by its node offset, in the given order."""
+    parts_n, parts_m = [], []
+    for t, off in zip(topos, node_offsets):
+        parts_n.append(t.edge_n.astype(np.int64) + off)
+        parts_m.append(t.edge_m.astype(np.int64) + off)
+    return Topology(
+        nodes=int(sum(t.nodes for t in topos)),
+        edge_n=np.concatenate(parts_n).astype(np.int32),
+        edge_m=np.concatenate(parts_m).astype(np.int32),
+        ihc=np.concatenate([t.ihc for t in topos]),
+        cl1=np.concatenate([t.cl1 for t in topos]),
+        cl2=np.concatenate([t.cl2 for t in topos]),
+        hwva=np.concatenate([t.hwva for t in topos]),
+        direction=np.concatenate([t.direction for t in topos]),
+        anglex=np.concatenate([t.anglex for t in topos]),
+    )

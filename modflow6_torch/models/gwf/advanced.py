@@ -3,8 +3,12 @@
 Port of modflow6_tpu/models/gwf/advanced.py (reference gwf-maw.f90,
 gwf-lak.f90, gwf-sfr.f90 behavioural cores): ``AugTopo``,
 ``_build_ext_table``, ``MawData``/``build_maw``, ``LakData``/``build_lak``,
-``SfrData``/``build_sfr`` and ``AugmentedGwfModel``, without MVR (``mvr=``,
-``eval_movers`` and ``mvr_budget`` raise).
+``SfrData``/``build_sfr`` and ``AugmentedGwfModel`` with MVR's movers
+(``mvr=``, ``eval_movers``, ``mvr_budget``; the rules in ``mvr.py``): the
+features' and the standard packages' available water goes through the
+mover chain at every assembly and budget, the taken water (``qto``) leaves
+the providers' routing and the delivered water (``qfrom``) enters the
+receivers' rows, Picard-lagged as in the reference.
 
 The solution vector is ``x = [head(N), feature rows(R)]``.  The base
 model's neighbour table is widened with feature↔cell and feature↔feature
@@ -46,6 +50,7 @@ from ...ops import cxs
 from ...ops.scatter import AddPlan, running_count
 from ...ops.smoothing import (quadratic_saturation, sq_saturation,
                               sq_saturation_derivative)
+from . import mvr as mvr_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,8 +163,9 @@ class MawData:
         stay_shut = on & self.shut & ~(q_pot.abs() > self.shut_max)
         return shut_now | stay_shut
 
-    def terms(self, x, x_old, N, delt, iss, diag, offf, rhs):
-        """Add the MAW equations into the augmented system (maw_fc)."""
+    def terms(self, x, x_old, N, delt, iss, diag, offf, rhs, qfrom=None):
+        """Add the MAW equations into the augmented system (maw_fc);
+        ``qfrom``: f64[W] mover inflow per well (the maw_fc mover block)."""
         W = self.nwells
         c = self.cond * self.active[self.conn_well]
         # gwf row: flux q = c (hw - h)
@@ -182,6 +188,8 @@ class MawData:
             qfw, dqfw = self.flowing_well_q(x, N)
             diag[wrow] += dqfw * act
             rhs[wrow] += (-qfw + dqfw * x[wrow]) * act
+        if qfrom is not None:
+            rhs[wrow] += -qfrom * act
 
     def rate_actual(self, x, N):
         """Simulated pumping rate per well at the current iterate
@@ -249,10 +257,10 @@ class MawData:
             avail = avail + torch.clamp(-qfw, min=DZERO)
         return avail * self.active
 
-    def budget(self, x, x_old, N, delt, iss):
+    def budget(self, x, x_old, N, delt, iss, qfrom=None):
         """Per-connection and per-well flows (maw_bd): the GWF exchange
-        (positive into the aquifer), the rate, the flowing-well discharge
-        and the wellbore storage."""
+        (positive into the aquifer), the rate, the flowing-well discharge,
+        the wellbore storage and the mover inflow."""
         hw = x[N + self.conn_well]
         h = x[self.conn_node]
         act = self.active
@@ -264,6 +272,8 @@ class MawData:
             wrow = _slice(N, self.nwells)
             out["MAW-STO"] = -self.area / delt * (x[wrow] - x_old[wrow]) \
                 * act
+        if qfrom is not None:
+            out["MAW-FROM-MVR"] = qfrom * act
         return out
 
 
@@ -503,8 +513,11 @@ class LakData:
         q, dq = self.outlet_flows(x, N)
         return q[i], dq[i]
 
-    def terms(self, x, x_old, N, delt, iss, diag, offf, rhs):
-        """Add the LAK equations into the augmented system (lak_fc)."""
+    def terms(self, x, x_old, N, delt, iss, diag, offf, rhs, qto_out=None,
+              qfrom=None):
+        """Add the LAK equations into the augmented system (lak_fc);
+        ``qto_out``: f64[O] mover water taken per outlet (the receiving lake
+        gets the rest), ``qfrom``: f64[L] mover inflow per lake."""
         L = self.nlakes
         lrow = _slice(N, L)
         lk = self.conn_lake
@@ -545,6 +558,8 @@ class LakData:
                     else ((v_k - v_old) / delt) * act)
             rhs[lrow] += rate - sc * s_l
         rhs[lrow] += -(self.rainfall - self.evap - self.withdrawal) * act
+        if qfrom is not None:
+            rhs[lrow] += -qfrom * act
         if not self.out_type:
             return
         # outlets, linearized at the current iterate: the source row loses
@@ -555,7 +570,8 @@ class LakData:
         s_src = x[N + self.out_src]
         self.src_plan.add_(diag[lrow], -dq)
         offf[self.out_coupled_slot] += dq[self.out_coupled]
-        gain = torch.where(self.out_is_coupled, -q + dq * s_src, -q)
+        q_dst = q if qto_out is None else q - qto_out
+        gain = torch.where(self.out_is_coupled, -q_dst + dq * s_src, -q_dst)
         self.out_plan.add_(rhs[lrow], torch.stack(
             [q - dq * s_src, gain], dim=1).reshape(-1))
 
@@ -563,7 +579,7 @@ class LakData:
         """The outflow of every outlet (what a mover could take)."""
         return self.outlet_flows(x, N)[0]
 
-    def budget(self, x, x_old, N, delt, iss):
+    def budget(self, x, x_old, N, delt, iss, qto_out=None, qfrom=None):
         lk = self.conn_lake
         s = x[N + lk]
         h = x[self.conn_node]
@@ -576,7 +592,13 @@ class LakData:
                "LAK-EVAP": -self.evap * act,
                "LAK-WDRL": -self.withdrawal * act}
         if self.out_type:
-            out["LAK-OUT"] = -self.available(x, N)
+            q_out = self.available(x, N)
+            if qto_out is not None:
+                out["LAK-TO-MVR"] = -qto_out
+                q_out = q_out - qto_out
+            out["LAK-OUT"] = -q_out
+        if qfrom is not None:
+            out["LAK-FROM-MVR"] = qfrom * act
         if not iss:
             lrow = _slice(N, self.nlakes)
             out["LAK-STO"] = -(self.volume_of(x[lrow])
@@ -731,12 +753,13 @@ class SfrData:
                          0.0)
         return q, dq
 
-    def routing(self, q):
-        """Downstream-routable flow after the diversions: each diversion
-        on a reach consumes from what the ones before it left, in declared
-        order (sfr_calc_div).  Returns (qd[R], div_in[R], the inflow
-        delivered to the diversions' receivers)."""
-        qd = q.clone()
+    def routing(self, q, qto=None):
+        """Downstream-routable flow after the mover and the diversions: qd
+        starts as the outflow less what the movers take (``qto``), then
+        each diversion on a reach consumes from what the ones before it
+        left, in declared order (sfr_calc_div).  Returns (qd[R], div_in[R],
+        the inflow delivered to the diversions' receivers)."""
+        qd = q.clone() if qto is None else torch.clamp(q - qto, min=0.0)
         div_in = torch.zeros_like(q)
         for i, (s, t, rule) in enumerate(zip(self.div_src, self.div_to,
                                              self.div_rule)):
@@ -759,8 +782,11 @@ class SfrData:
         q, _ = self._manning(x[_slice(N, self.nreaches)])
         return q * self.active
 
-    def terms(self, x, x_old, N, delt, iss, diag, offf, rhs):
-        """Add the SFR equations into the augmented system (sfr_fc)."""
+    def terms(self, x, x_old, N, delt, iss, diag, offf, rhs, qto=None,
+              qfrom=None):
+        """Add the SFR equations into the augmented system (sfr_fc);
+        ``qto``: f64[R] mover water taken from each reach's outflow,
+        ``qfrom``: f64[R] mover inflow per reach."""
         R = self.nreaches
         rrow = _slice(N, R)
         stage = x[rrow]
@@ -785,7 +811,7 @@ class SfrData:
         diag[rrow] += -dq * act
         rhs[rrow] += (q - dq * stage) * act
         # upstream inflows Σ_u frac·Qout_u(s_u) at the current iterate
-        q_route, div_in = self.routing(q)
+        q_route, div_in = self.routing(q, qto)
         q_up = q_route[self.upstream] * self.frac
         rhs[rrow] += -q_up.sum(dim=1) * act
         # the upstream coupling in the Jacobian: reach r gains
@@ -803,18 +829,27 @@ class SfrData:
         ext = (self.inflow + self.runoff + self.rainfall - self.evap) * act
         rhs[rrow] += -ext
         rhs[rrow] += -div_in * act
+        if qfrom is not None:
+            rhs[rrow] += -qfrom * act
 
-    def budget(self, x, x_old, N, delt, iss):
+    def budget(self, x, x_old, N, delt, iss, qto=None, qfrom=None):
         stage = x[_slice(N, self.nreaches)]
         h = x[self.node]
         coupled = h > self.strtop
         q_gwf = self.cond * self.active * torch.where(
             coupled, stage - h, stage - self.strtop)
         q_out, _ = self._manning(stage)
-        return {"SFR-GWF": q_gwf,
-                "SFR-EXT": (self.inflow + self.runoff + self.rainfall
-                            - self.evap) * self.active,
-                "SFR-OUT": -q_out * self.active}
+        q_out = q_out * self.active
+        out = {"SFR-GWF": q_gwf,
+               "SFR-EXT": (self.inflow + self.runoff + self.rainfall
+                           - self.evap) * self.active}
+        if qto is not None:
+            out["SFR-TO-MVR"] = -qto
+            q_out = torch.clamp(q_out - qto, min=0.0)
+        out["SFR-OUT"] = -q_out
+        if qfrom is not None:
+            out["SFR-FROM-MVR"] = qfrom * self.active
+        return out
 
 
 def build_sfr(reaches):
@@ -896,8 +931,10 @@ class AugmentedGwfModel:
     ``Simulation`` (the reference's sln_connect + bnd_ac matrix
     expansion).  ``maw``, ``lak`` and ``sfr`` are the host specs of
     ``build_maw``, ``build_lak`` and ``build_sfr``; feature rows follow the
-    grid rows in the order MAW, LAK, SFR.  The model's tensors live on the
-    base model's device."""
+    grid rows in the order MAW, LAK, SFR.  ``mvr``: the movers of
+    ``mvr.build_mvr`` (a list of dicts), whose providers and receivers
+    must be present.  The model's tensors live on the base model's
+    device."""
 
     # what the solvers read that the base model would answer otherwise
     wetdry = None
@@ -907,9 +944,6 @@ class AugmentedGwfModel:
     use_structured = False
 
     def __init__(self, base, maw=None, lak=None, sfr=None, mvr=None):
-        if mvr:
-            raise NotImplementedError(
-                "MVR (mvr=) under an augmented model is not ported")
         if base.csub is not None:
             raise NotImplementedError(
                 "CSUB with MAW, LAK or SFR is not ported (the reference's "
@@ -1032,6 +1066,22 @@ class AugmentedGwfModel:
             setattr(self, f"_{name}_offset", off)
         self.inewton = base.inewton
         self.inewtonur = base.inewtonur
+        self.mvr = None
+        if mvr:
+            data = mvr_mod.build_mvr(mvr, device=device)
+            base_pkgs = base.packages
+            for pk in sorted(set(data.prov_pkg)):
+                present = (getattr(base_pkgs, pk) is not None
+                           if pk in ("wel", "drn", "riv", "ghb")
+                           else getattr(self, pk, None) is not None)
+                if not present:
+                    raise ValueError(
+                        f"mover provider {pk!r} not present in model")
+            for rk in sorted(set(data.recv_pkg)):
+                if getattr(self, rk, None) is None:
+                    raise ValueError(
+                        f"mover receiver {rk!r} not present in model")
+            self.mvr = data
 
     @staticmethod
     def _outlet_fields(spec, out_edge, slot_ab, device):
@@ -1110,17 +1160,11 @@ class AugmentedGwfModel:
     def sto_opts(self):
         return self.base.sto_opts
 
-    @property
-    def features(self):
-        """[(data, first row)] of the features present, in row order."""
-        return [(d, getattr(self, f"_{name}_offset"))
-                for name in ("maw", "lak", "sfr")
-                if (d := getattr(self, name)) is not None]
 
     @property
     def strt(self):
-        return torch.cat([self.base.strt] + [d.strt for d, _ in
-                                             self.features])
+        return torch.cat([self.base.strt] + [d.strt for _, d, _ in
+                                             self.features()])
 
     @property
     def packages(self):
@@ -1146,9 +1190,30 @@ class AugmentedGwfModel:
         # columns, embedded in its one column)
         offf[:N, :Kb] = off_b.reshape(N, -1)[:, :Kb]
         offf = offf.reshape(-1)
-        for data, off in self.features:
-            data.terms(x, x_old, off, delt, iss, diag, offf, rhs)
+        qto, qfrom = {}, {}
+        if self.mvr is not None:
+            _, qto, qfrom = self.eval_movers(x, ibound, pkgs)
+        for name, data, off in self.features():
+            data.terms(x, x_old, off, delt, iss, diag, offf, rhs,
+                       **self._mover_args(name, qto, qfrom))
         return diag, offf.reshape(self.nodes, Ktot), rhs
+
+    def features(self):
+        """[(name, data, first row)] of the features present, in row
+        order."""
+        return [(name, d, getattr(self, f"_{name}_offset"))
+                for name in ("maw", "lak", "sfr")
+                if (d := getattr(self, name)) is not None]
+
+    @staticmethod
+    def _mover_args(name, qto, qfrom):
+        """The mover keyword arguments of a feature's terms and budget."""
+        out = {"qfrom": qfrom.get(name)}
+        if name == "lak":
+            out["qto_out"] = qto.get(name)
+        elif name == "sfr":
+            out["qto"] = qto.get(name)
+        return out
 
     def edge_conductances(self, x, ibound, pkgs=None):
         return self.base.edge_conductances(x[:self.n_grid],
@@ -1167,19 +1232,74 @@ class AugmentedGwfModel:
                                      cond, pkgs)
 
     def boundary_budget(self, x, ibound, pkgs=None):
-        return self.base.boundary_budget(x[:self.n_grid],
-                                         ibound[:self.n_grid], pkgs)
+        out = self.base.boundary_budget(x[:self.n_grid],
+                                        ibound[:self.n_grid], pkgs)
+        if self.mvr is not None:
+            # water a mover takes no longer leaves by the provider's own
+            # fate: its reported rate shrinks by qto (the moved slice is
+            # <PKG>-TO-MVR in advanced_budget)
+            _, qto, _ = self.eval_movers(x, ibound, pkgs)
+            for pk in ("wel", "drn", "riv", "ghb"):
+                if pk in qto and out.get(pk.upper()) is not None:
+                    out[pk.upper()] = out[pk.upper()] + qto[pk]
+        return out
 
     def advanced_budget(self, x, x_old, delt, iss, pkgs=None):
         """{term: per-entry flows} of every feature package (maw_bd,
-        lak_bd, sfr_bd)."""
+        lak_bd, sfr_bd), with the movers' -TO-MVR and -FROM-MVR terms."""
+        qto, qfrom = {}, {}
+        if self.mvr is not None:
+            ib, _ = self.boundary_state(x, pkgs)
+            _, qto, qfrom = self.eval_movers(x, ib, pkgs)
         out = {}
-        for data, off in self.features:
-            out.update(data.budget(x, x_old, off, delt, iss))
+        for name, data, off in self.features():
+            out.update(data.budget(x, x_old, off, delt, iss,
+                                   **self._mover_args(name, qto, qfrom)))
+        # standard-package providers: the moved slice is its own term
+        # (BoundaryPackage.f90:670-684 relabeling)
+        for pk in ("wel", "drn", "riv", "ghb"):
+            if pk in qto:
+                out[f"{pk.upper()}-TO-MVR"] = -qto[pk]
         return out
 
-    def eval_movers(self, *args, **kwargs):
-        raise NotImplementedError("MVR (eval_movers) is not ported")
+    # ---------------------------------------------------------- mover eval
 
-    def mvr_budget(self, *args, **kwargs):
-        raise NotImplementedError("MVR (mvr_budget) is not ported")
+    def _recv_sizes(self):
+        sizes = {}
+        if self.sfr is not None:
+            sizes["sfr"] = self.sfr.nreaches
+        if self.lak is not None:
+            sizes["lak"] = self.lak.nlakes
+        if self.maw is not None:
+            sizes["maw"] = self.maw.nwells
+        return sizes
+
+    def available_water(self, x, ibound, pkgs=None):
+        """{provider: f64[entries]} of the water a mover could take at
+        the current iterate, the standard packages' and the features'."""
+        N = self.n_grid
+        p = pkgs if pkgs is not None else self.base.packages
+        avail = mvr_mod.base_package_available(self.base, p, x[:N],
+                                               ibound[:N])
+        for name, data, off in self.features()[::-1]:
+            avail[name] = data.available(x, off)
+        return avail
+
+    def eval_movers(self, x, ibound, pkgs=None):
+        """Provider availabilities at the current iterate → the mover
+        chain (gwf-mvr.f90 mvr_fc, Picard-lagged as in the reference).
+        Returns (qp[M], qto: dict, qfrom: dict)."""
+        return mvr_mod.run_movers(self.mvr,
+                                  self.available_water(x, ibound, pkgs),
+                                  self._recv_sizes())
+
+    def mvr_budget(self, x, pkgs=None):
+        """Per-mover moved rates (gwf-mvr.f90 budget role): a list of
+        (provider, iprov, receiver, ircv, rate)."""
+        if self.mvr is None:
+            return []
+        ib, _ = self.boundary_state(x, pkgs)
+        qp, _, _ = self.eval_movers(x, ib, pkgs)
+        m = self.mvr
+        return [(m.prov_pkg[i], m.prov_id[i], m.recv_pkg[i], m.recv_id[i],
+                 qp[i]) for i in range(m.nmovers)]

@@ -5,9 +5,13 @@ Port of modflow6_tpu/models/gwf/model.py (``PackageData``,
 ``use_structured``, ``finalize_setup`` with the HFB barriers and XT3D,
 ``is_linear``, ``packages``, ``boundary_state``, ``assemble`` with its
 Newton terms, XT3D (full, RHS and Newton forms), GNC, CSUB, BUY and VSC,
-``edge_conductances``, ``edge_flows``, ``boundary_budget``).  MAW, LAK and
-SFR wrap this model in ``advanced.AugmentedGwfModel``; the UZF coupling
-(``PackageData.uzf``) is outside the ported slices.
+``edge_conductances``, ``edge_flows``, ``boundary_budget``) with the UZF
+coupling: ``PackageData.uzf`` carries a ``uzf.UzfStep``, whose
+head-dependent terms go into every assembly and whose UZF-GWRCH, UZF-GWD
+and UZF-GWET rates go into the budget.  MAW, LAK and SFR (and MVR's
+movers) wrap this model in ``advanced.AugmentedGwfModel``; several models
+joined by GWF6-GWF6 exchanges merge into one model on the general path
+(``exchange.merge_gwf_models``).
 
 Two paths, chosen by ``use_structured`` as in the reference.  A DIS model
 without rotated anisotropy, XT3D or VSC keeps no edge list on the device:
@@ -35,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from . import bnd, buy as buy_mod, csub as csub_mod, npf, npf_structured, sto
-from . import gnc as gnc_mod, vsc as vsc_mod, xt3d as xt3d_mod
+from . import gnc as gnc_mod, uzf as uzf_mod, vsc as vsc_mod
+from . import xt3d as xt3d_mod
 
 # the list packages whose per-entry (hcof, rhs) are added at their nodes
 # after WEL and RCH, in the reference's order
@@ -59,6 +64,9 @@ class PackageData:
     buy_conc: Optional[torch.Tensor] = None
     # CSUB state (csub.CsubState: es0/pcs/compaction), committed per step
     csub_state: object = None
+    # UZF per-step coupling data (uzf.UzfStep, built by the Simulation
+    # from the column march of the step)
+    uzf: object = None
 
 
 @dataclasses.dataclass
@@ -389,6 +397,11 @@ class GwfModel:
             if data is not None:
                 hcof, r = self._head_package_terms(name, data, head, ibound)
                 diag, rhs = bnd.scatter_terms(diag, rhs, data, hcof, r)
+        if pkgs.uzf is not None:
+            # the head-dependent UZF terms at the current iterate (the
+            # reference's per-iteration uzf_fc → uzf_solve sweep)
+            hcof, r, _ = uzf_mod.uzf_matrix_terms(pkgs.uzf, head, ibound)
+            diag, rhs = bnd.scatter_terms(diag, rhs, pkgs.uzf, hcof, r)
 
         if self.inewton and newton:
             # (XT3D's Newton terms are part of its own assembly)
@@ -606,4 +619,11 @@ class GwfModel:
                 hcof, r = self._head_package_terms(name, data, head, ibound)
                 out[name.upper()] = bnd.bound_flows(data.node, data.mask,
                                                     hcof, r, head, ibound)
+        if pkgs.uzf is not None:
+            _, _, parts = uzf_mod.uzf_matrix_terms(pkgs.uzf, head, ibound)
+            out["UZF-GWRCH"] = parts["UZF-GWRCH"]
+            if pkgs.uzf.iseepflag:
+                out["UZF-GWD"] = parts["UZF-GWD"]
+            if pkgs.uzf.igwetflag:
+                out["UZF-GWET"] = parts["UZF-GWET"]
         return out

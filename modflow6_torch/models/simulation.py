@@ -1,21 +1,26 @@
 """Simulation: the create→define→time-loop→finalize core loop.
 
 Port of modflow6_tpu/models/simulation.py for one GWF model (on a DIS,
-DISV or DISU grid, alone or with MAW, LAK and SFR rows as an
-``AugmentedGwfModel``) and one IMS solution (reference core loop
+DISV or DISU grid, alone or with MAW, LAK and SFR rows and MVR's movers as
+an ``AugmentedGwfModel``, or several models merged by
+``exchange.merge_gwf_models``) and one IMS solution (reference core loop
 src/mf6core.f90: Mf6Initialize:70, Mf6PrepareTimestep:498,
 Mf6DoTimestep:620, Mf6FinalizeTimestep:708): walk the TDIS periods and
 steps, call the ``period_hooks`` and apply the TVK/TVS changes at each
-period's start, solve each step with the numerical solution, advance the
-CSUB state and the MAW SHUT_OFF flags, compute flows and budgets (the
-MAW, LAK and SFR exchanges with the aquifer among them), and write the
-heads, budget, grid and listing files.  The files hold the grid rows of
-an augmented model; it gets no ``.grb`` file, as in the reference, whose
-composites have no single user grid.  The transport coupling (``gwt``,
-which would hand the concentrations to BUY and VSC), UZF, MVR, PRT,
-observation, NetCDF and adaptive-time-step branches of the reference are
-outside the ported slice: ``gwt`` raises, and the loader raises for decks
-that ask for the others.  Without transport BUY and VSC see a
+period's start, march the UZF columns (``uzf``) and solve each step with
+the numerical solution, re-solving while the columns' recharge has not
+settled (the reference's uzf_cc), advance the CSUB state, the UZF column
+state and the MAW SHUT_OFF flags, compute flows and budgets (the MAW, LAK
+and SFR exchanges with the aquifer, the movers' -TO-MVR terms and the UZF
+rates among them), and write the heads, budget, grid and listing files.
+The files hold the grid rows of an augmented model; neither it nor a
+merged model gets a ``.grb`` file, as in the reference, whose composites
+have no single user grid; a merged model's heads file holds its rows in
+the merged order as one 1 × nodes record per step.  The transport
+coupling (``gwt``, which would hand the concentrations to BUY and VSC),
+PRT, observation, NetCDF and adaptive-time-step branches of the reference
+are outside the ported slice: ``gwt`` raises, and the loader raises for
+decks that ask for the others.  Without transport BUY and VSC see a
 concentration only where ``period_data`` sets ``buy_conc``, as in the
 reference.
 
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from ..constants import DHNOFLO
-from .discretization import DisGrid, DisvGrid
+from .discretization import DisGrid, DisuGrid, DisvGrid
 from ..ops.smoothing import quadratic_saturation
 from ..ops.storage import ss_capacity, ss_terms, sy_capacity
 from ..solution.ims import ImsSettings, NumericalSolution
@@ -47,6 +52,7 @@ from ..utils.binary import BudgetFileWriter, HeadFileWriter
 from ..utils.budget import Budget
 from ..utils.csvout import OuterCsvWriter
 from .gwf import csub as csub_mod
+from .gwf import uzf as uzf_mod
 
 
 class ConvergenceFailure(RuntimeError):
@@ -65,6 +71,7 @@ class StepRecord:
     budget_table: Optional[str] = None
     solve_seconds: float = 0.0      # host clock, device work finished
     output_seconds: float = 0.0     # budget, record and file output
+    uzf_resolves: int = 0           # uzf_cc re-solves of the step
 
 
 class Simulation:
@@ -105,6 +112,14 @@ class Simulation:
         self.tvs: dict = {}
         # CSUB state (csub.CsubState), committed at step end
         self.csub_state = model.csub_state0
+        # UZF unsaturated columns (uzf.UzfColumns) and their water-content
+        # state, committed at step end; uzf_cc re-solves per step
+        self.uzf = None
+        self.uzf_theta = None
+        self.uzf_watab = None
+        self.uzf_maxiter = 3
+        self._uzf_pending = None
+        self._uzf_resolves = 0
         # f(kper) called once at each period's start, after the TVK/TVS
         # changes (the <pkg>_rp role: the advanced packages' PERIOD blocks)
         self.period_hooks = []
@@ -167,12 +182,58 @@ class Simulation:
             pkgs = dataclasses.replace(pkgs, csub_state=self.csub_state)
         return pkgs
 
+    def _augment_uzf(self, pkgs, delt, head):
+        """March the UZF columns from the committed state at ``head``
+        (without committing it) and attach the head-dependent coupling
+        data as ``pkgs.uzf`` (gwf-uzf.f90 uzf_fc/uzf_solve role)."""
+        if self.uzf_theta is None:
+            self.uzf_theta = uzf_mod.initial_theta(self.uzf)
+        if self.uzf_watab is None:
+            self.uzf_watab = uzf_mod.watab_of(self.uzf, head)
+        res = uzf_mod.advance(self.uzf, self.uzf_theta, delt, head=head,
+                              watab_old=self.uzf_watab)
+        pkgs = dataclasses.replace(pkgs, uzf=uzf_mod.make_step(self.uzf,
+                                                               res))
+        self._uzf_pending = (res, pkgs)
+        return pkgs
+
     def solve_step(self, head_old, kper, kstp, delt):
-        """The solve phase only (Mf6DoTimestep body, no outputs)."""
+        """The solve phase only (Mf6DoTimestep body, no outputs).  With UZF
+        columns, the package-convergence loop of the reference (gwf-uzf.f90
+        uzf_cc role): the march used the step-start water table; re-march
+        at the converged head and re-solve, at most ``uzf_maxiter`` times,
+        until the largest change of a column's recharge is within
+        max(1e-10, 1e-6 × the largest recharge), read in one transfer per
+        pass."""
         iss = not self.transient[kper - 1]
-        return self.solution.solve_timestep(
-            head_old, delt, kstp=kstp, iss=iss,
-            pkgs=self.step_packages(kper), kper=kper)
+        pkgs = self.step_packages(kper)
+        if self.uzf is not None:
+            pkgs = self._augment_uzf(pkgs, delt, head_old)
+
+        def solve(p):
+            return self.solution.solve_timestep(head_old, delt, kstp=kstp,
+                                                iss=iss, pkgs=p, kper=kper)
+
+        solved = solve(pkgs)
+        self._uzf_resolves = 0
+        if self.uzf is None or self.uzf.node.shape[0] == 0:
+            return solved
+        area = self.uzf.area
+        for _ in range(self.uzf_maxiter):
+            res_prev = self._uzf_pending[0]
+            res = uzf_mod.advance(self.uzf, self.uzf_theta, delt,
+                                  head=solved[0], watab_old=self.uzf_watab)
+            dmax, scale = torch.stack((
+                ((res.rch - res_prev.rch).abs() * area).max(),
+                (res.rch * area).abs().max())).tolist()
+            if dmax <= max(1e-10, 1e-6 * (scale + 1e-30)):
+                break
+            pkgs = dataclasses.replace(pkgs, uzf=uzf_mod.make_step(
+                self.uzf, res))
+            self._uzf_pending = (res, pkgs)
+            solved = solve(pkgs)
+            self._uzf_resolves += 1
+        return solved
 
     def _sync(self):
         if self.model.device.type == "cuda":
@@ -190,6 +251,12 @@ class Simulation:
         t0 = time.perf_counter()
         head, info, aux = self.solve_step(head_old, kper, kstp, delt)
         ibound, cond = aux["ibound"], aux["cond"]
+        if self._uzf_pending is not None:
+            # commit the column state the accepted solve used; its
+            # packages (with the UZF terms) serve the budget and outputs
+            res, pkgs = self._uzf_pending
+            self.uzf_theta, self.uzf_watab = res.theta, res.watab
+            self._uzf_pending = None
         if model.csub is not None:
             # pkgs keeps the start-of-step state (for budgets); then the
             # state advances: es0 ← es, pcs ← max(pcs, es), compaction +=
@@ -248,7 +315,8 @@ class Simulation:
 
         head_np = head.cpu().numpy()
         rec = StepRecord(kper, kstp, totim, head_np, info.converged,
-                         info.outer_iterations, info.inner_iterations, table)
+                         info.outer_iterations, info.inner_iterations, table,
+                         uzf_resolves=self._uzf_resolves)
         self.records.append(rec)
 
         # ---- outputs (OC SAVE selection when PERIOD blocks are present)
@@ -294,12 +362,15 @@ class Simulation:
 
     def _write_grb(self):
         """Write the binary grid file beside the heads output (the
-        reference writes it at DIS initialization unless NOGRB)."""
-        if not self.hds_path or hasattr(self.model, "n_extra"):
+        reference writes it at DIS initialization unless NOGRB); a
+        composite (an augmented or a merged model) has no single user grid
+        and gets none."""
+        grid = self.model.grid
+        if not self.hds_path or hasattr(self.model, "n_extra") \
+                or not isinstance(grid, (DisGrid, DisvGrid, DisuGrid)):
             return
         path = str(self.hds_path)
         path = (path[:-4] if path.endswith(".hds") else path) + ".grb"
-        grid = self.model.grid
         write = (grb.write_grb_dis if isinstance(grid, DisGrid)
                  else grb.write_grb_disv if isinstance(grid, DisvGrid)
                  else grb.write_grb_disu)
@@ -397,6 +468,12 @@ class Simulation:
             for key in ("MAW", "LAK", "SFR"):
                 if f"{key}-GWF" in terms:
                     flows[key] = terms[f"{key}-GWF"]
+            # water a mover takes from a standard provider still leaves
+            # the aquifer: its own <PKG>-TO-MVR term (the provider's rate
+            # in boundary_budget is reduced by it)
+            for key in ("WEL", "DRN", "RIV", "GHB"):
+                if f"{key}-TO-MVR" in terms:
+                    flows[f"{key}-TO-MVR"] = terms[f"{key}-TO-MVR"]
 
         # storage rates: into the cell, like sto_cq
         if model.sto_arrays is not None and not iss:
@@ -432,10 +509,14 @@ class Simulation:
         shape3d = self._shape3d()
         mname = model.name.upper()
         for name, q in flows.items():
-            if name in ("CSUB", "MAW", "LAK", "SFR"):
+            if name in ("CSUB", "MAW", "LAK", "SFR") \
+                    or name.endswith("-TO-MVR"):
                 continue        # the reference writes no record of these
             if name.startswith("STO-"):
                 nodes = np.arange(q.shape[0])
+                qv = q.cpu().numpy()
+            elif name.startswith("UZF-"):
+                nodes = pkgs.uzf.node.cpu().numpy()
                 qv = q.cpu().numpy()
             else:
                 data = getattr(pkgs, name.lower())

@@ -7,7 +7,7 @@ agree with the reference to rounding.
 
 import torch
 
-from ..constants import DEM6, DHALF, DONE, DZERO
+from ..constants import DEM6, DHALF, DONE, DPREC, DZERO
 
 
 def quadratic_saturation(top, bot, x, eps=DEM6):
@@ -69,3 +69,15 @@ def sq_saturation_derivative(top, bot, x, c1=-6.0, c2=6.0):
     safe_b = torch.where(b != DZERO, b, DONE)
     s = torch.clamp((x - bot) / safe_b, DZERO, DONE)
     return (c1 * s**2 + c2 * s) / safe_b
+
+
+def s_cubic_linear(x, srange):
+    """Cubic-to-linear smoothing: y=0, dy/dx=0 at x=0; y=1, dy/dx→1 at
+    x=range.  Returns (y, dydx).  UZF's groundwater seepage uses it."""
+    s = torch.clamp(srange, min=DPREC)
+    xs = torch.clamp(x / s, min=DZERO)
+    y = torch.where(xs < DONE, -(xs**3) + 2.0 * xs**2, DONE)
+    dydx = torch.where(xs < DONE, -3.0 * xs**2 + 4.0 * xs, DZERO)
+    y = torch.where(xs <= DZERO, DZERO, y)
+    dydx = torch.where(xs <= DZERO, DZERO, dydx)
+    return y, dydx

@@ -1,16 +1,25 @@
 """Deck loading of the advanced stress packages MAW6, LAK6 (with its TAB6
-tables) and SFR6 of a GWF name file.
+tables), SFR6 and UZF6 of a GWF name file, and of the MVR6 movers of a
+model or of a GWF6-GWF6 exchange.
 
-A numpy copy of modflow6_tpu/utils/mf6io/advanced_loader.py:28-268
-(``_period_blocks``, ``load_maw``/``apply_maw_period``,
-``load_lak``/``apply_lak_period``, ``load_sfr``/``apply_sfr_period``): the
+A numpy copy of modflow6_tpu/utils/mf6io/advanced_loader.py
+(``_period_blocks``, ``_only_first_period``, ``load_maw``/
+``apply_maw_period``, ``load_lak``/``apply_lak_period``, ``load_sfr``/
+``apply_sfr_period``, ``load_uzf``/``apply_uzf_period``,
+``parse_mvr_period``, ``load_mvr``, ``load_exchange_mvr``): the
 PACKAGEDATA / CONNECTIONDATA / OUTLETS / TABLES / DIVERSIONS / PERIOD
-block formats of gwf-maw.f90, gwf-lak.f90 and gwf-sfr.f90 as their dfn
-files specify them.  Each loader returns the host spec of
-``build_maw``/``build_lak``/``build_sfr`` with the first period's settings
-applied, and the PERIOD blocks of later periods, which the deck loader
-applies at each period's start and then rebuilds the augmented model
-(values persist until redefined, as in <pkg>_rp).
+block formats of gwf-maw.f90, gwf-lak.f90, gwf-sfr.f90, gwf-uzf.f90 and
+gwf-mvr.f90 as their dfn files specify them.  Each feature loader returns
+the host spec of ``build_maw``/``build_lak``/``build_sfr`` or the column
+arrays of ``make_uzf`` with the first period's settings applied, and the
+PERIOD blocks of later periods, which the deck loader applies at each
+period's start and then rebuilds the augmented model or the columns
+(values persist until redefined, as in <pkg>_rp).  A model's MVR6 PERIOD
+block replaces the whole mover set (mvr_rp).
+
+UZF6 holds a record per column, a million at the sizes users run: its
+blocks are read as column arrays (the reference builds a dict per column),
+with the same values.
 
 Beyond the reference: SFR's CROSSSECTIONS block (``rno TAB6 FILEIN
 file``, the table's xfraction/height[/manfraction] rows) is read into the
@@ -27,6 +36,7 @@ import os
 
 import numpy as np
 
+from ...models.discretization import DisGrid, DisvGrid
 from . import schema
 from .reader import BlockFile
 
@@ -39,6 +49,11 @@ UNPORTED_OPTIONS = {
                 "UNIT_CONVERSION", "SURFDEP"),
     "gwf-sfr": ("TS6", "LENGTH_CONVERSION", "TIME_CONVERSION",
                 "UNIT_CONVERSION", "STORAGE"),
+    # the reference runs SQUARE_GWET as LINEAR_GWET and reads past
+    # UNSAT_ETAE (which would switch the unsaturated ET to the
+    # capillary-pressure form)
+    "gwf-uzf": ("TS6", "AUXMULTNAME", "OBS6", "UNSAT_ETAE", "SQUARE_GWET"),
+    "gwf-mvr": (),
 }
 
 
@@ -54,6 +69,15 @@ def _options(bf, component, path):
 def _period_blocks(bf):
     """{kper: [token lists]} from all PERIOD blocks."""
     return {int(b.index): list(b.lines) for b in bf.get_all("PERIOD")}
+
+
+def _only_first_period(periods, what):
+    late = [k for k in periods if k > 1]
+    if late:
+        raise NotImplementedError(
+            f"{what}: PERIOD blocks beyond the first stress period "
+            f"(kper={late}) are not supported by the deck loader yet")
+    return periods.get(1, [])
 
 
 def apply_maw_period(wells, lines):
@@ -295,3 +319,134 @@ def apply_sfr_period(reaches, lines):
         else:
             raise NotImplementedError(
                 f"SFR period setting {' '.join(toks[1:3])}")
+
+
+# ------------------------------------------------------------------- UZF
+
+def record_column(lines, c, path, kind=float):
+    """Field ``c`` of every record as a float64 (or, ``kind=int``, int64)
+    array; a time-series name where a number belongs raises by name."""
+    try:
+        return np.fromiter((kind(t[c]) for t in lines),
+                           np.float64 if kind is float else np.int64,
+                           len(lines))
+    except ValueError:
+        raise NotImplementedError(
+            f"{path}: time-series value (TS6) is not ported") from None
+
+
+def cellid_nodes(lines, start, grid, path):
+    """0-based nodes of the 1-based cellids at field ``start``, and the
+    number of fields a cellid takes."""
+    def col(i):
+        return record_column(lines, start + i, path, int) - 1
+
+    if isinstance(grid, DisGrid):
+        return (col(0) * grid.nrow + col(1)) * grid.ncol + col(2), 3
+    if isinstance(grid, DisvGrid):
+        return col(0) * grid.ncpl + col(1), 2
+    return col(0), 1
+
+
+def load_uzf(path, grid):
+    """UZF6 file → (columns, flags, later PERIOD blocks): ``columns`` maps
+    ``iuzno``, ``node``, ``landflag``, ``surfdep``, ``vks``, ``thtr``,
+    ``thts``, ``thti``, ``eps``, ``finf``, ``pet``, ``extdp`` and
+    ``extwc`` to arrays in ``iuzno`` order, the first period applied;
+    ``flags`` the ``make_uzf`` flags."""
+    bf = BlockFile(path)
+    opts = _options(bf, "gwf-uzf", path)
+    flags = dict(ietflag=int("SIMULATE_ET" in opts),
+                 iseepflag=int("SIMULATE_GWSEEP" in opts),
+                 igwetflag=int("LINEAR_GWET" in opts))
+    # iuzno cellid landflag ivertcon surfdep vks thtr thts thti eps
+    lines = bf.get("PACKAGEDATA").lines
+    iuzno = record_column(lines, 0, path, int) - 1
+    node, nt = cellid_nodes(lines, 1, grid, path)
+    c = 1 + nt
+    cols = dict(iuzno=iuzno, node=node,
+                landflag=record_column(lines, c, path, int))
+    for k, name in ((2, "surfdep"), (3, "vks"), (4, "thtr"), (5, "thts"),
+                    (6, "thti"), (7, "eps")):
+        cols[name] = record_column(lines, c + k, path)
+    order = np.argsort(iuzno, kind="stable")
+    cols = {k: v[order] for k, v in cols.items()}
+    n = iuzno.shape[0]
+    for name in ("finf", "pet", "extdp", "extwc"):
+        cols[name] = np.zeros(n)
+    periods = _period_blocks(bf)
+    apply_uzf_period(cols, periods.get(1, []), path)
+    return cols, flags, {k: v for k, v in periods.items() if k > 1}
+
+
+def apply_uzf_period(cols, lines, path=""):
+    """Apply one PERIOD block to the UZF columns (gwf-uzf.f90 uzf_rp):
+    ``iuzno finf [pet extdp extwc ...]``; values persist until
+    redefined."""
+    if not lines:
+        return
+    width = np.minimum(np.fromiter((len(t) for t in lines), np.int64,
+                                   len(lines)), 5)
+    for w in np.unique(width):
+        sub = [lines[i] for i in np.nonzero(width == w)[0]]
+        rows = np.searchsorted(cols["iuzno"], record_column(sub, 0, path, int) - 1)
+        for k, name in enumerate(("finf", "pet", "extdp", "extwc")[:w - 1]):
+            cols[name][rows] = record_column(sub, k + 1, path)
+
+
+# ------------------------------------------------------------------- MVR
+
+def parse_mvr_period(lines, name_to_kind):
+    """One MVR PERIOD block → movers list (the block replaces the whole
+    mover set, gwf-mvr.f90 mvr_rp).  ``name_to_kind``: package name
+    (upper) → kind; a name the model does not have raises."""
+    movers = []
+    for toks in lines:
+        p1, id1, p2, id2, typ, val = (toks[0].upper(), int(toks[1]) - 1,
+                                      toks[2].upper(), int(toks[3]) - 1,
+                                      toks[4].lower(), float(toks[5]))
+        for name in (p1, p2):
+            if name not in name_to_kind:
+                raise ValueError(f"MVR6: package {name} is not in the model")
+            if name_to_kind[name] is None:
+                raise NotImplementedError(
+                    f"MVR6: a mover on {name}, one of several packages of "
+                    "its type, is not ported (the loader merges them into "
+                    "one entry list)")
+        movers.append(dict(provider=name_to_kind[p1], iprov=id1,
+                           receiver=name_to_kind[p2], ircv=id2,
+                           mvrtype=typ, value=val))
+    return movers
+
+
+def load_mvr(path, name_to_kind):
+    """MVR6 file of a model → (movers list for build_mvr, later PERIOD
+    blocks).  ``name_to_kind``: package name (upper) → kind string."""
+    bf = BlockFile(path)
+    opts = _options(bf, "gwf-mvr", path)
+    if "MODELNAMES" in opts:
+        raise NotImplementedError(
+            f"{path}: option MODELNAMES in a model's MVR6 is not ported "
+            "(it belongs to an exchange's mover)")
+    periods = _period_blocks(bf)
+    movers = parse_mvr_period(periods.get(1, []), name_to_kind)
+    return movers, {k: v for k, v in periods.items() if k > 1}
+
+
+def load_exchange_mvr(path, kind_of):
+    """Exchange-scope MVR6 file (GwfExchangeMover.f90 role): MODELNAMES
+    records ``mname1 pname1 id1 mname2 pname2 id2 mvrtype value``.
+    ``kind_of``: callable (mname, pname) → package kind.  Returns movers
+    with model-qualified ids: dict(provider, prov_model, iprov, receiver,
+    recv_model, ircv, mvrtype, value)."""
+    bf = BlockFile(path)
+    _options(bf, "gwf-mvr", path)
+    movers = []
+    for toks in _only_first_period(_period_blocks(bf), "exchange MVR"):
+        m1, p1, id1 = toks[0].upper(), toks[1].upper(), int(toks[2]) - 1
+        m2, p2, id2 = toks[3].upper(), toks[4].upper(), int(toks[5]) - 1
+        movers.append(dict(
+            provider=kind_of(m1, p1), prov_model=m1, iprov=id1,
+            receiver=kind_of(m2, p2), recv_model=m2, ircv=id2,
+            mvrtype=toks[6].lower(), value=float(toks[7])))
+    return movers

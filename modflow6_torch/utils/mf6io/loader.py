@@ -4,16 +4,18 @@ Port of the parts of modflow6_tpu/utils/mf6io/loader.py that the ported
 GWF slices need (reference IDM load + SimulationCreate,
 src/Utilities/Idm/IdmLoad.f90, src/SimulationCreate.f90:200-729):
 ``load_tdis``, ``load_ims``, ``load_dis``, ``load_disv``, ``load_disu``,
-``load_oc``, the list-package reader, the GWF model loader and
-``load_simulation`` for one GWF6 model on a DIS, DISV or DISU grid with the
+``load_oc``, the list-package reader, ``load_exchange_gwfgwf``, the GWF
+model loader and ``load_simulation`` for one GWF6 model, or several joined
+by GWF6-GWF6 exchanges (merged into one model, with the exchanges' MVR6
+movers), on DIS, DISV or DISU grids, with the
 packages DIS6/DISV6/DISU6, IC6, NPF6, STO6, CHD6, WEL6, DRN6, RIV6, GHB6,
 EVT6 (with NSEG segments), RCH6 (list or READASARRAYS), BUY6, CSUB6 (no-delay
 and delay interbeds, the first period's settings; the reference's
-``advanced_loader.load_csub``), MAW6, LAK6 (with TAB6 tables) and SFR6
-(``advanced_loader``; their later PERIOD blocks rebuild the augmented model
-at each such period's start, as the reference's
-``_attach_advanced_periods`` does) and OC6, with MF6's stress-period
-persistence; the GWF
+``advanced_loader.load_csub``), MAW6, LAK6 (with TAB6 tables), SFR6, UZF6
+and MVR6 (``advanced_loader``; their later PERIOD blocks rebuild the
+augmented model or the UZF columns at each such period's start, as the
+reference's ``_attach_advanced_periods`` does) and OC6, with MF6's
+stress-period persistence; the list packages' MOVER option; the GWF
 name-file option NEWTON [UNDER_RELAXATION], NPF REWET (WETFCT, IWETIT,
 IHDWET) with the WETDRY array, the NPF TVK6 and STO TVS6 subpackages (to
 ``Simulation.tvk``/``tvs``), WEL AUTO_FLOW_REDUCE, and the IMS options
@@ -22,10 +24,17 @@ reference program's ILU settings, mapped to a Chebyshev preconditioner of
 order 4 with a warning).
 
 Everything else a deck can ask for raises ``NotImplementedError`` naming
-the package or keyword: other model types, several models, exchanges,
-XT3D (which the reference's loader reads past, running the two-point
-scheme), TS6/TAS6 series, HFB6, UZF6, MVR6 and the list packages' MOVER
-option, OBS6, NetCDF, ATS6 and HPC6.  The reference's loader reads neither the NPF
+the package or keyword: other model types and exchange types, several
+models with no exchange, XT3D (which the reference's loader reads past,
+running the two-point scheme), TS6/TAS6 series, HFB6, OBS6, NetCDF, ATS6
+and HPC6; and where the reference refuses: UZF or CSUB in a merged model,
+TVK/TVS with several models, standard-package mover providers outside the
+first model, later PERIOD blocks of an exchange's MVR6.  Beyond the
+reference, these raise by name too: later PERIOD blocks of MAW6, LAK6,
+SFR6 or MVR6 in a merged model (the reference would rebuild the first
+model's features alone), a GWF6-GWF6 exchange of a model with itself, a
+mover on the second of several packages of one type, and the UZF6
+options SQUARE_GWET and UNSAT_ETAE.  The reference's loader reads neither the NPF
 ANGLE1/2/3 arrays nor the DRN AUXDEPTHNAME option (rotated anisotropy,
 like HFB, reaches a model only through ``build_gwf``); this one raises on
 them by name rather than run without them.
@@ -54,7 +63,10 @@ from ...models.gwf.advanced import (AugmentedGwfModel, build_lak, build_maw,
                                     build_sfr)
 from ...models.gwf.buy import make_buy
 from ...models.gwf.csub import make_csub
+from ...models.gwf.exchange import (GwfGwfExchange, _concat_pkg,
+                                    merge_gwf_models)
 from ...models.gwf.model import PackageData
+from ...models.gwf.uzf import make_uzf
 from ...models.simulation import Simulation
 from ...solution.ims import ImsSettings, NumericalSolution
 from ...timing.tdis import StressPeriod, Tdis
@@ -67,10 +79,13 @@ from .reader import BlockFile
 # package types of a GWF name file that the slice covers
 _SUPPORTED_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "NPF6", "STO6", "CHD6",
                        "WEL6", "DRN6", "RIV6", "GHB6", "EVT6", "RCH6", "BUY6",
-                       "CSUB6", "MAW6", "LAK6", "SFR6", "OC6")
+                       "CSUB6", "MAW6", "LAK6", "SFR6", "UZF6", "MVR6", "OC6")
 # options of a list package that would change its flows and are not ported
-_UNPORTED_LIST_OPTIONS = ("TS6", "OBS6", "MOVER", "AUXMULTNAME",
-                          "AUXDEPTHNAME", "SURF_RATE_SPECIFIED")
+_UNPORTED_LIST_OPTIONS = ("TS6", "OBS6", "AUXMULTNAME", "AUXDEPTHNAME",
+                          "SURF_RATE_SPECIFIED")
+# the package types a mover can name, by kind (gwf-mvr.f90)
+_MOVER_KINDS = {"WEL6": "wel", "DRN6": "drn", "RIV6": "riv", "GHB6": "ghb",
+                "MAW6": "maw", "LAK6": "lak", "SFR6": "sfr", "UZF6": "uzf"}
 
 
 def _f(tok):
@@ -447,7 +462,7 @@ def _load_rcha(path, shp, mdir, device):
     rch_bf = BlockFile(path)
     ropts = rch_bf.options()
     schema.check_options("gwf-rcha", ropts, path)
-    _refuse(ropts, ("TAS6", "OBS6", "MOVER", "AUXMULTNAME"), path)
+    _refuse(ropts, ("TAS6", "OBS6", "AUXMULTNAME"), path)
     blocks = rch_bf.get_all("PERIOD")
     pb = rch_bf.get("PERIOD", 1)
     if pb is None or not pb.lines:
@@ -483,11 +498,26 @@ def _load_gwf_model(ws, mfname, mname, device):
         newton = "under_relaxation" if "UNDER_RELAXATION" in vals else True
 
     pkg_files = {}
+    # package name → mover kind, as the reference names them (FTYPE,
+    # FTYPE-n, the given name); None for the second and later packages
+    # of one type, which the loader merges into one entry list
+    pkg_name_kind = {}
     for toks in mnam.get("PACKAGES").lines:
         ftype = toks[0].upper()
         if ftype not in _SUPPORTED_PACKAGES:
             raise _not_ported(f"{mfname}: package {ftype}")
         pkg_files.setdefault(ftype, []).append(os.path.join(mdir, toks[1]))
+        if ftype in _MOVER_KINDS:
+            n_inst = len(pkg_files[ftype])
+            kind = _MOVER_KINDS[ftype] if n_inst == 1 else None
+            names = [f"{ftype[:-1]}-{n_inst}"] + (
+                [toks[2].upper()] if len(toks) > 2 else [])
+            if n_inst == 1:
+                names.append(ftype[:-1])
+            else:
+                pkg_name_kind[ftype[:-1]] = None
+            for name in names:
+                pkg_name_kind[name] = kind
     for ftype in ("IC6", "NPF6"):
         if ftype not in pkg_files:
             raise ValueError(f"{mfname}: model requires a {ftype} package")
@@ -645,7 +675,9 @@ def _load_gwf_model(ws, mfname, mname, device):
         return _cellid_to_node(toks, grid, start=start)
 
     adv, adv_periods = {}, {}
-    for ftype, name in (("MAW6", "maw"), ("LAK6", "lak"), ("SFR6", "sfr")):
+    uzf_entries = movers = None
+    for ftype, name in (("MAW6", "maw"), ("LAK6", "lak"), ("SFR6", "sfr"),
+                        ("UZF6", "uzf"), ("MVR6", "mvr")):
         if ftype not in pkg_files:
             continue
         if len(pkg_files[ftype]) > 1:
@@ -655,13 +687,18 @@ def _load_gwf_model(ws, mfname, mname, device):
             adv[name], periods = adv_ld.load_maw(path, grid, cellid)
         elif name == "lak":
             adv[name], periods = adv_ld.load_lak(path, grid, cellid, mdir)
-        else:
+        elif name == "sfr":
             adv[name], periods = adv_ld.load_sfr(path, grid, cellid, mdir)
+        elif name == "uzf":
+            cols, flags, periods = adv_ld.load_uzf(path, grid)
+            uzf_entries = (cols, flags)
+        else:
+            movers, periods = adv_ld.load_mvr(path, pkg_name_kind)
         for kper, lines in periods.items():
             adv_periods.setdefault(kper, {})[name] = lines
     base_model = model
-    if adv:
-        model = _augmented(base_model, adv, grid)
+    if adv or movers:
+        model = _augmented(base_model, adv, grid, movers)
 
     # --- OC output files + period selection
     hds_path = cbc_path = oc = None
@@ -669,33 +706,56 @@ def _load_gwf_model(ws, mfname, mname, device):
         hds_path, cbc_path, oc = load_oc(pkg_files["OC6"][0], mdir)
 
     return dict(name=mname, model=model, base_model=base_model, grid=grid,
-                adv_specs=adv, adv_periods=adv_periods, storage=storage,
+                adv_specs=dict(adv, movers=movers, mvr_kinds=pkg_name_kind),
+                uzf_entries=uzf_entries, adv_periods=adv_periods,
+                storage=storage,
                 sto_periods=sto_periods, pkg_periods=pkg_periods,
                 maxbound=maxbound, first_pkgs=first_pkgs,
                 hds_path=hds_path, cbc_path=cbc_path, oc=oc, tvk=tvk,
                 tvs=tvs)
 
 
-def _augmented(base, specs, grid):
-    """The augmented model of ``base`` and the feature specs; THIEM-type MAW
-    conductances from the base's K11/K22."""
+def _augmented(base, specs, grid, movers=None):
+    """The augmented model of ``base``, the feature specs and the movers;
+    THIEM-type MAW conductances from the base's K11/K22."""
     a = base.npf_arrays
     return AugmentedGwfModel(
         base,
         maw=build_maw(specs["maw"], grid, k11=a.k11, k22=a.k22)
-        if "maw" in specs else None,
-        lak=build_lak(*specs["lak"]) if "lak" in specs else None,
-        sfr=build_sfr(specs["sfr"]) if "sfr" in specs else None)
+        if specs.get("maw") else None,
+        lak=build_lak(*specs["lak"]) if specs.get("lak") else None,
+        sfr=build_sfr(specs["sfr"]) if specs.get("sfr") else None,
+        mvr=movers)
 
 
-def _attach_advanced_periods(simulation, bundle):
+def _build_uzf(bundle, device):
+    """UZF columns from the loaded column arrays (gwf-uzf.f90 node
+    geometry: a LANDFLAG column measures from land surface minus surfdep),
+    the reference's ``_build_uzf`` as array code."""
+    cols, flags = bundle["uzf_entries"]
+    grid = bundle["grid"]
+    node = cols["node"]
+    celtop = np.asarray(grid.top).reshape(-1)[node] - np.where(
+        cols["landflag"] != 0, cols["surfdep"], 0.0)
+    return make_uzf(dict(
+        node=node, vks=cols["vks"], thtr=cols["thtr"], thts=cols["thts"],
+        thti=cols["thti"], eps=cols["eps"], celtop=celtop,
+        celbot=np.asarray(grid.bot).reshape(-1)[node],
+        surfdep=cols["surfdep"],
+        area=np.asarray(grid.area).reshape(-1)[node], finf=cols["finf"],
+        pet=cols["pet"], extdp=cols["extdp"], extwc=cols["extwc"]),
+        device=device, **flags)
+
+
+def _attach_advanced_periods(simulation, bundle, device):
     """The advanced packages' later PERIOD blocks (the reference's
-    loader.py:748-794): at each such period's start the settings are
-    applied to the specs, which persist, and the augmented model is
-    rebuilt on the same base, with the same rows.  Unlike the reference's
-    rebuild, this one passes K11/K22 to ``build_maw`` as the first build
-    does, so a THIEM-type well runs; like it, the rebuild starts every MAW
-    SHUT_OFF flag open."""
+    loader.py:744-794): at each such period's start the settings are
+    applied to the specs, which persist (an MVR6 block replaces the
+    movers), and the augmented model is rebuilt on the same base, with
+    the same rows; a UZF6 block rebuilds the columns, whose water content
+    carries on.  Unlike the reference's rebuild, this one passes K11/K22
+    to ``build_maw`` as the first build does, so a THIEM-type well runs;
+    like it, the rebuild starts every MAW SHUT_OFF flag open."""
     specs, periods = bundle["adv_specs"], bundle["adv_periods"]
     apply = dict(maw=adv_ld.apply_maw_period,
                  lak=lambda spec, lines: adv_ld.apply_lak_period(*spec,
@@ -707,11 +767,19 @@ def _attach_advanced_periods(simulation, bundle):
         if not changes:
             return
         for name, lines in changes.items():
-            apply[name](specs[name], lines)
-        simulation.model = _augmented(simulation.model.base, specs,
-                                      bundle["grid"])
-        simulation.solution = NumericalSolution(simulation.model,
-                                                simulation.solution.s)
+            if name == "mvr":
+                specs["movers"] = adv_ld.parse_mvr_period(
+                    lines, specs["mvr_kinds"])
+            elif name == "uzf":
+                adv_ld.apply_uzf_period(bundle["uzf_entries"][0], lines)
+                simulation.uzf = _build_uzf(bundle, device)
+            else:
+                apply[name](specs[name], lines)
+        if changes.keys() - {"uzf"}:
+            simulation.model = _augmented(simulation.model.base, specs,
+                                          bundle["grid"], specs["movers"])
+            simulation.solution = NumericalSolution(simulation.model,
+                                                    simulation.solution.s)
 
     simulation.period_hooks.append(hook)
 
@@ -750,13 +818,149 @@ def _attach_period_data(simulation, pkg_periods, maxbound, first_pkgs,
                for a in (f.name for f in dataclasses.fields(PackageData))})
 
 
+def load_exchange_gwfgwf(path, grid1, grid2):
+    """GWF6-GWF6 exchange file → (pairs, mvr file or None): ``pairs`` maps
+    the ``ExchangePair`` fields to arrays (reference exg-gwfgwf.f90 and
+    DisConnExchange.f90 exchangedata; the MVR6 FILEIN option is the
+    exchange mover, GwfExchangeMover.f90).  Options that would change the
+    exchange's flows and that the merged model cannot honour raise by
+    name; the reference reads past them."""
+    bf = BlockFile(path)
+    opts = bf.options()
+    schema.check_options("exg-gwfgwf", opts, path)
+    _refuse(opts, ("GNC6", "XT3D", "VARIABLECV", "OBS6",
+                   "DEV_INTERFACEMODEL_ON"), path)
+    if str(opts.get("CELL_AVERAGING", "HARMONIC")).upper() != "HARMONIC":
+        raise _not_ported(f"{path}: option CELL_AVERAGING "
+                          f"{opts['CELL_AVERAGING']}")
+    mvr_path = None
+    v = opts.get("MVR6")
+    if isinstance(v, list) and v[0].upper() == "FILEIN":
+        mvr_path = os.path.join(os.path.dirname(path), v[1])
+    aux = opts.get("AUXILIARY")
+    aux_names = [str(a).upper() for a in
+                 (aux if isinstance(aux, list) else [aux])] if aux else []
+    lines = bf.expand_open_close(bf.get("EXCHANGEDATA"))
+    n1, nt1 = adv_ld.cellid_nodes(lines, 0, grid1, path)
+    n2, nt2 = adv_ld.cellid_nodes(lines, nt1, grid2, path)
+    c = nt1 + nt2
+    pairs = dict(node1=n1, node2=n2,
+                 ihc=adv_ld.record_column(lines, c, path, int),
+                 cl1=adv_ld.record_column(lines, c + 1, path),
+                 cl2=adv_ld.record_column(lines, c + 2, path),
+                 hwva=adv_ld.record_column(lines, c + 3, path),
+                 angldegx=(adv_ld.record_column(
+                     lines, c + 4 + aux_names.index("ANGLDEGX"), path)
+                     if "ANGLDEGX" in aux_names else np.zeros(len(lines))))
+    return pairs, mvr_path
+
+
+def _merge_augmented(bundles, exchanges, exg_mvr_files):
+    """Several models with their MAW, LAK and SFR features and movers (the
+    reference's ``_merge_augmented``): the union model carries every
+    model's feature rows, numbered model after model, so an exchange mover
+    is an ordinary mover over the combined feature numbering."""
+    base = merge_gwf_models([b["base_model"] for b in bundles], exchanges)
+    offsets = base.grid.offsets
+    wells, lakes, outlets, reaches = [], [], [], []
+    koff = []   # per model: first well, lake, outlet and reach
+    for b, off in zip(bundles, offsets):
+        specs = b["adv_specs"]
+        koff.append(dict(maw=len(wells), lak=len(lakes),
+                         lak_out=len(outlets), sfr=len(reaches)))
+        for w in specs.get("maw") or []:
+            wells.append(dict(w, connections=[(int(n) + off, *rest) for
+                                              n, *rest in w["connections"]]))
+        if specs.get("lak"):
+            lk0 = koff[-1]["lak"]
+            for lk in specs["lak"][0]:
+                lakes.append(dict(lk, connections=[
+                    (int(c[0]) + off, *c[1:]) for c in lk["connections"]]))
+            for o in specs["lak"][1]:
+                o = dict(o, lake=o["lake"] + lk0)
+                if o.get("to", -1) >= 0:
+                    o["to"] += lk0
+                outlets.append(o)
+        r0 = koff[-1]["sfr"]
+        for r in specs.get("sfr") or []:
+            reaches.append(dict(
+                r, node=int(r["node"]) + off,
+                upstream=[(u + r0, f) for u, f in r.get("upstream", [])],
+                diversions=[dict(d, to=d["to"] + r0)
+                            for d in r.get("diversions", [])]))
+
+    def shift(mv, pm, rm):
+        pk, rk = mv["provider"], mv["receiver"]
+        if pk in ("wel", "drn", "riv", "ghb") and pm != 0:
+            raise NotImplementedError(
+                "standard-package mover providers outside the first model "
+                "of a merged model are not ported (entry offsets are "
+                "period-dependent)")
+        if pk == "lak":
+            mv["iprov"] += koff[pm]["lak_out"]
+        elif pk in koff[pm]:
+            mv["iprov"] += koff[pm][pk]
+        if rk in koff[rm]:
+            mv["ircv"] += koff[rm][rk]
+        return mv
+
+    movers = []
+    for mi, b in enumerate(bundles):
+        for mv in b["adv_specs"].get("movers") or []:
+            movers.append(shift(dict(mv), mi, mi))
+    name_idx = {b["name"].upper(): i for i, b in enumerate(bundles)}
+
+    def kind_of(mname, pname):
+        kind = bundles[name_idx[mname]]["adv_specs"]["mvr_kinds"][pname]
+        if kind is None:
+            raise NotImplementedError(
+                f"MVR6: a mover on {pname}, one of several packages of its "
+                "type, is not ported")
+        return kind
+
+    for path in exg_mvr_files:
+        for mv in adv_ld.load_exchange_mvr(path, kind_of):
+            pm = name_idx[mv.pop("prov_model")]
+            rm = name_idx[mv.pop("recv_model")]
+            movers.append(shift(mv, pm, rm))
+    return _augmented(base, dict(maw=wells, lak=(lakes, outlets)
+                                 if lakes else None, sfr=reaches),
+                      base.grid, movers or None)
+
+
+def _merge_period_data(simulation, bundles, offsets, device):
+    """Several models: each model's period data with MF6 persistence,
+    concatenated with node indices shifted into the merged numbering (the
+    reference's ``_merge_period_data``)."""
+    all_kpers = sorted({kp for b in bundles
+                        for periods in b["pkg_periods"].values()
+                        for kp in periods})
+    mkmap = {a: f for a, _, f in _LIST_PACKAGES.values()}
+    current = [dict(b["first_pkgs"]) for b in bundles]
+    for kper in all_kpers:
+        for mi, b in enumerate(bundles):
+            for attr, periods in b["pkg_periods"].items():
+                if kper in periods:
+                    current[mi][attr] = mkmap[attr](
+                        periods[kper], maxbound=b["maxbound"][attr],
+                        device=device)
+        merged = {}
+        for attr in mkmap:
+            datas = [cur.get(attr) for cur in current]
+            live = [d for d in datas if d is not None]
+            if live:
+                merged[attr] = _concat_pkg(type(live[0]), datas, offsets)
+        simulation.period_data[kper] = PackageData(**merged)
+
+
 def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
                     device=None):
     """Load mfsim.nam and everything it references → Simulation.
 
-    Supported: one GWF6 model with one IMS solution (see the
-    module docstring).  ``device=None`` puts the model on the CUDA device
-    and raises when there is none; pass ``"cpu"`` to run on the CPU.
+    Supported: GWF6 models, one or several joined by GWF6-GWF6 exchanges,
+    with one IMS solution (see the module docstring).  ``device=None``
+    puts the model on the CUDA device and raises when there is none; pass
+    ``"cpu"`` to run on the CPU.
     """
     device = resolve_device(device)
     ws = os.path.abspath(workspace)
@@ -779,11 +983,24 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
         if mtype != "GWF6":
             raise _not_ported(f"mfsim.nam: model type {mtype}")
         entries.append((toks[1], mname))
-    if len(entries) > 1:
-        raise _not_ported("mfsim.nam: more than one model")
+    names = [mname for _, mname in entries]
+    exchange_entries = []
     exg_blk = sim.get("EXCHANGES")
-    if exg_blk is not None and exg_blk.lines:
-        raise _not_ported(f"mfsim.nam: exchange {exg_blk.lines[0][0].upper()}")
+    for toks in (exg_blk.lines if exg_blk is not None else []):
+        etype, m1, m2 = toks[0].upper(), toks[2].upper(), toks[3].upper()
+        if etype != "GWF6-GWF6":
+            raise _not_ported(f"mfsim.nam: exchange {etype}")
+        if m1 == m2:
+            raise _not_ported(f"mfsim.nam: exchange GWF6-GWF6 of model {m1} "
+                              "with itself")
+        for m in (m1, m2):
+            if m not in names:
+                raise ValueError(f"mfsim.nam: exchange names model {m}, "
+                                 "which MODELS does not list")
+        exchange_entries.append((toks[1], names.index(m1), names.index(m2)))
+    if len(entries) > 1 and not exchange_entries:
+        raise _not_ported("mfsim.nam: more than one model without a "
+                          "GWF6-GWF6 exchange (separate solutions)")
 
     # solution groups → the model's IMS settings
     settings = None
@@ -794,13 +1011,19 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     if settings is None:
         settings = ImsSettings()
 
-    mfname, mname = entries[0]
-    bundle = _load_gwf_model(ws, mfname, mname, device)
+    bundles = [_load_gwf_model(ws, mfname, mname, device)
+               for mfname, mname in entries]
+    if len(bundles) == 1:
+        bundle = bundles[0]
+        model = bundle["model"]
+    else:
+        model = _merged_model(ws, bundles, exchange_entries)
+        bundle = bundles[0]
     # SFR routing, the LAK cascade and Newton Jacobians are asymmetric: CG
     # diverges there (the reference program requires BICGSTAB for
     # asymmetric systems); upgrade with a warning
-    if (bundle["model"].inewton or "sfr" in bundle["adv_specs"]
-            or "lak" in bundle["adv_specs"]) \
+    if any(b["base_model"].inewton or b["adv_specs"].get("sfr")
+           or b["adv_specs"].get("lak") for b in bundles) \
             and settings.linear_acceleration == "cg":
         warnings.warn("deck requests CG but the system is asymmetric "
                       "(SFR/LAK/Newton); using BICGSTAB", stacklevel=2)
@@ -809,17 +1032,56 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     transient = _transient_flags(tdis, bundle["storage"],
                                  bundle["sto_periods"])
     simulation = Simulation(
-        tdis, bundle["model"], settings, transient=transient,
+        tdis, model, settings, transient=transient,
         hds_path=hds_path or bundle["hds_path"],
         cbc_path=cbc_path or bundle["cbc_path"],
         lst_path=lst_path, oc=bundle["oc"])
     # reference failure semantics: abort on nonconvergence unless the
     # simulation CONTINUE option is set (sim-nam continue keyword)
     simulation.fail_fast = "CONTINUE" not in sopts
+    if len(bundles) > 1:
+        _merge_period_data(simulation, bundles, model.grid.offsets, device)
+        return simulation
     simulation.tvk = bundle["tvk"]
     simulation.tvs = bundle["tvs"]
+    if bundle["uzf_entries"] is not None:
+        simulation.uzf = _build_uzf(bundle, device)
     if bundle["adv_periods"]:
-        _attach_advanced_periods(simulation, bundle)
+        _attach_advanced_periods(simulation, bundle, device)
     _attach_period_data(simulation, bundle["pkg_periods"],
                         bundle["maxbound"], bundle["first_pkgs"], device)
     return simulation
+
+
+def _merged_model(ws, bundles, exchange_entries):
+    """Several loaded models and their GWF6-GWF6 exchanges → one merged
+    model (an augmented one when a model has features or movers, or an
+    exchange has an MVR6 file).  What the reference refuses raises by
+    name, and so do later PERIOD blocks of the features, the movers and
+    UZF, which the reference would apply to the first model alone."""
+    for b in bundles:
+        if b["uzf_entries"] is not None:
+            raise _not_ported("UZF in a merged (multi-model) simulation")
+        if b["base_model"].csub is not None:
+            raise _not_ported("CSUB in a merged (multi-model) simulation")
+        if b["tvk"] or b["tvs"]:
+            raise _not_ported("TVK/TVS with several models")
+        if b["adv_periods"]:
+            late = sorted({name.upper() for changes in
+                           b["adv_periods"].values() for name in changes})
+            raise _not_ported(
+                f"{b['name']}: later PERIOD blocks of {', '.join(late)} in "
+                "a merged (multi-model) simulation")
+    exchanges, exg_mvr_files = [], []
+    for efile, i1, i2 in exchange_entries:
+        pairs, mvr_path = load_exchange_gwfgwf(
+            os.path.join(ws, efile), bundles[i1]["grid"],
+            bundles[i2]["grid"])
+        exchanges.append(GwfGwfExchange(i1, i2, pairs))
+        if mvr_path:
+            exg_mvr_files.append(mvr_path)
+    if exg_mvr_files or any(
+            b["adv_specs"].get(k) for b in bundles
+            for k in ("maw", "lak", "sfr", "movers")):
+        return _merge_augmented(bundles, exchanges, exg_mvr_files)
+    return merge_gwf_models([b["model"] for b in bundles], exchanges)

@@ -704,8 +704,10 @@ def test_r1_reference_thiem_well_takes_the_cell_area():
 def test_r3_r4_refused_with_features():
     """R3: CSUB beside a feature package runs without CSUB in the
     reference; R4: XT3D under an augmented model cannot be built there.
-    The port raises by name for both, and for rewetting, MVR, the
-    multigrid preconditioner and TVK/TVS."""
+    The port raises by name for both, and for rewetting, the multigrid
+    preconditioner and TVK/TVS.  MVR is ported: a mover whose receiver
+    the model lacks raises the reference's ValueError, and a model
+    without movers reports none."""
     grid = row_grid(4, 10.0, 10.0)
     maw = build_maw([dict(radius=0.2, strt=5.0, connections=[(1, 1.0)])],
                     DisGrid.create(**grid))
@@ -721,12 +723,12 @@ def test_r3_r4_refused_with_features():
         with pytest.raises(NotImplementedError, match=what):
             AugmentedGwfModel(model, maw=maw)
     model = build_gwf("m", DisGrid.create(**grid), device="cpu", **base)
-    with pytest.raises(NotImplementedError, match="MVR"):
-        AugmentedGwfModel(model, maw=maw, mvr=[dict(provider="maw")])
+    with pytest.raises(ValueError, match="receiver 'sfr' not present"):
+        AugmentedGwfModel(model, maw=maw, mvr=[dict(
+            provider="maw", iprov=0, receiver="sfr", ircv=0,
+            mvrtype="factor", value=1.0)])
     aug = AugmentedGwfModel(model, maw=maw)
-    for method in (aug.eval_movers, aug.mvr_budget):
-        with pytest.raises(NotImplementedError, match="MVR"):
-            method(aug.strt)
+    assert aug.mvr is None and aug.mvr_budget(aug.strt) == []
     with pytest.raises(NotImplementedError, match="multigrid"):
         NumericalSolution(aug, ImsSettings(preconditioner="mg")) \
             .solve_timestep(aug.strt, 1.0)

@@ -331,9 +331,18 @@ def test_sfr_cross_sections_block_is_read(tmp_path):
 def test_unported_advanced_input_raises_by_name(case, tmp_path):
     """Options and settings that would change the flows and that no
     loader implements raise NotImplementedError naming them (the
-    reference reads past them); UZF6 and MVR6 stay refused."""
+    reference reads past them): UZF6's UNSAT_ETAE, and MODELNAMES in a
+    model's MVR6 (records of an exchange's mover, which the reference
+    would misread)."""
     pkgs = {"maw-option": "  MAW6 model.maw maw-1",
-            "uzf": "  UZF6 model.uzf uzf", "mvr": "  MVR6 model.mvr mvr"}
+            "uzf": "  UZF6 model.uzf uzf",
+            "mvr": "  SFR6 model.sfr sfr-1\n  MVR6 model.mvr mvr"}
+    write(str(tmp_path), "model.uzf", "BEGIN OPTIONS\n  UNSAT_ETAE\n"
+          "END OPTIONS\nBEGIN PACKAGEDATA\n"
+          "  1 1 1 2 1 0 0.5 0.3 0.05 0.35 0.1 3.5\nEND PACKAGEDATA\n")
+    write(str(tmp_path), "model.mvr", "BEGIN OPTIONS\n  MODELNAMES\n"
+          "END OPTIONS\nBEGIN PERIOD 1\n  M1 SFR-1 1 M1 SFR-1 2 UPTO 1.0\n"
+          "END PERIOD\n")
     _sim_files(str(tmp_path), pkgs.get(case, "  SFR6 model.sfr sfr-1"))
     write(str(tmp_path), "model.maw", MAW_DECK.format(
         eqn="SPECIFIED", extra="").replace(
@@ -341,11 +350,11 @@ def test_unported_advanced_input_raises_by_name(case, tmp_path):
     sfr = SFR_DECK.split("BEGIN PERIOD 2")[0]
     if case == "sfr-storage":
         sfr = sfr.replace("BEGIN OPTIONS\n", "BEGIN OPTIONS\n  STORAGE\n")
-    else:
+    elif case == "sfr-status":
         sfr = sfr.replace("1 INFLOW 1.0", "2 STATUS INACTIVE")
     write(str(tmp_path), "model.sfr", sfr)
     match = {"maw-option": "LENGTH_CONVERSION", "sfr-storage": "STORAGE",
-             "sfr-status": "STATUS INACTIVE", "uzf": "UZF6",
-             "mvr": "MVR6"}[case]
+             "sfr-status": "STATUS INACTIVE", "uzf": "UNSAT_ETAE",
+             "mvr": "MODELNAMES"}[case]
     with pytest.raises(NotImplementedError, match=match):
         load(tmp_path)

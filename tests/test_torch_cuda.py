@@ -3,8 +3,9 @@ its plain version, a fused step on the card against the CPU (with each
 preconditioner), one multigrid application whose every level launches the
 kernel, a small input deck run through the deck path on the card against
 the CPU, the small Newton, PTC and rewetting models of chip_smoke.py,
-and its small MAW, LAK and SFR models with repeated sums (two card runs
-bitwise equal).
+its small MAW, LAK and SFR models with repeated sums (two card runs
+bitwise equal), and its small coupling twins (UZF with seepage and
+groundwater ET, a mover chain, a two-model exchange mover).
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -422,3 +423,16 @@ def test_augmented_runs_on_card_are_bitwise_equal(cuda):
     assert stencil.stencil7.launches == 0
     assert out[0][0] == out[1][0]
     assert np.array_equal(out[0][1], out[1][1])
+
+
+@pytest.mark.parametrize("twin", ["uzf seepage and gw et",
+                                  "sfr-lak-maw mover chain",
+                                  "two-model exchange mover"])
+def test_small_coupling_twins_on_card_match_cpu(cuda, twin):
+    """chip_smoke.py's small coupling twins on the card against the CPU:
+    UZF columns with seepage and groundwater ET (CG: equal counts and
+    uzf_cc passes, heads within 1e-10), the SFR→LAK→MAW mover chain and
+    a two-model SFR→SFR exchange mover (BiCGSTAB: equal outer counts,
+    heads within 10 × outer_dvclose)."""
+    from chip_smoke import check_small_coupling
+    check_small_coupling(cuda, names=[twin])

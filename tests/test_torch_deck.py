@@ -45,7 +45,8 @@ from modflow6_tpu.utils.binary import read_budget_file as ref_read_budget
 from modflow6_tpu.utils.binary import read_head_file as ref_read_heads
 from modflow6_tpu.utils.mf6io import load_simulation as ref_load
 from modflow6_tpu.utils.mf6io import schema as ref_schema
-from modflow6_torch.convert import augmented_state, simulation_from_reference
+from modflow6_torch.convert import (augmented_state, simulation_from_reference,
+                                    uzf_state)
 from modflow6_torch.models.simulation import ConvergenceFailure
 from modflow6_torch.ops import stencil
 from modflow6_torch.ops.system import apply_dirichlet_structured
@@ -111,7 +112,9 @@ def simulation_state(sim):
                    for pkg in PACKAGES if getattr(pd, pkg) is not None}
             for kper, pd in sim.period_data.items()},
         oc=None if sim.oc is None else sim.oc.periods,
-        fail_fast=sim.fail_fast, tvk=sim.tvk, tvs=sim.tvs)
+        fail_fast=sim.fail_fast, tvk=sim.tvk, tvs=sim.tvs,
+        uzf=None if getattr(sim, "uzf", None) is None
+        else uzf_state(sim.uzf))
 
 
 def assert_same_state(got, want):
@@ -135,6 +138,12 @@ def assert_same_state(got, want):
             else:
                 np.testing.assert_array_equal(value, want[section][key],
                                               err_msg=key)
+    assert (got["uzf"] is None) == (want["uzf"] is None)
+    if got["uzf"] is not None:
+        assert got["uzf"]["flags"] == want["uzf"]["flags"]
+        for key, value in want["uzf"]["columns"].items():
+            np.testing.assert_array_equal(got["uzf"]["columns"][key], value,
+                                          err_msg=key)
     assert got["period_data"].keys() == want["period_data"].keys()
     for kper, pkgs in got["period_data"].items():
         assert pkgs.keys() == want["period_data"][kper].keys(), kper
@@ -572,6 +581,29 @@ BEGIN PERIOD 1
   1 EVAPORATION 0.0005
 END PERIOD
 """
+UZF_FILE = """BEGIN OPTIONS
+  SIMULATE_ET
+END OPTIONS
+BEGIN DIMENSIONS
+  NUZFCELLS 2
+END DIMENSIONS
+BEGIN PACKAGEDATA
+  1 1 2 2 1 0 0.5 0.3 0.05 0.35 0.1 3.5
+  2 1 4 3 0 0 0.5 0.2 0.06 0.3 0.1 4.0
+END PACKAGEDATA
+BEGIN PERIOD 1
+  1 2.0e-3 1.0e-3 2.0 0.08
+  2 1.0e-3
+END PERIOD
+"""
+MVR_FILE = """BEGIN DIMENSIONS
+  MAXMVR 1
+  MAXPACKAGES 2
+END DIMENSIONS
+BEGIN PERIOD 1
+  WEL-1 1 SFR-1 1 UPTO 1.0
+END PERIOD
+"""
 LAK_TABLE = """BEGIN DIMENSIONS
   NROW 3
   NCOL 3
@@ -598,11 +630,12 @@ UNSUPPORTED = {
     "SFR6": ("m.nam", _add_package("SFR6 m.sfr"), {"m.sfr": SFR_FILE}),
     "LAK6": ("m.nam", _add_package("LAK6 m.lak"), {"m.lak": LAK_FILE,
                                                    "lak.tab": LAK_TABLE}),
-    "UZF6": ("m.nam", _add_package("UZF6 m.uzf")),
+    "UZF6": ("m.nam", _add_package("UZF6 m.uzf"), {"m.uzf": UZF_FILE}),
     "CSUB6": ("m.nam", _add_package("CSUB6 m.csub"), {"m.csub": CSUB_FILE}),
     "BUY6": ("m.nam", _add_package("BUY6 m.buy"), {"m.buy": BUY_FILE}),
     "HFB6": ("m.nam", _add_package("HFB6 m.hfb")),
-    "MVR6": ("m.nam", _add_package("MVR6 m.mvr")),
+    "MVR6": ("m.nam", _add_package("SFR6 m.sfr sfr-1\n  MVR6 m.mvr"),
+             {"m.sfr": SFR_FILE, "m.mvr": MVR_FILE}),
     "OBS6": ("m.nam", _add_package("OBS6 m.obs")),
     "DISV6": ("m.nam", lambda t: t.replace("DIS6 m.dis", "DISV6 m.disv")),
     "DISU6": ("m.nam", lambda t: t.replace("DIS6 m.dis", "DISU6 m.disu")),
@@ -647,7 +680,8 @@ UNSUPPORTED = {
 # from a deck of their own (the array deck's cell ids are DIS ones).
 PORTED = ("NEWTON", "REWET", "AUTO_FLOW_REDUCE", "PRECONDITIONER_LEVELS",
           "PRECONDITIONER_DROP_TOLERANCE", "DRN6", "RIV6", "GHB6", "EVT6",
-          "CSUB6", "BUY6", "TVK6", "TVS6", "MAW6", "SFR6", "LAK6")
+          "CSUB6", "BUY6", "TVK6", "TVS6", "MAW6", "SFR6", "LAK6", "UZF6",
+          "MVR6")
 GENERAL_GRIDS = {"DISV6": "disv", "DISU6": "disu"}
 
 
@@ -690,6 +724,9 @@ def test_loader_raises_outside_the_slice(key, tmp_path):
             "MAW6": "maw_rate" in got["arrays"],
             "SFR6": "sfr_divflow" in got["arrays"],
             "LAK6": "lak_tab_stage" in got["arrays"],
+            "UZF6": got["uzf"] is not None,
+            "MVR6": tuple(got["arrays"].get("mvr_prov_pkg", ())) == (
+                "wel",),
         }.get(key, got["settings"]["preconditioner"] == "chebyshev")
         assert changed
         return
@@ -740,14 +777,14 @@ def test_load_simulation_runs_on_the_card_unless_asked(tmp_path):
     ["sim-nam", "sim-tdis", "sln-ims", "gwf-nam", "gwf-dis", "gwf-ic",
      "gwf-npf", "gwf-sto", "gwf-chd", "gwf-wel", "gwf-rch", "gwf-rcha",
      "gwf-oc", "gwf-buy", "gwf-csub", "gwf-maw", "gwf-lak", "gwf-sfr",
-     "utl-laktab", "utl-sfrtab"]))
+     "utl-laktab", "utl-sfrtab", "gwf-uzf", "gwf-mvr", "exg-gwfgwf"]))
 def test_schema_component_is_the_reference(component):
     assert schema.load_schema()[component] == ref_schema.load_schema()[
         component]
 
 
 def test_schema_holds_only_the_loaded_components():
-    assert len(schema.load_schema()) == 26
+    assert len(schema.load_schema()) == 29
 
 
 # ------------------------------------------------------------- deck runs
