@@ -36,7 +36,16 @@ model twice (bitwise equal) and as an MVR6 deck, and the bench grid split
 into two models joined by GWF6-GWF6 exchanges, merged and run over the
 gather against the single model, and as a two-model deck through the
 command-line entry; with small UZF, mover-chain and exchange-mover twins
-on the card against the CPU in the ``small`` phase.
+on the card against the CPU in the ``small`` phase; and the utilities
+(``utilities``): the bench grid as a deck whose wells, east CHD column and
+recharge follow TS6 series and a TAS6 time-array series, with 4096 head
+and drawdown observations, flow observations and a NetCDF export, through
+the command-line entry against an in-memory model whose step values this
+script computes, its observations against the .hds and .cbc files and a
+zone budget of its .cbc; the same deck with period 1 stepping adaptively
+(ATS) with retries, twice and replayed as fixed steps; and a million-cell
+MODFLOW-2005 deck converted by mf5to6 and run against the same model
+built in memory.
 
 Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          without one, and on any failed
@@ -53,7 +62,7 @@ Output of the smoke run, in order: the device, the kernel build,
 kernel-vs-plain checks with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
 general-path runs, the property-package runs, the advanced-package runs,
-the coupling runs, one JSON line
+the coupling runs, the utilities runs, one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -65,6 +74,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -88,7 +98,7 @@ from modflow6_torch.models.gwf import advanced               # noqa: E402
 from modflow6_torch.models.gwf.advanced import (             # noqa: E402
     AugmentedGwfModel, build_lak, build_maw, build_sfr)
 from modflow6_torch.models.gwf.builder import (              # noqa: E402
-    build_gwf, chd_data)
+    build_gwf, chd_data, rch_data, wel_data)
 from modflow6_torch.models.gwf.gnc import build_gnc          # noqa: E402
 from modflow6_torch.models.gwf.model import PackageData      # noqa: E402
 from modflow6_torch.models.simulation import Simulation      # noqa: E402
@@ -3488,6 +3498,588 @@ def run_coupling(device, shape=BENCH_SHAPE):
     return launches
 
 
+# ------------------------------------------------------------ utilities
+
+# the utilities deck: two periods of three steps whose ends fall between
+# the series' knots (UTIL_KNOTS), so that the step averages integrate
+# across knots
+UTIL_PERIODS = ((10.0, 3, 1.5), (10.0, 3, 0.7))
+UTIL_KNOTS = (0.0, 3.3, 7.7, 12.1, 16.5, 21.0)
+UTIL_TAS_TIMES = (0.0, 8.8, 21.0)
+UTIL_METHODS = ("stepwise", "linear", "linearend")
+UTIL_OBS_CELLS = 4096       # HEAD and DRAWDOWN observations
+UTIL_ZONES = 8              # 4 quadrants x 2 layer pairs
+
+
+def util_series():
+    """The eight well series (names, methods, SFACs and values at
+    UTIL_KNOTS, the values before SFAC) and the east CHD column's LINEAR
+    series, as the TS6 file states them."""
+    rng = np.random.default_rng(808)
+    names = [f"q{n}" for n in range(8)] + ["east"]
+    methods = [UTIL_METHODS[n % 3] for n in range(8)] + ["linear"]
+    sfacs = [1.5 if n == 5 else 1.0 for n in range(8)] + [1.0]
+    values = np.concatenate([
+        rng.uniform(-900.0, -100.0, (8, len(UTIL_KNOTS))),
+        np.array([[35.0, 34.0, 36.5, 33.0, 35.5, 34.5]])])
+    return names, methods, sfacs, values
+
+
+def util_layout(shape):
+    """Node numbers of the utilities deck's stresses and observations:
+    the wells on a lattice in layer 3 (32 x 32 at full width), the west
+    and east CHD columns, the observed cells of HEAD and DRAWDOWN, and the
+    cells and wells of the flow observations."""
+    nlay, nrow, ncol = shape
+    side = min(32, nrow // 2, ncol // 2)
+    rows = (np.arange(side) * nrow) // side + nrow // (2 * side)
+    cols = (np.arange(side) * ncol) // side + ncol // (2 * side)
+    k = min(2, nlay - 1)
+    wells = (k * nrow * ncol + rows[:, None] * ncol + cols[None, :]).reshape(-1)
+    west = np.arange(nrow) * ncol
+    east = west + ncol - 1
+    rng = np.random.default_rng(809)
+    nobs = min(UTIL_OBS_CELLS, nlay * nrow * ncol // 4)
+    obs = rng.choice(nlay * nrow * ncol, nobs, replace=False)
+    step = max(1, nrow // 16)
+    return dict(wells=wells, west=west, east=east, obs=obs,
+                obs_wells=np.arange(0, wells.size, 16),
+                obs_chd=np.concatenate([west[::step], east[::step]]),
+                obs_rch=rng.choice(nrow * ncol, 32, replace=False))
+
+
+def util_tas_arrays(shape):
+    """The three recharge arrays of the TAS6 file, one per TIME block."""
+    _, nrow, ncol = shape
+    rng = np.random.default_rng(810)
+    base = rng.uniform(0.0, 2e-4, nrow * ncol)
+    return np.stack([base * f for f in (0.5, 1.5, 0.8)])
+
+
+def _cellid(node, shape):
+    _, nrow, ncol = shape
+    k, rest = divmod(int(node), nrow * ncol)
+    i, j = divmod(rest, ncol)
+    return f"{k + 1} {i + 1} {j + 1}"
+
+
+def write_utilities_deck(ws, shape):
+    """The bench deck with the series, the time-array recharge, the
+    observations and the NetCDF export (``write_flagship_deck`` writes the
+    grid, K, IC, STO, IMS and OC files).  Returns the layout."""
+    nlay, nrow, ncol = shape
+    lay = util_layout(shape)
+    names, methods, sfacs, values = util_series()
+    write_flagship_deck(
+        ws, nlay, nrow, ncol, tdis=list(UTIL_PERIODS),
+        sto_periods=["TRANSIENT"], chd=[], wel=[], rcha=None,
+        extra_packages=("CHD6 util.chd", "WEL6 util.wel", "RCH6 util.rcha",
+                        "OBS6 util.obs"),
+        oc_extra="  SAVE HEAD ALL\n")
+    # heads at every step (for the observations and NetCDF), budgets at
+    # each period's last step
+    oc = open(os.path.join(ws, "m.oc")).read().replace(
+        "  SAVE HEAD LAST\n", "")
+    _write(ws, "m.oc", oc)
+    nam = open(os.path.join(ws, "m.nam")).read()
+    nam = nam.replace("  CHD6 m.chd\n", "")
+    _write(ws, "m.nam", "BEGIN OPTIONS\n  NETCDF_STRUCTURED FILEOUT util.nc\n"
+           "END OPTIONS\n" + nam)
+    rows = "\n".join(f"  {k} " + " ".join(repr(float(v)) for v in vals)
+                     for k, vals in zip(UTIL_KNOTS, values.T))
+    _write(ws, "util.ts", "BEGIN ATTRIBUTES\n"
+           f"  NAMES {' '.join(names)}\n  METHODS {' '.join(methods)}\n"
+           f"  SFACS {' '.join(repr(s) for s in sfacs)}\nEND ATTRIBUTES\n"
+           f"BEGIN TIMESERIES\n{rows}\nEND TIMESERIES\n")
+    chd = [f"  {_cellid(n, shape)} 45.0" for n in lay["west"]] + [
+        f"  {_cellid(n, shape)} east" for n in lay["east"]]
+    _write(ws, "util.chd", "BEGIN OPTIONS\n  TS6 FILEIN util.ts\nEND OPTIONS\n"
+           f"BEGIN DIMENSIONS\n  MAXBOUND {len(chd)}\nEND DIMENSIONS\n"
+           "BEGIN PERIOD 1\n" + "\n".join(chd) + "\nEND PERIOD\n")
+    wel = [f"  {_cellid(n, shape)} q{w % 8} w{w}"
+           for w, n in enumerate(lay["wells"])]
+    _write(ws, "util.wel", "BEGIN OPTIONS\n  BOUNDNAMES\n  TS6 FILEIN util.ts\n"
+           f"END OPTIONS\nBEGIN DIMENSIONS\n  MAXBOUND {len(wel)}\n"
+           "END DIMENSIONS\nBEGIN PERIOD 1\n" + "\n".join(wel)
+           + "\nEND PERIOD\n")
+    blocks = []
+    for t, arr in zip(UTIL_TAS_TIMES, util_tas_arrays(shape)):
+        fname = f"rch_{len(blocks)}.bin"
+        with open(os.path.join(ws, fname), "wb") as f:
+            f.write(struct.pack("<iidd16siii", 1, 1, 1.0, 1.0,
+                                b"RECHARGE".rjust(16), ncol, nrow, 1))
+            np.asarray(arr, "<f8").tofile(f)
+        blocks.append(f"BEGIN TIME {t!r}\n  OPEN/CLOSE {fname} (BINARY)\n"
+                      "END TIME\n")
+    _write(ws, "util.tas", "BEGIN ATTRIBUTES\n  NAME rts\n  METHOD LINEAR\n"
+           "END ATTRIBUTES\n" + "".join(blocks))
+    _write(ws, "util.rcha", "BEGIN OPTIONS\n  READASARRAYS\n"
+           "  TAS6 FILEIN util.tas\nEND OPTIONS\nBEGIN PERIOD 1\n"
+           "  RECHARGE TIMEARRAYSERIES rts\nEND PERIOD\n")
+    half = lay["obs"].size // 2
+    heads = [f"  h{n} HEAD {_cellid(n, shape)}" for n in lay["obs"][:half]]
+    heads += [f"  d{n} DRAWDOWN {_cellid(n, shape)}"
+              for n in lay["obs"][half:]]
+    flows = [f"  qw{w} WEL w{w}" for w in lay["obs_wells"]]
+    flows += [f"  qc{n} CHD {_cellid(n, shape)}" for n in lay["obs_chd"]]
+    flows += [f"  qr{n} RCH {_cellid(n, shape)}" for n in lay["obs_rch"]]
+    _write(ws, "util.obs", "BEGIN CONTINUOUS FILEOUT heads.csv\n"
+           + "\n".join(heads) + "\nEND CONTINUOUS\n"
+           "BEGIN CONTINUOUS FILEOUT flows.csv\n" + "\n".join(flows)
+           + "\nEND CONTINUOUS\n")
+    return lay
+
+
+def np_series_average(times, values, method, t0, t1):
+    """A series' value for the step [t0, t1] in numpy, written apart from
+    modflow6_torch/utils/timeseries.py: the exact average of the stepwise
+    or piecewise-linear function (clamped at its ends), or its end value
+    (LINEAREND)."""
+    times = np.asarray(times, np.float64)
+    if method == "linearend":
+        return float(np.interp(t1, times, values))
+    pts = np.concatenate([[t0], times[(times > t0) & (times < t1)], [t1]])
+    if method == "stepwise":
+        idx = np.clip(np.searchsorted(times, pts[:-1], "right") - 1, 0, None)
+        return float(np.sum(values[idx] * np.diff(pts)) / (t1 - t0))
+    v = np.interp(pts, times, values)
+    return float(np.sum(0.5 * (v[:-1] + v[1:]) * np.diff(pts)) / (t1 - t0))
+
+
+def np_array_average(times, arrays, t0, t1):
+    """The LINEAR time-array series' step average, cell by cell."""
+    times = np.asarray(times, np.float64)
+    pts = np.concatenate([[t0], times[(times > t0) & (times < t1)], [t1]])
+    i = np.clip(np.searchsorted(times, pts, "right"), 1, times.size - 1)
+    w = np.clip((pts - times[i - 1]) / (times[i] - times[i - 1]), 0.0, 1.0)
+    at = (1.0 - w)[:, None] * arrays[i - 1] + w[:, None] * arrays[i]
+    return (0.5 * (at[:-1] + at[1:]) * np.diff(pts)[:, None]).sum(0) \
+        / (t1 - t0)
+
+
+def util_in_memory(device, shape, lay, settings):
+    """The utilities deck as an in-memory model whose per-step CHD, WEL
+    and RCH values this script computes with numpy: one single-step period
+    per step of the deck, each with its PackageData."""
+    nlay, nrow, ncol = shape
+    names, methods, sfacs, values = util_series()
+    arrays = util_tas_arrays(shape)
+    model = build_gwf("UTIL", flagship_grid(nlay, nrow, ncol), device=device,
+                      k=flagship_kfield(nlay, nrow, ncol), strt=40.0,
+                      storage={"ss": 1e-5, "iconvert": 0})
+    steps = list(Tdis(tuple(StressPeriod(*p) for p in UTIL_PERIODS)).walk())
+    period_data, t0 = {}, 0.0
+    ncpl = nrow * ncol
+    for k, (_, _, delt, _, totim) in enumerate(steps, start=1):
+        avg = [np_series_average(UTIL_KNOTS, values[n] * sfacs[n],
+                                 methods[n], t0, t0 + delt)
+               for n in range(len(names))]
+        period_data[k] = PackageData(
+            chd=chd_data([(n, 45.0) for n in lay["west"]]
+                         + [(n, avg[8]) for n in lay["east"]], device=device),
+            wel=wel_data([(n, avg[w % 8]) for w, n in
+                          enumerate(lay["wells"])], device=device),
+            rch=rch_data(np.column_stack([np.arange(ncpl), np_array_average(
+                UTIL_TAS_TIMES, arrays, t0, t0 + delt)]), device=device))
+        t0 = totim
+    sim = Simulation(Tdis(tuple(StressPeriod(s[2], 1, 1.0) for s in steps)),
+                     model, settings, transient=[True] * len(steps))
+    sim.period_data.update(period_data)
+    return sim
+
+
+def netcdf3_record_limit(shape):
+    """How many heads records of ``shape`` one classic NetCDF-3 file
+    holds, and what scipy's writer does one past it: it packs a
+    variable's byte size as a signed 32-bit int, so nt records of N
+    float64 values fit while nt * N * 8 < 2**31."""
+    import scipy
+    from scipy.io import netcdf_file
+    rec = int(np.prod(shape)) * 8
+    nt = (2**31 - 1) // rec
+    f = netcdf_file(io.BytesIO(), "w")
+    f._pack_int(nt * rec)
+    try:
+        f._pack_int((nt + 1) * rec)
+        past = "packs a wrapped size"
+    except OverflowError as err:
+        past = f"raises OverflowError ({err})"
+    return nt, rec, f"{past} (scipy {scipy.__version__}, numpy " \
+        f"{np.__version__})"
+
+
+def _csv_rows(path):
+    lines = open(path).read().splitlines()
+    return lines[0].split(",")[1:], [line.split(",") for line in lines[1:]]
+
+
+@contextlib.contextmanager
+def captured_loads(device):
+    """The Simulations that ``load_simulation`` returns (the command-line
+    entry's among them) and the seconds each load took."""
+    from modflow6_torch.utils import mf6io
+    load = mf6io.load_simulation
+    loads = []
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        sim = load(*args, **kwargs)
+        sync(device)
+        loads.append((sim, time.perf_counter() - t))
+        return sim
+
+    mf6io.load_simulation = timed
+    try:
+        yield loads
+    finally:
+        mf6io.load_simulation = load
+
+
+def run_utilities_deck(device, shape):
+    """(a) The series-driven, observed deck through the command-line
+    entry, held against an in-memory model with the script's own step
+    values; the observation CSV files against the .hds and .cbc files,
+    the NetCDF file against the .hds file, and a zone budget of the .cbc.
+    Returns (launches, workspace) ."""
+    from modflow6_torch.utils.netcdf import read_netcdf_structured
+    from modflow6_torch.utils.zonebudget import (ZoneBudget, read_cbc_step,
+                                                 zonebudget_from_cbc)
+    from modflow6_torch.utils.binary import read_budget_file
+    nlay, nrow, ncol = shape
+    ws = tempfile.mkdtemp(prefix="util_")
+    t0 = time.perf_counter()
+    lay = write_utilities_deck(ws, shape)
+    write_s = time.perf_counter() - t0
+    lst = os.path.join(ws, "cli.lst")
+    out = io.StringIO()
+    with captured_loads(device) as loads, counted_run() as counts, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        code = cli_main([ws, "--lst", lst]
+                        + ([] if torch.device(device).type == "cuda"
+                           else ["--device", "cpu"]))
+        sync(device)
+        cli_s = time.perf_counter() - t0
+    launches = counts["launches"]
+    sim, load_s = loads[0]
+    recs = sim.records
+    print(f"utilities (a) deck cli exit={code} cells={sim.model.nodes} "
+          f"wells={lay['wells'].size} obs={UTIL_OBS_CELLS} written_s={write_s!r} "
+          f"wall_s={cli_s!r} load_s={load_s!r} "
+          f"counts={[(r.outer, r.inner) for r in recs]} "
+          f"solve_s={[r.solve_seconds for r in recs]!r} "
+          f"output_s={[r.output_seconds for r in recs]!r} "
+          f"stencil7_launches={launches} "
+          f"plain_on_cuda={counts['plain_on_cuda']} "
+          f"budget_percent_discrepancy={sim.budget.percent_discrepancy()!r} "
+          f"stdout={out.getvalue().strip()!r}")
+    if code != 0 or "Normal termination" not in out.getvalue() \
+            or len(recs) != 6 or not all(r.converged for r in recs):
+        raise AssertionError("the utilities deck did not end normally")
+    if launches < sum(r.inner for r in recs) or counts["plain_on_cuda"]:
+        raise AssertionError("the utilities deck did not multiply through "
+                             "the stencil kernel")
+
+    # the in-memory twin with the script's own step values
+    twin = util_in_memory(device, shape, lay, sim.solution.s)
+    with counted_run() as tcounts:
+        t0 = time.perf_counter()
+        trecs = twin.run()
+        sync(device)
+        twin_s = time.perf_counter() - t0
+    launches += tcounts["launches"]
+    err = max(float(np.abs(a.head - b.head).max())
+              for a, b in zip(recs, trecs))
+    print(f"utilities (a) in-memory twin counts="
+          f"{[(r.outer, r.inner) for r in trecs]} run_s={twin_s!r} "
+          f"max|h_deck - h_twin|={err!r} bar={DECK_FUSED_ATOL!r} "
+          f"stencil7_launches={tcounts['launches']}")
+    if [(r.outer, r.inner) for r in recs] != [(r.outer, r.inner)
+                                              for r in trecs] \
+            or not err <= DECK_FUSED_ATOL:
+        raise AssertionError("the series deck differs from the in-memory "
+                             "model with the script's step values")
+
+    # the observations against the heads and budget files
+    t0 = time.perf_counter()
+    hds = read_head_file(os.path.join(ws, "m.hds"))
+    saved = {}
+    for rec in hds:
+        saved.setdefault((rec["kper"], rec["kstp"]), []).append(rec["data"])
+    keys = sorted(saved)
+    heads = np.stack([np.stack(saved[key]).reshape(-1) for key in keys])
+    names, rows = _csv_rows(os.path.join(ws, "heads.csv"))
+    half = lay["obs"].size // 2
+    digits = 10
+    want = [[f"{t:.{digits}g}"] for t in (r.totim for r in recs)]
+    for s, row in enumerate(want):
+        h = heads[s, lay["obs"]]
+        row += [f"{v:.{digits}g}" for v in h[:half]]
+        row += [f"{40.0 - v:.{digits}g}" for v in h[half:]]
+    if len(keys) != 6 or rows != want:
+        raise AssertionError("the head observations differ from the .hds")
+    cbc = os.path.join(ws, "m.cbc")
+    names, rows = _csv_rows(os.path.join(ws, "flows.csv"))
+    checked = 0
+    for rec in read_budget_file(cbc):
+        if rec["imeth"] != 6 or rec["text"] not in ("WEL", "CHD", "RCH"):
+            continue
+        step = [(r.kper, r.kstp) for r in recs].index((rec["kper"],
+                                                        rec["kstp"]))
+        nodes, _, q, _ = rec["data"]
+        if rec["text"] == "WEL":
+            got = rows[step][1:1 + lay["obs_wells"].size]
+            vals = q[lay["obs_wells"]]
+        else:
+            at = {int(n): float(v) for n, v in zip(nodes, q)}
+            cells = lay["obs_chd"] if rec["text"] == "CHD" else lay["obs_rch"]
+            start = 1 + lay["obs_wells"].size + (
+                0 if rec["text"] == "CHD" else lay["obs_chd"].size)
+            got = rows[step][start:start + cells.size]
+            vals = [at[int(n)] for n in cells]
+        if got != [f"{v:.{digits}g}" for v in vals]:
+            raise AssertionError(f"the {rec['text']} flow observations "
+                                 "differ from the .cbc")
+        checked += 1
+    times, nc = read_netcdf_structured(os.path.join(ws, "util.nc"))
+    if checked != 6 or not np.array_equal(nc.reshape(6, -1), heads) \
+            or not np.array_equal(times, [r.totim for r in recs]):
+        raise AssertionError("the NetCDF file or the flow observations "
+                             "differ from the .hds and .cbc")
+    check_s = time.perf_counter() - t0
+
+    # a zone budget of the last step: 4 quadrants x 2 layer pairs
+    k, i, j = np.meshgrid(np.arange(nlay), np.arange(nrow), np.arange(ncol),
+                          indexing="ij")
+    zones = (1 + (i >= nrow // 2) * 2 + (j >= ncol // 2)
+             + 4 * (k >= nlay // 2)).reshape(-1)
+    topo = sim.model.topo
+    t0 = time.perf_counter()
+    table = zonebudget_from_cbc(topo, zones, cbc, 3, 2)
+    zb_s = time.perf_counter() - t0
+    discs = [float(line.split()[-1]) for line in table.splitlines()
+             if "PERCENT DISCREPANCY" in line]
+    _, flows = read_cbc_step(topo, cbc, 3, 2)
+    worst = 0.0
+    for name, (zin, zout) in ZoneBudget(topo, zones).package_totals(
+            flows).items():
+        term = sim.budget.terms[name]
+        scale = max(term.rate_in + term.rate_out, 1e-300)
+        worst = max(worst, abs(zin.sum() - term.rate_in) / scale,
+                    abs(zout.sum() - term.rate_out) / scale)
+    print(f"utilities (a) observations, NetCDF and .cbc checked in "
+          f"{check_s!r} s; zonebudget_from_cbc over {UTIL_ZONES} zones "
+          f"in {zb_s!r} s, percent discrepancy per zone {discs}, zones' "
+          f"boundary totals vs the model budget: max relative "
+          f"difference {worst!r} (bar 1e-9) "
+          f"file_bytes={ {f: os.path.getsize(os.path.join(ws, f)) for f in ('m.hds', 'm.cbc', 'util.nc', 'heads.csv', 'flows.csv')} }")
+    if len(discs) != UTIL_ZONES or not worst <= 1e-9 \
+            or not all(np.isfinite(discs)):
+        raise AssertionError("the zone budget differs from the model's")
+    nt, rec, past = netcdf3_record_limit(shape)
+    print(f"utilities (a) NetCDF-3 classic: a heads record is {rec} bytes, "
+          f"one file holds at most {nt} records, all kept in host memory "
+          f"until close; one more {past}")
+    return launches, ws
+
+
+def run_utilities_ats(device, ws):
+    """(b) The deck of (a) through ``load_simulation`` without its output
+    files, period 1 stepping adaptively from a first step of the whole
+    period with an outer maximum one below that step's count, run twice,
+    and replayed as fixed steps of the accepted length.  Returns the
+    launches."""
+    from modflow6_torch.timing.ats import AtsPeriod
+    from modflow6_torch.utils.mf6io import load_simulation as load
+    nam = os.path.join(ws, "m.nam")
+    text = open(nam).read()
+    for line in ("  NETCDF_STRUCTURED FILEOUT util.nc\n", "  OBS6 util.obs\n",
+                 "  OC6 m.oc\n"):
+        text = text.replace(line, "")
+    _write(ws, "m.nam", text)
+    perlen = UTIL_PERIODS[0][0]
+    launches, runs, outer_maximum = 0, [], None
+    for attempt in ("ats", "ats", "replay"):
+        sim = load(ws, device=None if torch.device(device).type == "cuda"
+                   else device)
+        if outer_maximum is None:
+            # a probe of the whole period as one step, which commits
+            # nothing: the same Simulation runs below
+            _, info, _ = sim.solve_step(sim.model.strt, 1, 1, perlen)
+            outer_maximum = info.outer_iterations - 1
+            print(f"utilities (b) probe: a step of {perlen} takes "
+                  f"{info.outer_iterations} outer iterations; "
+                  f"outer_maximum={outer_maximum}")
+            if outer_maximum < 2:
+                raise AssertionError("no outer maximum makes a step fail")
+        sim.solution = NumericalSolution(sim.model, dataclasses.replace(
+            sim.solution.s, outer_maximum=outer_maximum))
+        if attempt == "ats":
+            sim.ats[1] = AtsPeriod(dt0=perlen, dtmin=perlen / 64,
+                                   dtmax=perlen, dtadj=1.0, dtfailadj=4.0)
+        else:
+            steps = runs[0][0]
+            sim.tdis = Tdis((StressPeriod(perlen, len(steps), 1.0),)
+                            + sim.tdis.periods[1:])
+        with counted_run() as counts:
+            t0 = time.perf_counter()
+            recs = sim.run()
+            sync(device)
+            run_s = time.perf_counter() - t0
+        launches += counts["launches"]
+        delts = np.diff([0.0] + [r.totim for r in recs]).tolist()
+        p1 = [r for r in recs if r.kper == 1]
+        runs.append((delts[:len(p1)], recs))
+        print(f"utilities (b) {attempt} steps={len(recs)} "
+              f"period1_delts={delts[:len(p1)]!r} "
+              f"retries={[r.retries for r in recs]} "
+              f"counts={[(r.outer, r.inner) for r in recs]} run_s={run_s!r} "
+              f"stencil7_launches={counts['launches']}")
+        if not all(r.converged for r in recs):
+            raise AssertionError(f"(b) {attempt}: a step did not converge")
+    (d1, r1), (d2, r2), (d3, r3) = runs
+    covered = abs(sum(d1) - perlen)
+    retries = sum(r.retries for r in r1)
+    same = all(np.array_equal(a.head, b.head) for a, b in zip(r1, r2)) \
+        and [(r.outer, r.inner, r.retries) for r in r1] == [
+            (r.outer, r.inner, r.retries) for r in r2] and d1 == d2
+    err = max(float(np.abs(a.head - b.head).max()) for a, b in zip(r1, r3))
+    print(f"utilities (b) ats: period 1 covered to {covered!r}, retries="
+          f"{retries}, two runs bitwise equal={same}, replay counts equal="
+          f"{[(r.outer, r.inner) for r in r1] == [(r.outer, r.inner) for r in r3]} "
+          f"max|h_ats - h_replay|={err!r} bar={DECK_FUSED_ATOL!r}")
+    if not (covered <= 1e-12 and retries > 0 and same
+            and len(set(d1)) == 1 and len(r1) == len(r3)
+            and [(r.outer, r.inner) for r in r1] == [(r.outer, r.inner)
+                                                     for r in r3]
+            and err <= DECK_FUSED_ATOL):
+        raise AssertionError("(b) the ATS runs failed their checks")
+    return launches
+
+
+def write_mf2005_deck(ws, shape):
+    """The bench grid's top layer as a MODFLOW-2005 deck: LPF with HK as
+    one OPEN/CLOSE text array, IBOUND < 0 on the west column (an
+    OPEN/CLOSE text array too), CONSTANT elsewhere, four wells and a
+    constant recharge, one transient step of 5 days.  Returns (hk, wells,
+    ibound)."""
+    _, nrow, ncol = shape
+    hk = flagship_kfield(*shape)[:nrow * ncol].reshape(nrow, ncol)
+    np.savetxt(os.path.join(ws, "hk.txt"), hk)
+    ibound = np.ones((nrow, ncol), int)
+    ibound[:, 0] = -1
+    np.savetxt(os.path.join(ws, "ibound.txt"), ibound, fmt="%d")
+    wells = [(nrow // 4, ncol // 4, -300.0), (nrow // 4, 3 * ncol // 4, -200.0),
+             (3 * nrow // 4, ncol // 2, -400.0), (nrow // 2, ncol - 2, -100.0)]
+    files = {
+        "m.nam": "LIST 7 m.lst\nDIS 11 m.dis\nBAS6 12 m.bas\nLPF 13 m.lpf\n"
+                 "WEL 14 m.wel\nRCH 15 m.rch\n",
+        "m.dis": f"1 {nrow} {ncol} 1 4 2\n0\nCONSTANT 10.0\nCONSTANT 10.0\n"
+                 "CONSTANT 50.0\nCONSTANT 0.0\n5.0 1 1.0 TR\n",
+        "m.bas": "FREE\nOPEN/CLOSE ibound.txt 1\n999.0\nCONSTANT 40.0\n",
+        "m.lpf": "0 1e30 0\n0\n0\n1.0\n0\n0\nOPEN/CLOSE hk.txt 1.0\n"
+                 "CONSTANT 1.0\nCONSTANT 1e-5\n",
+        "m.wel": f"{len(wells)} 0\n{len(wells)}\n" + "".join(
+            f"1 {i + 1} {j + 1} {q!r}\n" for i, j, q in wells),
+        "m.rch": "1 0\n1\nCONSTANT 1e-4\n"}
+    for name, text in files.items():
+        _write(ws, name, text)
+    return hk, wells, ibound
+
+
+def run_utilities_mf5to6(device, shape):
+    """(c) A million-cell MODFLOW-2005 deck converted with ``python -m
+    modflow6_torch.utils.mf5to6`` and run through the command-line entry,
+    against the same model built in memory.  Returns the launches."""
+    _, nrow, ncol = shape
+    with tempfile.TemporaryDirectory() as root:
+        src, out = os.path.join(root, "mf5"), os.path.join(root, "mf6")
+        os.makedirs(src)
+        t0 = time.perf_counter()
+        hk, wells, ibound = write_mf2005_deck(src, shape)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "modflow6_torch.utils.mf5to6",
+             os.path.join(src, "m.nam"), out], capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        convert_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"mf5to6 failed: {proc.stderr}")
+        lst = os.path.join(out, "cli.lst")
+        cli_out = io.StringIO()
+        with captured_loads(device) as loads, counted_run() as counts, \
+                contextlib.redirect_stdout(cli_out):
+            t0 = time.perf_counter()
+            code = cli_main([out, "--lst", lst]
+                            + ([] if torch.device(device).type == "cuda"
+                               else ["--device", "cpu"]))
+            sync(device)
+            cli_s = time.perf_counter() - t0
+        sim, load_s = loads[0]
+        recs = sim.records
+        sizes = {f: os.path.getsize(os.path.join(out, f))
+                 for f in sorted(os.listdir(out))}
+    # the same model in memory: K as the converter writes it (8 digits)
+    k = np.array([float(f"{v:.8g}") for v in hk.reshape(-1)])
+    grid = DisGrid.create(1, nrow, ncol, 10.0, 10.0, 50.0,
+                          np.zeros((1, nrow, ncol)))
+    model = build_gwf(
+        "MF5", grid, device=device, k=k, k33=1.0, strt=40.0,
+        storage={"ss": 1e-5, "sy": 0.15, "iconvert": 0},
+        chd=[(i * ncol, 40.0) for i in range(nrow)],
+        wel=[(i * ncol + j, q) for i, j, q in wells],
+        rch=[(n, 1e-4) for n in range(nrow * ncol)])
+    settings = dataclasses.replace(
+        ImsSettings.from_complexity("SIMPLE"), outer_dvclose=1e-6,
+        outer_maximum=100, inner_maximum=300, inner_dvclose=1e-8,
+        inner_rclose=1e-6, linear_acceleration="bicgstab")
+    twin = Simulation(Tdis((StressPeriod(5.0, 1, 1.0),)), model, settings)
+    with counted_run() as tcounts:
+        t0 = time.perf_counter()
+        trecs = twin.run()
+        sync(device)
+        twin_s = time.perf_counter() - t0
+    err = float(np.abs(recs[0].head - trecs[0].head).max())
+    print(f"utilities (c) mf5to6 cells={nrow * ncol} written_s={write_s!r} "
+          f"convert_s={convert_s!r} cli exit={code} wall_s={cli_s!r} "
+          f"load_s={load_s!r} solve_s={recs[0].solve_seconds!r} "
+          f"counts={[(r.outer, r.inner) for r in recs]} twin counts="
+          f"{[(r.outer, r.inner) for r in trecs]} twin_run_s={twin_s!r} "
+          f"max|h_deck - h_twin|={err!r} bar={DECK_FUSED_ATOL!r} "
+          f"settings_equal={vars(sim.solution.s) == vars(settings)} "
+          f"stencil7_launches={counts['launches']}+{tcounts['launches']} "
+          f"files={sizes} converter={proc.stdout.strip()!r} "
+          f"stdout={cli_out.getvalue().strip()!r}")
+    if code != 0 or not recs[0].converged \
+            or [(r.outer, r.inner) for r in recs] != [(r.outer, r.inner)
+                                                      for r in trecs] \
+            or not err <= DECK_FUSED_ATOL \
+            or vars(sim.solution.s) != vars(settings):
+        raise AssertionError("(c) the converted deck differs from the "
+                             "in-memory model")
+    return counts["launches"] + tcounts["launches"]
+
+
+def run_utilities(device, shape=BENCH_SHAPE):
+    """The utilities phase: (a) the series-driven, observed deck, (b) ATS
+    with retries on it, (c) mf5to6 on the grid's top layer.  Returns the
+    stencil7 launches, which must be some: every model here keeps its
+    grid shape."""
+    t0 = time.perf_counter()
+    launches, ws = run_utilities_deck(device, shape)
+    try:
+        launches += run_utilities_ats(device, ws)
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    launches += run_utilities_mf5to6(device, (1,) + tuple(shape[1:]))
+    print(f"utilities phase in {time.perf_counter() - t0!r} s, "
+          f"stencil7_launches={launches}")
+    if not launches:
+        raise AssertionError("the utilities runs launched no stencil7 "
+                             "kernel")
+    return launches
+
 
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
@@ -3575,7 +4167,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
-          "unstructured", "properties", "advanced", "coupling")
+          "unstructured", "properties", "advanced", "coupling", "utilities")
 
 
 def main():
@@ -3661,6 +4253,8 @@ def main():
         advanced_launches = run_advanced(device)
     if "coupling" in phases:
         launches["coupling"] = run_coupling(device)
+    if "utilities" in phases:
+        launches["utilities"] = run_utilities(device)
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -3683,6 +4277,7 @@ def main():
         "launches_properties_path": launches["properties"],
         "launches_advanced_path": advanced_launches,
         "launches_coupling_path": launches["coupling"],
+        "launches_utilities_path": launches["utilities"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

@@ -5,12 +5,14 @@ The port covers the GWF model on DIS, DISV and DISU grids: NPF (standard
 or Newton, rewetting, rotated anisotropy, horizontal-flow barriers, XT3D
 with its Newton form), STO, CHD/WEL/RCH/DRN/RIV/GHB/EVT, GNC, BUY, VSC,
 CSUB with delay interbeds, TVK/TVS, the advanced packages MAW, LAK and SFR
-(``models.gwf.advanced.AugmentedGwfModel``), preconditioned CG or BiCGSTAB
-(``f64`` or ``mixed`` precision), in the fused time step and on the deck
-path
+(``models.gwf.advanced.AugmentedGwfModel``), UZF, MVR, several models
+joined by GWF6-GWF6 exchanges, preconditioned CG or BiCGSTAB (``f64`` or
+``mixed`` precision), in the fused time step and on the deck path
 (``python -m modflow6_torch <workspace>``: ``mfsim.nam`` loader,
 ``Simulation``, ``NumericalSolution``, ``.hds``/``.cbc``/``.grb``/listing
-output).  A DIS model without angles runs on dense planes through the
+output), with adaptive time steps, TS6/TAS6 series, OBS6 observations,
+NetCDF export and input, zone budgets and the MODFLOW-2005 converter
+(``python -m modflow6_torch.utils.mf5to6``).  A DIS model without angles runs on dense planes through the
 stencil kernel; every other model over its edge list and an ELL neighbour
 table (a model with MAW, LAK or SFR rows over the table widened by their
 slots).  Everything outside these slices raises ``NotImplementedError``.

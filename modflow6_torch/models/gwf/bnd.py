@@ -14,7 +14,9 @@ that share a node (two wells in one cell, a repeated cellid) in entry
 order, the reference's ``.at[node].add`` order, with no atomics: the sums
 are the same on every run, on the card and on the CPU.  The plan is built
 from the nodes on the host at its first use, once per data object: a
-period's data, not an assembly.
+period's data, not an assembly.  ``with_values`` swaps value fields (a
+time series' per-step values) and carries the plan over, since the
+entries stay the same.
 """
 
 from __future__ import annotations
@@ -41,6 +43,19 @@ class _Entries:
         sel = torch.nonzero(self.mask).squeeze(1)
         return AddPlan.build(self.node[sel], self.node.device, 0,
                              sources=sel)
+
+
+def with_values(data, **fields):
+    """``data`` with the value ``fields`` replaced: the entries (``node``,
+    ``mask``) stay the same tensors, so a cached ``add_plan`` carries over
+    instead of being rebuilt."""
+    if "node" in fields or "mask" in fields:
+        raise ValueError("with_values replaces value fields only")
+    new = dataclasses.replace(data, **fields)
+    plan = data.__dict__.get("add_plan")
+    if plan is not None:
+        new.__dict__["add_plan"] = plan
+    return new
 
 
 @dataclasses.dataclass(frozen=True)

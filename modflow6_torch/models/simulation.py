@@ -7,29 +7,34 @@ an ``AugmentedGwfModel``, or several models merged by
 src/mf6core.f90: Mf6Initialize:70, Mf6PrepareTimestep:498,
 Mf6DoTimestep:620, Mf6FinalizeTimestep:708): walk the TDIS periods and
 steps, call the ``period_hooks`` and apply the TVK/TVS changes at each
-period's start, march the UZF columns (``uzf``) and solve each step with
-the numerical solution, re-solving while the columns' recharge has not
-settled (the reference's uzf_cc), advance the CSUB state, the UZF column
-state and the MAW SHUT_OFF flags, compute flows and budgets (the MAW, LAK
-and SFR exchanges with the aquifer, the movers' -TO-MVR terms and the UZF
-rates among them), and write the heads, budget, grid and listing files.
+period's start, call the ``step_hooks`` (time series, time-array series)
+before every solve attempt and again before the step's package snapshot,
+march the UZF columns (``uzf``) and solve each step with the numerical
+solution, re-solving while the columns' recharge has not settled (the
+reference's uzf_cc), advance the CSUB state, the UZF column state and the
+MAW SHUT_OFF flags, compute flows and budgets (the MAW, LAK and SFR
+exchanges with the aquifer, the movers' -TO-MVR terms and the UZF rates
+among them), record the continuous observations (``obs``), and write the
+heads, budget, grid, NetCDF (``nc_path``) and listing files.  Periods
+listed in ``ats`` step adaptively (reference ats.f90 + mf6core.f90
+retryloop): a failed attempt is solved again at a shorter step, and as
+``solve_step`` commits no state and writes no output, it leaves no trace.
 The files hold the grid rows of an augmented model; neither it nor a
 merged model gets a ``.grb`` file, as in the reference, whose composites
 have no single user grid; a merged model's heads file holds its rows in
 the merged order as one 1 × nodes record per step.  The transport
-coupling (``gwt``, which would hand the concentrations to BUY and VSC),
-PRT, observation, NetCDF and adaptive-time-step branches of the reference
-are outside the ported slice: ``gwt`` raises, and the loader raises for
-decks that ask for the others.  Without transport BUY and VSC see a
-concentration only where ``period_data`` sets ``buy_conc``, as in the
-reference.
+coupling (``gwt``, which would hand the concentrations to BUY and VSC,
+and ``ats_percel``, the advective ATS limit) and PRT are outside the
+ported slice: ``gwt`` and ``ats_percel`` raise.  Without transport BUY and
+VSC see a concentration only where ``period_data`` sets ``buy_conc``, as
+in the reference.
 
 The output phase works on the model's device.  Face flows, their per-cell
 sums (the CHD flows) and the storage rates are computed there from the
 structured planes; each step the host reads the budget's IN/OUT sums in one
-transfer, and the arrays of a record only when that record is saved.  On
-the general path the same holds with the per-edge flows in place of the
-planes.
+transfer, the observed values in one more, and the arrays of a record only
+when that record is saved.  On the general path the same holds with the
+per-edge flows in place of the planes.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from .discretization import DisGrid, DisuGrid, DisvGrid
 from ..ops.smoothing import quadratic_saturation
 from ..ops.storage import ss_capacity, ss_terms, sy_capacity
 from ..solution.ims import ImsSettings, NumericalSolution
+from ..timing import ats as ats_mod
 from ..timing.tdis import Tdis
 from ..utils import grb
 from ..utils.binary import BudgetFileWriter, HeadFileWriter
@@ -72,6 +78,7 @@ class StepRecord:
     solve_seconds: float = 0.0      # host clock, device work finished
     output_seconds: float = 0.0     # budget, record and file output
     uzf_resolves: int = 0           # uzf_cc re-solves of the step
+    retries: int = 0                # ATS attempts that failed before it
 
 
 class Simulation:
@@ -79,7 +86,8 @@ class Simulation:
 
     def __init__(self, tdis: Tdis, model, settings: ImsSettings,
                  transient=None, hds_path=None, cbc_path=None,
-                 lst_path=None, outer_csv_path=None, oc=None, gwt=None):
+                 lst_path=None, outer_csv_path=None, oc=None, gwt=None,
+                 obs=None, nc_path=None):
         if gwt is not None:
             raise NotImplementedError(
                 "the GWT transport coupling (gwt=) is not ported")
@@ -95,6 +103,12 @@ class Simulation:
         self.transient = transient
         self.hds_path = hds_path
         self.hds = HeadFileWriter(hds_path) if hds_path else None
+        # NETCDF_STRUCTURED FILEOUT export (utils.netcdf, NCModel role) of
+        # the saved heads
+        self.nc = None
+        if nc_path:
+            from ..utils.netcdf import NetcdfExporter
+            self.nc = NetcdfExporter(nc_path, model.grid)
         self.cbc = BudgetFileWriter(cbc_path) if cbc_path else None
         self.lst_path = lst_path
         self.budget = Budget()
@@ -123,6 +137,18 @@ class Simulation:
         # f(kper) called once at each period's start, after the TVK/TVS
         # changes (the <pkg>_rp role: the advanced packages' PERIOD blocks)
         self.period_hooks = []
+        # f(kper, kstp, delt) called before every solve attempt and before
+        # the step's package snapshot (TsManager/TasManager ad role)
+        self.step_hooks = []
+        # adaptive time stepping: {kper: ats.AtsPeriod} (utl-ats perioddata)
+        self.ats: dict = {}
+        # ADV ATS_PERCEL (the transport's Courant limit on the ATS step)
+        self.ats_percel = None
+        # continuous observations (utils.obs.ObsManager or ObsGroup)
+        self.obs = obs
+        if obs is not None:
+            obs.set_initial(model.strt)
+        self._chd_entry_flows = None    # CHD flows of every entry (obs)
         self._inner_csv = None    # lazy CSV_INNER_OUTPUT writer
         # a failed time step aborts the run unless the simulation CONTINUE
         # option is set (the loader clears this flag then)
@@ -206,6 +232,8 @@ class Simulation:
         max(1e-10, 1e-6 × the largest recharge), read in one transfer per
         pass."""
         iss = not self.transient[kper - 1]
+        for hook in self.step_hooks:
+            hook(kper, kstp, delt)
         pkgs = self.step_packages(kper)
         if self.uzf is not None:
             pkgs = self._augment_uzf(pkgs, delt, head_old)
@@ -240,16 +268,22 @@ class Simulation:
             torch.cuda.synchronize(self.model.device)
 
     def do_step(self, head, kper, kstp, delt, pertim, totim,
-                save_heads_every=1):
+                save_heads_every=1, solved=None):
         """Advance one time step (Mf6PrepareTimestep + Mf6DoTimestep +
         Mf6FinalizeTimestep for the single-solution case).  Returns the new
-        head; appends the StepRecord and writes outputs."""
+        head; appends the StepRecord and writes outputs.  ``solved``: the
+        accepted attempt's ``solve_step`` result (the ATS path), else the
+        step is solved here."""
         model = self.model
         iss = not self.transient[kper - 1]
         head_old = head
+        for hook in self.step_hooks:
+            hook(kper, kstp, delt)
         pkgs = self.step_packages(kper)
         t0 = time.perf_counter()
-        head, info, aux = self.solve_step(head_old, kper, kstp, delt)
+        if solved is None:
+            solved = self.solve_step(head_old, kper, kstp, delt)
+        head, info, aux = solved
         ibound, cond = aux["ibound"], aux["cond"]
         if self._uzf_pending is not None:
             # commit the column state the accepted solve used; its
@@ -313,6 +347,9 @@ class Simulation:
             self._lst_lines.append(table)
             self._lst_lines.append("")
 
+        if self.obs is not None:
+            self.obs.record(totim, head, flows=self._obs_flows(flows, pkgs))
+
         head_np = head.cpu().numpy()
         rec = StepRecord(kper, kstp, totim, head_np, info.converged,
                          info.outer_iterations, info.inner_iterations, table,
@@ -332,6 +369,8 @@ class Simulation:
             out[ibound[:ng].cpu().numpy() == 0] = DHNOFLO
             self.hds.write_step(kstp, kper, pertim, totim,
                                 out.reshape(shape3d))
+            if self.nc is not None:
+                self.nc.record(totim, out)
         if self.cbc and save_budget:
             flowja = self._flowja_csr(head, ibound, cond, pkgs)
             self.cbc.write_flowja(kstp, kper, flowja, shape3d, delt, pertim,
@@ -392,8 +431,25 @@ class Simulation:
                         f"{v:12.4f}" for v in vals[i:i + per_line]))
         return "\n".join(lines)
 
+    def _obs_flows(self, flows, pkgs):
+        """The boundary flows of every entry of each list package, masked
+        entries at 0, for the flow observations: PKG → (nodes, q) (the
+        reference's ``_obs_flows``, from the budget's own flows)."""
+        out = {}
+        for name, q in flows.items():
+            data = getattr(pkgs, name.lower(), None)
+            if name == "CHD":
+                q = self._chd_entry_flows
+            if data is not None and q is not None:
+                out[name] = (data.node, q)
+        return out
+
     def finish(self):
         """Close outputs and write the listing file (Mf6Finalize role)."""
+        if self.obs is not None:
+            self.obs.close()
+        if self.nc is not None:
+            self.nc.close()
         if self.outer_csv:
             self.outer_csv.close()
         if self._inner_csv is not None:
@@ -407,23 +463,70 @@ class Simulation:
         if self.cbc:
             self.cbc.close()
 
-    def run(self, save_heads_every=1):
-        """Time loop over the fixed TDIS subdivision."""
+    def run(self, save_heads_every=1, max_retries=10):
+        """Time loop.  Periods listed in ``self.ats`` step adaptively
+        (``_adaptive_period``); the others walk the fixed TDIS
+        subdivision."""
+        if self.ats_percel is not None:
+            raise NotImplementedError(
+                "ats_percel (the GWT advection's ATS_PERCEL limit) is not "
+                "ported")
         head = self.model.strt
         t0 = time.perf_counter()
         self._write_grb()
         self.grb_seconds = time.perf_counter() - t0
-        last_kper = 0
-        for kper, kstp, delt, pertim, totim in self.tdis.walk():
-            if kper != last_kper:
-                self._apply_time_varying(kper)
-                for hook in self.period_hooks:
-                    hook(kper)
-                last_kper = kper
-            head = self.do_step(head, kper, kstp, delt, pertim, totim,
-                                save_heads_every)
+        totim = 0.0
+        for kper, period in enumerate(self.tdis.periods, start=1):
+            self._apply_time_varying(kper)
+            for hook in self.period_hooks:
+                hook(kper)
+            if kper in self.ats:
+                head, totim = self._adaptive_period(
+                    head, kper, period, totim, save_heads_every, max_retries)
+                continue
+            pertim = 0.0
+            for kstp, delt in enumerate(period.step_lengths(), start=1):
+                pertim += delt
+                totim += delt
+                head = self.do_step(head, kper, kstp, float(delt),
+                                    float(pertim), float(totim),
+                                    save_heads_every)
         self.finish()
         return self.records
+
+    def _adaptive_period(self, head, kper, period, totim, save_heads_every,
+                         max_retries):
+        """One period of adaptive steps (reference ats.f90 + mf6core.f90
+        retryloop): each step starts at the last accepted step's length
+        adjusted by its outer count, within [dtmin, dtmax] and cut at the
+        period's end; a failed attempt is solved again at the step divided
+        by dtfailadj, at most ``max_retries`` times and not below dtmin.
+        Returns (head, totim) at the period's end."""
+        a = self.ats[kper]
+        delt = ats_mod.initial_delt(a)
+        pertim, kstp = 0.0, 0
+        while pertim < period.perlen - 1e-12:
+            delt = min(ats_mod.clamp(delt, a), period.perlen - pertim)
+            kstp += 1
+            t0 = time.perf_counter()
+            solved = self.solve_step(head, kper, kstp, delt)
+            retries = 0
+            while (not solved[1].converged and a.dtfailadj > 1.0
+                   and retries < max_retries and delt > a.dtmin):
+                delt = min(ats_mod.fail_delt(delt, a), period.perlen - pertim)
+                retries += 1
+                solved = self.solve_step(head, kper, kstp, delt)
+            self._sync()
+            solve_seconds = time.perf_counter() - t0
+            pertim += delt
+            totim += delt
+            head = self.do_step(head, kper, kstp, delt, pertim, totim,
+                                save_heads_every, solved=solved)
+            self.records[-1].retries = retries
+            self.records[-1].solve_seconds += solve_seconds
+            delt = ats_mod.next_delt(delt, a, solved[1].outer_iterations,
+                                     self.solution.s.outer_maximum)
+        return head, totim
 
     # ------------------------------------------------------------ helpers
 
@@ -485,7 +588,10 @@ class Simulation:
         for name, q in model.boundary_budget(head, ibound, pkgs).items():
             if q is None:
                 into_cell = model.cell_inflow(head, ibound, cond, pkgs)
-                q = -into_cell[pkgs.chd.node][pkgs.chd.mask]
+                chd = pkgs.chd
+                self._chd_entry_flows = torch.where(
+                    chd.mask, -into_cell[chd.node], 0.0)
+                q = self._chd_entry_flows[chd.mask]
             flows[name] = q
 
         if flows:

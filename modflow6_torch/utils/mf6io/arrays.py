@@ -10,8 +10,9 @@ src/Utilities/Idm/mf6blockfile/Mf6FileGridInput (griddata blocks):
         <free-format values...>
       OPEN/CLOSE <file> [FACTOR f] [(BINARY)] [IPRN i]
 
-A numpy copy of modflow6_tpu/utils/mf6io/arrays.py; the NETCDF array
-source is outside the ported slice and raises.
+A numpy copy of modflow6_tpu/utils/mf6io/arrays.py, with its NETCDF
+array source (a record tagged NETCDF reads <package>_<variable> from the
+model's NETCDF FILEIN file).
 """
 
 from __future__ import annotations
@@ -120,11 +121,14 @@ def _expand(tokens):
 
 
 def read_grid_array(bf, block_name, var_name, shape, base_dir, dtype=np.float64,
-                    default=None, nlay_for_layered=None):
+                    default=None, nlay_for_layered=None, nc=None):
     """Read variable ``var_name`` from a GRIDDATA-style block.
 
     ``shape``: full array shape (e.g. (nlay, nrow, ncol)).  Handles the
-    LAYERED keyword by reading one sub-array per layer.
+    LAYERED keyword by reading one sub-array per layer.  ``nc`` is an
+    optional (netcdf_path, variable_prefix) pair: a record tagged with the
+    NETCDF keyword reads <prefix>_<var> from that file (the reference's
+    Idm/netcdf input layer).
     """
     b = bf.get(block_name)
     if b is None:
@@ -137,8 +141,14 @@ def read_grid_array(bf, block_name, var_name, shape, base_dir, dtype=np.float64,
         if toks[0].upper() == var_name.upper():
             if len(toks) > 1 and any(t.upper() == "NETCDF"
                                      for t in toks[1:]):
-                raise NotImplementedError(
-                    f"{var_name}: the NETCDF array source is not ported")
+                if nc is None:
+                    raise ValueError(
+                        f"{var_name}: NETCDF keyword without a model "
+                        "NETCDF FILEIN file")
+                from ..netcdf import read_netcdf_array
+                path, prefix = nc
+                arr = read_netcdf_array(path, f"{prefix}_{var_name}")
+                return np.asarray(arr, dtype).reshape(shape)
             layered = len(toks) > 1 and any(
                 t.upper() == "LAYERED" for t in toks[1:])
             rdr = ArrayReader(base_dir)

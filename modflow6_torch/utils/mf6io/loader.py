@@ -15,8 +15,14 @@ and delay interbeds, the first period's settings; the reference's
 and MVR6 (``advanced_loader``; their later PERIOD blocks rebuild the
 augmented model or the UZF columns at each such period's start, as the
 reference's ``_attach_advanced_periods`` does) and OC6, with MF6's
-stress-period persistence; the list packages' MOVER option; the GWF
-name-file option NEWTON [UNDER_RELAXATION], NPF REWET (WETFCT, IWETIT,
+stress-period persistence; the list packages' MOVER option, BOUNDNAMES
+and values given as the names of TS6 time series (bound per step through
+``Simulation.step_hooks``); RCHA's TIMEARRAYSERIES over a TAS6 file; the
+model's OBS6 files (continuous HEAD, DRAWDOWN and boundary-flow
+observations, flows by cellid or boundname); the GWF name-file options
+NETCDF_STRUCTURED FILEOUT (``Simulation``'s NetCDF export) and NETCDF
+FILEIN (griddata records tagged NETCDF) and NEWTON
+[UNDER_RELAXATION], NPF REWET (WETFCT, IWETIT,
 IHDWET) with the WETDRY array, the NPF TVK6 and STO TVS6 subpackages (to
 ``Simulation.tvk``/``tvs``), WEL AUTO_FLOW_REDUCE, and the IMS options
 NO_PTC and PRECONDITIONER_LEVELS/PRECONDITIONER_DROP_TOLERANCE (the
@@ -26,15 +32,22 @@ order 4 with a warning).
 Everything else a deck can ask for raises ``NotImplementedError`` naming
 the package or keyword: other model types and exchange types, several
 models with no exchange, XT3D (which the reference's loader reads past,
-running the two-point scheme), TS6/TAS6 series, HFB6, OBS6, NetCDF, ATS6
-and HPC6; and where the reference refuses: UZF or CSUB in a merged model,
+running the two-point scheme), HFB6, ATS6 in TDIS (read past there too:
+adaptive steps reach a ``Simulation`` only through ``Simulation.ats``),
+NETCDF_MESH2D and a list package's own OBS6 option (both read past
+there), TS6 values in MAW6, LAK6 and SFR6, and HPC6; and where the
+reference refuses: UZF or CSUB in a merged model,
 TVK/TVS with several models, standard-package mover providers outside the
 first model, later PERIOD blocks of an exchange's MVR6.  Beyond the
 reference, these raise by name too: later PERIOD blocks of MAW6, LAK6,
 SFR6 or MVR6 in a merged model (the reference would rebuild the first
 model's features alone), a GWF6-GWF6 exchange of a model with itself, a
 mover on the second of several packages of one type, and the UZF6
-options SQUARE_GWET and UNSAT_ETAE.  The reference's loader reads neither the NPF
+options SQUARE_GWET and UNSAT_ETAE; a time-series value in the second or
+later file of a package type (R7: the reference binds it to an entry of
+the first file) and an observation of a boundname given there; TS6
+values (R8: the reference leaves them at 0.0), TAS6, OBS6 or NetCDF
+export in a merged model.  The reference's loader reads neither the NPF
 ANGLE1/2/3 arrays nor the DRN AUXDEPTHNAME option (rotated anisotropy,
 like HFB, reaches a model only through ``build_gwf``); this one raises on
 them by name rather than run without them.
@@ -70,7 +83,9 @@ from ...models.gwf.uzf import make_uzf
 from ...models.simulation import Simulation
 from ...solution.ims import ImsSettings, NumericalSolution
 from ...timing.tdis import StressPeriod, Tdis
+from ..obs import ObsGroup, load_obs6
 from ..oc import OutputControl, parse_spec
+from ..timeseries import bind_array_series, load_tas, load_ts6
 from . import advanced_loader as adv_ld
 from . import schema
 from .arrays import read_grid_array
@@ -79,10 +94,16 @@ from .reader import BlockFile
 # package types of a GWF name file that the slice covers
 _SUPPORTED_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "NPF6", "STO6", "CHD6",
                        "WEL6", "DRN6", "RIV6", "GHB6", "EVT6", "RCH6", "BUY6",
-                       "CSUB6", "MAW6", "LAK6", "SFR6", "UZF6", "MVR6", "OC6")
-# options of a list package that would change its flows and are not ported
-_UNPORTED_LIST_OPTIONS = ("TS6", "OBS6", "AUXMULTNAME", "AUXDEPTHNAME",
+                       "CSUB6", "MAW6", "LAK6", "SFR6", "UZF6", "MVR6", "OC6",
+                       "OBS6")
+# options of a list package that would change its flows or outputs and are
+# not ported (the reference reads past the package's own OBS6 file)
+_UNPORTED_LIST_OPTIONS = ("OBS6", "AUXMULTNAME", "AUXDEPTHNAME",
                           "SURF_RATE_SPECIFIED")
+# list-package value-column field names per attr (TS6 per-entry binding)
+_TS_FIELDS = dict(chd=["head"], wel=["q"], drn=["elev", "cond"],
+                  riv=["stage", "cond", "rbot"], ghb=["bhead", "cond"],
+                  rch=["recharge"], evt=["surface", "rate", "depth"])
 # the package types a mover can name, by kind (gwf-mvr.f90)
 _MOVER_KINDS = {"WEL6": "wel", "DRN6": "drn", "RIV6": "riv", "GHB6": "ghb",
                 "MAW6": "maw", "LAK6": "lak", "SFR6": "sfr", "UZF6": "uzf"}
@@ -338,10 +359,12 @@ def _cellid_to_node(toks, grid, start=0):
 def _load_period_lists(path, grid, ncols, component=None):
     """Read a list-based stress package file.
 
-    Returns (options, dimensions, {kper: [(node, v1, v2, ...)]}).  Columns
-    after the ``ncols`` values (auxiliary variables, boundnames) do not
-    enter the flow model and are read past.  A value given as a time-series
-    name raises: the TS6 series are not ported.
+    Returns (options, dimensions, {kper: [(node, v1, v2, ...)]}, ts_refs,
+    {kper: [BOUNDNAME or None]}) where ``ts_refs`` lists (kper, row, col,
+    SERIESNAME) for values given as time-series names (utl-ts per-entry
+    bindings; the TS6 FILEIN option supplies the series), with 0.0 in the
+    entry until the series binds.  Auxiliary columns do not enter the flow
+    model and are read past.
     """
     bf = BlockFile(path)
     opts = bf.options()
@@ -349,10 +372,13 @@ def _load_period_lists(path, grid, ncols, component=None):
         schema.check_options(component, opts, path)
     _refuse(opts, _UNPORTED_LIST_OPTIONS, path)
     dims = bf.dimensions()
-    periods = {}
+    aux = opts.get("AUXILIARY")
+    naux = len(aux) if isinstance(aux, list) else int(bool(aux))
+    has_bnames = "BOUNDNAMES" in opts
+    periods, bnames, ts_refs = {}, {}, []
     for b in bf.get_all("PERIOD"):
-        entries = []
-        for toks in bf.expand_open_close(b):
+        entries, names = [], []
+        for row, toks in enumerate(bf.expand_open_close(b)):
             node, ntok = _cellid_to_node(toks, grid)
             vals = []
             for col in range(ncols):
@@ -360,11 +386,15 @@ def _load_period_lists(path, grid, ncols, component=None):
                 try:
                     vals.append(float(t))
                 except ValueError:
-                    raise _not_ported(
-                        f"{path}: time-series value {t!r} (TS6)") from None
+                    ts_refs.append((b.index, row, col, t.upper()))
+                    vals.append(0.0)
             entries.append((node, *vals))
+            at = ntok + ncols + naux
+            names.append(toks[at].upper() if has_bnames and len(toks) > at
+                         else None)
         periods[b.index] = entries
-    return opts, dims, periods
+        bnames[b.index] = names
+    return opts, dims, periods, ts_refs, bnames
 
 
 _LIST_PACKAGES = {
@@ -458,11 +488,13 @@ def _load_csub(path, grid, shp, base_dir):
 def _load_rcha(path, shp, mdir, device):
     """Array-based recharge (gwf-rcha.dfn READASARRAYS): one RECHARGE array
     over the top layer, read from the first PERIOD block, as the reference's
-    loader reads it."""
+    loader reads it, or given as a TIMEARRAYSERIES of the TAS6 file
+    (utl-tas.dfn).  Returns (RchData, TimeArraySeries or None); with a
+    series the recharge is 0.0 until the series binds."""
     rch_bf = BlockFile(path)
     ropts = rch_bf.options()
     schema.check_options("gwf-rcha", ropts, path)
-    _refuse(ropts, ("TAS6", "OBS6", "AUXMULTNAME"), path)
+    _refuse(ropts, ("OBS6", "AUXMULTNAME"), path)
     blocks = rch_bf.get_all("PERIOD")
     pb = rch_bf.get("PERIOD", 1)
     if pb is None or not pb.lines:
@@ -472,15 +504,21 @@ def _load_rcha(path, shp, mdir, device):
     head_toks = pb.lines[0]
     if head_toks[0].upper() != "RECHARGE":
         raise _not_ported(f"{path}: RCHA period variable {head_toks[0]}")
-    if len(head_toks) > 1 and head_toks[1].upper() == "TIMEARRAYSERIES":
-        raise _not_ported(f"{path}: TIMEARRAYSERIES (TAS6)")
-    rcha = np.asarray(read_grid_array(rch_bf, "PERIOD", "RECHARGE",
-                                      shp[1:] if len(shp) > 1 else shp,
-                                      mdir), np.float64).reshape(-1)
+    shp2 = shp[1:] if len(shp) > 1 else shp
+    tas = None
+    if len(head_toks) > 2 and head_toks[1].upper() == "TIMEARRAYSERIES":
+        v = ropts.get("TAS6")
+        if not (isinstance(v, list) and v[0].upper() == "FILEIN"):
+            raise ValueError(f"{path}: TIMEARRAYSERIES without TAS6 FILEIN")
+        tas = load_tas(os.path.join(mdir, v[1]), shp2, mdir, device=device)
+        rcha = np.zeros(int(np.prod(shp2)))
+    else:
+        rcha = np.asarray(read_grid_array(rch_bf, "PERIOD", "RECHARGE", shp2,
+                                          mdir), np.float64).reshape(-1)
     return bnd.RchData(
         torch.arange(rcha.size, dtype=torch.int64, device=device),
         torch.as_tensor(rcha, dtype=torch.float64, device=device),
-        torch.ones(rcha.size, dtype=torch.bool, device=device))
+        torch.ones(rcha.size, dtype=torch.bool, device=device)), tas
 
 
 def _load_gwf_model(ws, mfname, mname, device):
@@ -489,7 +527,15 @@ def _load_gwf_model(ws, mfname, mname, device):
     mdir = os.path.dirname(os.path.join(ws, mfname))
     mopts = mnam.options()
     schema.check_options("gwf-nam", mopts, mfname)
-    _refuse(mopts, ("NETCDF_STRUCTURED", "NETCDF_MESH2D", "NETCDF"), mfname)
+    _refuse(mopts, ("NETCDF_MESH2D",), mfname)
+    # NetCDF export and input records (gwf-nam nc_structured/nc_filerecord)
+    nc_out = nc_in = None
+    v = mopts.get("NETCDF_STRUCTURED")
+    if isinstance(v, list) and v[0].upper() == "FILEOUT":
+        nc_out = os.path.join(mdir, v[1])
+    v = mopts.get("NETCDF")
+    if isinstance(v, list) and v[0].upper() == "FILEIN":
+        nc_in = os.path.join(mdir, v[1])
     newton = False
     if "NEWTON" in mopts:
         v = mopts["NEWTON"]
@@ -527,7 +573,8 @@ def _load_gwf_model(ws, mfname, mname, device):
     base = mdir
 
     ic_bf = BlockFile(pkg_files["IC6"][0])
-    strt = read_grid_array(ic_bf, "GRIDDATA", "STRT", shp, base, default=0.0)
+    strt = read_grid_array(ic_bf, "GRIDDATA", "STRT", shp, base, default=0.0,
+                           nc=(nc_in, "ic") if nc_in else None)
 
     npf_path = pkg_files["NPF6"][0]
     npf_bf = BlockFile(npf_path)
@@ -557,11 +604,13 @@ def _load_gwf_model(ws, mfname, mname, device):
         schema.check_valid_value("gwf-npf", "options",
                                  "ALTERNATIVE_CELL_AVERAGING", v, npf_path)
         icellavg = {"LOGARITHMIC": 1, "AMT-LMK": 2, "AMT-HMK": 3}[v]
+    nc_npf = (nc_in, "npf") if nc_in else None
     icelltype = read_grid_array(npf_bf, "GRIDDATA", "ICELLTYPE", shp, base,
-                                dtype=np.int64, default=0)
-    k = read_grid_array(npf_bf, "GRIDDATA", "K", shp, base, default=1.0)
-    k22 = read_grid_array(npf_bf, "GRIDDATA", "K22", shp, base)
-    k33 = read_grid_array(npf_bf, "GRIDDATA", "K33", shp, base)
+                                dtype=np.int64, default=0, nc=nc_npf)
+    k = read_grid_array(npf_bf, "GRIDDATA", "K", shp, base, default=1.0,
+                        nc=nc_npf)
+    k22 = read_grid_array(npf_bf, "GRIDDATA", "K22", shp, base, nc=nc_npf)
+    k33 = read_grid_array(npf_bf, "GRIDDATA", "K33", shp, base, nc=nc_npf)
     if k33 is not None and "K33OVERK" in nopts:
         k33 = k33 * k
     if k22 is not None and "K22OVERK" in nopts:
@@ -593,29 +642,41 @@ def _load_gwf_model(ws, mfname, mname, device):
         tvs = _load_tv(sopts, "TVS6", mdir, grid)
 
     # --- array-based recharge (gwf-rcha.dfn READASARRAYS)
-    rcha = None
+    rcha = tas = None
     if "RCH6" in pkg_files and \
             "READASARRAYS" in BlockFile(pkg_files["RCH6"][0]).options():
         if len(pkg_files["RCH6"]) > 1:
             raise _not_ported(f"{mfname}: several RCH6 packages with "
                               "READASARRAYS")
-        rcha = _load_rcha(pkg_files["RCH6"][0], shp, mdir, device)
+        rcha, tas = _load_rcha(pkg_files["RCH6"][0], shp, mdir, device)
         del pkg_files["RCH6"]
 
     # --- stress packages with period data
     pkg_periods = {}   # attr -> {kper: entries}
     pkg_opts = {}      # attr -> options of the package's (last) file
+    ts_bindings = []   # (attr, kper, row, col, TimeSeries)
+    bname_rows = {}    # BOUNDNAME -> (PKG, row) for observation IDs
+    late_bnames = set()     # boundnames of a type's second or later file
     for ftype, (attr, ncols, _) in _LIST_PACKAGES.items():
         if ftype not in pkg_files:
             continue
         all_periods = {}
-        for path in pkg_files[ftype]:   # multiple instances merge
+        for ifile, path in enumerate(pkg_files[ftype]):
+            # several files of one type merge their entries
             if ftype == "EVT6":
                 # segmented ET: extra pxdp/petm columns (gwf-evt.dfn NSEG)
                 nseg = BlockFile(path).dimensions().get("NSEG", 1)
                 ncols = 3 + 2 * (nseg - 1)
-            pkg_opts[attr], _, periods = _load_period_lists(
+            pkg_opts[attr], _, periods, ts_refs, bnames = _load_period_lists(
                 path, grid, ncols, component="gwf-" + ftype[:-1].lower())
+            for row, name in enumerate(bnames.get(1, [])):
+                if name and ifile:
+                    late_bnames.add(name)
+                elif name:
+                    bname_rows[name] = (attr.upper(), row)
+            if ts_refs:
+                ts_bindings += _ts_bindings(path, pkg_opts[attr], attr,
+                                            ts_refs, ifile, mdir)
             for kper, entries in periods.items():
                 all_periods.setdefault(kper, []).extend(entries)
         pkg_periods[attr] = all_periods
@@ -705,6 +766,14 @@ def _load_gwf_model(ws, mfname, mname, device):
     if "OC6" in pkg_files:
         hds_path, cbc_path, oc = load_oc(pkg_files["OC6"][0], mdir)
 
+    # --- OBS6 continuous observations (utl-obs.dfn files)
+    obs = None
+    if "OBS6" in pkg_files:
+        obs = ObsGroup([m for path in pkg_files["OBS6"]
+                        for m in load_obs6(path, cellid, mdir,
+                                           bname_rows=bname_rows,
+                                           late_bnames=late_bnames).managers])
+
     return dict(name=mname, model=model, base_model=base_model, grid=grid,
                 adv_specs=dict(adv, movers=movers, mvr_kinds=pkg_name_kind),
                 uzf_entries=uzf_entries, adv_periods=adv_periods,
@@ -712,7 +781,34 @@ def _load_gwf_model(ws, mfname, mname, device):
                 sto_periods=sto_periods, pkg_periods=pkg_periods,
                 maxbound=maxbound, first_pkgs=first_pkgs,
                 hds_path=hds_path, cbc_path=cbc_path, oc=oc, tvk=tvk,
-                tvs=tvs)
+                tvs=tvs, ts_bindings=ts_bindings, tas=tas, obs=obs,
+                nc_out=nc_out)
+
+
+def _ts_bindings(path, opts, attr, ts_refs, ifile, mdir):
+    """The (attr, kper, row, col, TimeSeries) bindings of a list file's
+    values given as series names, from its TS6 FILEIN file."""
+    if ifile:
+        # R7: the reference binds the file's own row, but the files' entries
+        # are merged, so the series would set an entry of the first file
+        raise _not_ported(
+            f"{path}: a time-series value (TS6) in the second or later "
+            f"{attr.upper()}6 file of a model (R7: the reference binds it "
+            "to an entry of the first file)")
+    v = opts.get("TS6")
+    if not (isinstance(v, list) and v[0].upper() == "FILEIN"):
+        raise ValueError(f"{path}: time-series value names need a TS6 "
+                         "FILEIN option")
+    series = load_ts6(os.path.join(mdir, v[1]))
+    out = []
+    for kper, row, col, name in ts_refs:
+        if name not in series:
+            raise ValueError(f"{path}: unknown time series {name}")
+        if col >= len(_TS_FIELDS[attr]):
+            raise _not_ported(f"{path}: a time-series value (TS6) in "
+                              f"column {col + 1} of {attr.upper()}6")
+        out.append((attr, kper, row, col, series[name]))
+    return out
 
 
 def _augmented(base, specs, grid, movers=None):
@@ -1035,7 +1131,8 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
         tdis, model, settings, transient=transient,
         hds_path=hds_path or bundle["hds_path"],
         cbc_path=cbc_path or bundle["cbc_path"],
-        lst_path=lst_path, oc=bundle["oc"])
+        lst_path=lst_path, oc=bundle["oc"], obs=bundle["obs"],
+        nc_path=bundle["nc_out"])
     # reference failure semantics: abort on nonconvergence unless the
     # simulation CONTINUE option is set (sim-nam continue keyword)
     simulation.fail_fast = "CONTINUE" not in sopts
@@ -1044,13 +1141,88 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
         return simulation
     simulation.tvk = bundle["tvk"]
     simulation.tvs = bundle["tvs"]
+    if bundle["tas"] is not None:
+        _attach_tas(simulation, bundle["tas"])
     if bundle["uzf_entries"] is not None:
         simulation.uzf = _build_uzf(bundle, device)
     if bundle["adv_periods"]:
         _attach_advanced_periods(simulation, bundle, device)
+    if bundle["ts_bindings"]:
+        _attach_ts_bindings(simulation, bundle)
     _attach_period_data(simulation, bundle["pkg_periods"],
                         bundle["maxbound"], bundle["first_pkgs"], device)
     return simulation
+
+
+def _attach_tas(simulation, tas):
+    """RCHA driven by a time-array series (TasManager ad role): before
+    every solve attempt and step snapshot the recharge array is the
+    series' step average, in the model's and every period's package data
+    (the reference's loader.py:1603-1627); the entries, and so their sum
+    plan, stay the same."""
+    def set_rch(arr):
+        base = getattr(simulation.model, "base", simulation.model)
+        base.rch = bnd.with_values(base.rch, recharge=arr)
+        for k, pd in simulation.period_data.items():
+            simulation.period_data[k] = dataclasses.replace(pd, rch=base.rch)
+
+    bind_array_series(simulation, tas, set_rch)
+
+
+def _attach_ts_bindings(simulation, bundle):
+    """Per-step TS6 value refresh (TsManager ad role, the reference's
+    ``_attach_ts_bindings``): entries whose deck value was a series NAME
+    get the step-averaged series value before every solve attempt and
+    step snapshot, in the period data from the binding's period up to the
+    package's next PERIOD block.  A step evaluates each series once and
+    writes each (package, field) with one host-to-device copy and one
+    indexed store at distinct rows; the entries stay the same tensors, so
+    the package's sum plan carries over."""
+    pkg_periods = bundle["pkg_periods"]
+    # attr -> bkper -> field -> ([rows], [series]); a binding holds from
+    # its period up to the package's next PERIOD block
+    groups = {}
+    for attr, bkper, row, col, series in bundle["ts_bindings"]:
+        rows, sers = groups.setdefault(attr, {}).setdefault(
+            bkper, {}).setdefault(_TS_FIELDS[attr][col], ([], []))
+        rows.append(row)
+        sers.append(series)
+    rows_on_device = {}
+
+    def hook(kper, kstp, delt):
+        t0 = simulation.records[-1].totim if simulation.records else 0.0
+        values = {}     # id(series) -> the step's value
+
+        def value(series):
+            if id(series) not in values:
+                values[id(series)] = series.step_value(t0, t0 + delt)
+            return values[id(series)]
+
+        for attr, by_period in groups.items():
+            bkper = max((k for k in pkg_periods[attr] if k <= kper),
+                        default=None)
+            if bkper not in by_period:
+                continue
+            pd = simulation.period_data[bkper]
+            old = getattr(pd, attr)
+            fields = {}
+            for field, (rows, sers) in by_period[bkper].items():
+                vals = [value(s) for s in sers]
+                key = (attr, bkper, field)
+                if key not in rows_on_device:
+                    rows_on_device[key] = torch.as_tensor(
+                        rows, dtype=torch.int64, device=old.node.device)
+                arr = getattr(old, field).clone()
+                arr[rows_on_device[key]] = torch.tensor(
+                    vals, dtype=torch.float64).to(arr.device)
+                fields[field] = arr
+            new = bnd.with_values(old, **fields)
+            for k, pd_k in simulation.period_data.items():
+                if getattr(pd_k, attr) is old:
+                    simulation.period_data[k] = dataclasses.replace(
+                        pd_k, **{attr: new})
+
+    simulation.step_hooks.append(hook)
 
 
 def _merged_model(ws, bundles, exchange_entries):
@@ -1060,6 +1232,18 @@ def _merged_model(ws, bundles, exchange_entries):
     name, and so do later PERIOD blocks of the features, the movers and
     UZF, which the reference would apply to the first model alone."""
     for b in bundles:
+        if b["ts_bindings"]:
+            # R8: the reference binds the series of one model only; the
+            # named values of a merged model stay at the 0.0 placeholder
+            raise _not_ported(
+                f"{b['name']}: time-series values (TS6) in a merged "
+                "(multi-model) simulation (R8: the reference leaves them "
+                "at 0.0)")
+        for key, what in (("tas", "TIMEARRAYSERIES (TAS6)"),
+                          ("obs", "OBS6"), ("nc_out", "NETCDF_STRUCTURED")):
+            if b[key] is not None:
+                raise _not_ported(f"{b['name']}: {what} in a merged "
+                                  "(multi-model) simulation")
         if b["uzf_entries"] is not None:
             raise _not_ported("UZF in a merged (multi-model) simulation")
         if b["base_model"].csub is not None:

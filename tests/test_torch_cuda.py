@@ -4,8 +4,10 @@ preconditioner), one multigrid application whose every level launches the
 kernel, a small input deck run through the deck path on the card against
 the CPU, the small Newton, PTC and rewetting models of chip_smoke.py,
 its small MAW, LAK and SFR models with repeated sums (two card runs
-bitwise equal), and its small coupling twins (UZF with seepage and
-groundwater ET, a mover chain, a two-model exchange mover).
+bitwise equal), its small coupling twins (UZF with seepage and
+groundwater ET, a mover chain, a two-model exchange mover), and its
+utilities deck (TS6, TAS6, OBS6, NetCDF) stepping adaptively with
+retries.
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -436,3 +438,62 @@ def test_small_coupling_twins_on_card_match_cpu(cuda, twin):
     heads within 10 × outer_dvclose)."""
     from chip_smoke import check_small_coupling
     check_small_coupling(cuda, names=[twin])
+
+
+def test_series_obs_deck_with_ats_retries_on_card_matches_cpu(cuda,
+                                                             tmp_path):
+    """chip_smoke.py's utilities deck (TS6 series in the wells and the
+    east CHD column, RCHA over a TAS6 time-array series, OBS6 head,
+    drawdown and flow observations, a NetCDF export) at 4 x 32 x 32 with
+    the inner maximum cut to 30, period 1 stepping adaptively from a step
+    of the whole period with an outer maximum of 13, which makes the first
+    attempts fail: the card through the kernel and the CPU through the
+    plain version take the same steps (retries among them) with equal
+    counts, heads within 1e-10 and observation CSV files with the same
+    header and times and values within 1e-10 relative."""
+    import dataclasses
+
+    from chip_smoke import UTIL_PERIODS, write_utilities_deck
+    from modflow6_torch.solution import NumericalSolution
+    from modflow6_torch.timing.ats import AtsPeriod
+    from modflow6_torch.utils.mf6io import load_simulation
+
+    perlen = UTIL_PERIODS[0][0]
+    runs = {}
+    for name, device in (("card", None), ("cpu", "cpu")):
+        ws = tmp_path / name
+        ws.mkdir()
+        write_utilities_deck(str(ws), (4, 32, 32))
+        ims = ws / "sim.ims"
+        ims.write_text(ims.read_text().replace("INNER_MAXIMUM 400",
+                                               "INNER_MAXIMUM 30"))
+        sim = load_simulation(str(ws), device=device)
+        sim.solution = NumericalSolution(sim.model, dataclasses.replace(
+            sim.solution.s, outer_maximum=13))
+        sim.ats[1] = AtsPeriod(dt0=perlen, dtmin=perlen / 64, dtmax=perlen,
+                               dtadj=1.0, dtfailadj=4.0)
+        stencil.stencil7.launches = 0
+        recs = sim.run()
+        assert all(r.converged for r in recs)
+        assert recs[0].retries > 0
+        if device is None:
+            assert stencil.stencil7.launches >= sum(r.inner for r in recs)
+        else:
+            assert stencil.stencil7.launches == 0
+        runs[name] = (ws, recs)
+    (ws, card), (cws, cpu) = runs["card"], runs["cpu"]
+    assert [(r.kper, r.kstp, r.totim, r.retries) for r in card] == [
+        (r.kper, r.kstp, r.totim, r.retries) for r in cpu]
+    assert [(r.outer, r.inner) for r in card] == [(r.outer, r.inner)
+                                                  for r in cpu]
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a.head, b.head, rtol=0, atol=1e-10)
+    for csv in ("heads.csv", "flows.csv"):
+        got = (ws / csv).read_text().splitlines()
+        want = (cws / csv).read_text().splitlines()
+        assert got[0] == want[0] and len(got) == len(want) == len(card) + 1
+        g = np.array([[float(v) for v in line.split(",")] for line in got[1:]])
+        w = np.array([[float(v) for v in line.split(",")]
+                      for line in want[1:]])
+        np.testing.assert_array_equal(g[:, 0], w[:, 0])
+        np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-10)
