@@ -45,7 +45,16 @@ script computes, its observations against the .hds and .cbc files and a
 zone budget of its .cbc; the same deck with period 1 stepping adaptively
 (ATS) with retries, twice and replayed as fixed steps; and a million-cell
 MODFLOW-2005 deck converted by mf5to6 and run against the same model
-built in memory.
+built in memory; and the transport (``transport``): a contaminant plume
+(TVD, dispersion, decay, sorption, a constant-concentration block, mass
+sources, recharge at a concentration) on the bench model over a 5-d and a
+yearly period through ``Simulation`` twice (bitwise equal; the flow
+through the stencil kernel, the transport through the ELL gather), the
+same as a GWF6 + GWT6 deck through the command-line entry against it, and
+the seawater wedge with BUY and VSC reading the transport's concentration
+with MXITER 3, twice, against MXITER 1; with small transport twins
+(schemes, sorption, IST, SRC/CNC, ATS_PERCEL, two merged models) on the
+card against the CPU in the ``small`` phase.
 
 Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          without one, and on any failed
@@ -62,7 +71,7 @@ Output of the smoke run, in order: the device, the kernel build,
 kernel-vs-plain checks with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
 general-path runs, the property-package runs, the advanced-package runs,
-the coupling runs, the utilities runs, one JSON line
+the coupling runs, the utilities runs, the transport runs, one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -101,6 +110,7 @@ from modflow6_torch.models.gwf.builder import (              # noqa: E402
     build_gwf, chd_data, rch_data, wel_data)
 from modflow6_torch.models.gwf.gnc import build_gnc          # noqa: E402
 from modflow6_torch.models.gwf.model import PackageData      # noqa: E402
+from modflow6_torch.models.gwt.builder import build_gwt      # noqa: E402
 from modflow6_torch.models.simulation import Simulation      # noqa: E402
 from modflow6_torch.ops import stencil                       # noqa: E402
 from modflow6_torch.ops.solvers.mg import make_mg_preconditioner  # noqa: E402
@@ -115,6 +125,7 @@ from modflow6_torch.solution.fused import (make_fused_run,   # noqa: E402
 from modflow6_torch.solution.ims import (NumericalSolution,  # noqa: E402
                                           fix_system)
 from modflow6_torch.utils.binary import read_head_file       # noqa: E402
+from modflow6_torch.timing import ats as ats_mod              # noqa: E402
 from modflow6_torch.timing.tdis import StressPeriod, Tdis     # noqa: E402
 from modflow6_torch.utils.mf6io import load_simulation       # noqa: E402
 from modflow6_torch.utils.oc import OutputControl            # noqa: E402
@@ -4081,6 +4092,572 @@ def run_utilities(device, shape=BENCH_SHAPE):
     return launches
 
 
+# ------------------------------------------------------------ transport
+
+# (t1) the bench model over two periods: bench.py's three 5-d steps, then
+# four steps of a year
+PLUME_PERIODS = ((15.0, 3, 1.0), (1460.0, 4, 1.0))
+# the flow: bench.py's closures, CG with Jacobi, room for the long steps
+PLUME_FLOW = dict(BENCH, inner_maximum=2000)
+# the transport: BiCGSTAB with Jacobi on the ELL gather
+PLUME_TRANSPORT = dict(outer_dvclose=1e-5, outer_maximum=50,
+                       inner_dvclose=1e-7, inner_rclose=1e-6,
+                       inner_maximum=500, linear_acceleration="bicgstab")
+PLUME_DSP = dict(alh=10.0, ath1=1.0, atv=0.1, diffc=8.64e-5)
+PLUME_SORPTION = dict(isrb=1, bulk_density=1.6, distcoef=0.1)
+PLUME_DECAY = 1e-4
+PLUME_RCH_CONC = 0.01
+PLUME_SRC = 0.1
+CONC_SLACK = 1e-4           # the concentrations stay in [-1e-4, 1 + 1e-4]
+
+
+def plume_layout(shape):
+    """Layer-1 cells of the plume's sources on the bench grid: the CNC
+    block (32 x 32 at 1024 x 1024) 256 columns east of the west CHD column
+    in the rows of the well, the SRC block (16 x 16) in the north-east
+    quarter; both scale with the grid."""
+    _, nrow, ncol = shape
+    side, src_side = max(ncol // 32, 2), max(ncol // 64, 1)
+    r0 = nrow // 2 - side // 2
+    c0 = ncol // 4
+    cnc = [i * ncol + j for i in range(r0, r0 + side)
+           for j in range(c0, c0 + side)]
+    sr, sc = nrow // 4, 3 * ncol // 4
+    src = [i * ncol + j for i in range(sr, sr + src_side)
+           for j in range(sc, sc + src_side)]
+    return cnc, src
+
+
+def plume_models(device, shape):
+    """(flow, transport) of (t1): ``flagship`` and its contaminant plume."""
+    nlay, nrow, ncol = shape
+    flow = flagship(*shape, device)
+    cnc, src = plume_layout(shape)
+    gwt = build_gwt(
+        "plume", flow.grid, porosity=0.3, strt=0.0, scheme="tvd",
+        dsp=PLUME_DSP, decay=(1, PLUME_DECAY), sorption=PLUME_SORPTION,
+        cnc=[(n, 1.0) for n in cnc], src=[(n, PLUME_SRC) for n in src],
+        ssm_spec={"RCH": np.full(nrow * ncol, PLUME_RCH_CONC)},
+        device=device)
+    return flow, gwt
+
+
+def instrument_transport(sim, device):
+    """Per step of ``sim``: the transport's assembly seconds, its BiCGSTAB
+    seconds and iterations (each linear solve between two device
+    synchronisations), its stencil7 launches, the flow's launches and the
+    peak memory; and the last assembled transport system with the iterate
+    it was built at."""
+    from modflow6_torch.solution import ims as ims_mod
+    gwt, sol = sim.gwt, sim.gwt_solution
+    steps, last = [], {}
+    assemble, solve = gwt.assemble, sol.solve_timestep
+    do_step, bicgstab = sim.do_step, ims_mod.bicgstab
+
+    def timed_bicgstab(*args, **kwargs):
+        sync(device)
+        t0 = time.perf_counter()
+        res = bicgstab(*args, **kwargs)
+        sync(device)
+        steps[-1]["bicgstab_s"] += time.perf_counter() - t0
+        steps[-1]["bicgstab_iterations"] += res.iters
+        return res
+
+    def timed_assemble(conc, conc_old, ibound, delt, iss, pkgs=None):
+        sync(device)
+        t0 = time.perf_counter()
+        out = assemble(conc, conc_old, ibound, delt, iss, pkgs)
+        sync(device)
+        steps[-1]["assembly_s"] += time.perf_counter() - t0
+        last.update(system=out, conc=conc, ibound=ibound)
+        return out
+
+    def counted_solve(*args, **kwargs):
+        before = stencil.stencil7.launches
+        steps[-1]["flow_launches"] = before - steps[-1]["flow_launches"]
+        ims_mod.bicgstab = timed_bicgstab
+        try:
+            out = solve(*args, **kwargs)
+        finally:
+            ims_mod.bicgstab = bicgstab
+        steps[-1]["transport_launches"] = stencil.stencil7.launches - before
+        return out
+
+    def step(*args, **kwargs):
+        reset_peak(device)
+        steps.append(dict(assembly_s=0.0, bicgstab_s=0.0,
+                          bicgstab_iterations=0, flow_launches=stencil
+                          .stencil7.launches, transport_launches=0))
+        out = do_step(*args, **kwargs)
+        steps[-1]["peak_bytes"] = peak_bytes(device)
+        return out
+
+    gwt.assemble, sol.solve_timestep, sim.do_step = (timed_assemble,
+                                                     counted_solve, step)
+    return steps, last
+
+
+def final_system(sim, last):
+    """The last transport system after the fixup at the iterate it was
+    built at: (diag, off, rhs, ibound)."""
+    diag, off, rhs = last["system"]
+    ib = last["ibound"]
+    return fix_system(sim.gwt, torch.sign(ib), diag, off, rhs, last["conc"],
+                      symmetric=False) + (ib,)
+
+
+def final_residual(sim, last):
+    """max |b - A c| of the last transport system at the final
+    concentration, in f64 through the ELL gather."""
+    diag, off, rhs, ib = final_system(sim, last)
+    r = rhs - spmv(sim.gwt.dtopo.nbr, diag, off, sim.conc)
+    return float(torch.where(ib > 0, r, 0.0).abs().max())
+
+
+def time_transport_gather(sim, last, ms_per_iteration):
+    """The ELL gather product of the last transport system (K = 6 on a DIS
+    grid), 100 launches per CUDA event pair, beside its byte bound and its
+    share of a BiCGSTAB iteration (two products; ``ms_per_iteration`` from
+    the linear solves' own seconds)."""
+    diag, off, _, _ = final_system(sim, last)
+    nbr, x = sim.gwt.dtopo.nbr, sim.conc
+    n, k = nbr.shape
+    ms = back_to_back_ms(lambda: spmv(nbr, diag, off, x))
+    bound = ell_bound_ms(n, k)
+    print(f"transport (t1) ell product K={k} rows={n} ms={ms!r} "
+          f"bound_ms={bound!r} share_of_bound={bound / ms!r} "
+          f"share_of_bicgstab_iteration={2 * ms / ms_per_iteration!r}")
+
+
+def run_plume(device, shape, label, time_gather=False):
+    """(t1) once: the flow and the plume through ``Simulation``; with
+    ``time_gather`` (on the card) also the transport's gather product."""
+    flow, gwt = plume_models(device, shape)
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in PLUME_PERIODS)),
+                     flow, ImsSettings(**PLUME_FLOW), gwt=gwt,
+                     gwt_settings=ImsSettings(**PLUME_TRANSPORT))
+    steps, last = instrument_transport(sim, device)
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        recs = sim.run()
+        sync(device)
+        seconds = time.perf_counter() - t0
+    resid = final_residual(sim, last)
+    cmin = min(float(c.min()) for c in sim.conc_records)
+    cmax = max(float(c.max()) for c in sim.conc_records)
+    for r, s in zip(recs, steps):
+        print(f"transport (t1) {label} kper={r.kper} kstp={r.kstp} "
+              f"flow outer={r.outer} inner={r.inner} transport "
+              f"outer={r.transport_outer} inner={r.transport_inner} "
+              f"fmi_s={r.fmi_seconds!r} assembly_s={s['assembly_s']!r} "
+              f"solve_s={r.transport_seconds!r} "
+              f"bicgstab_s={s['bicgstab_s']!r} ms_per_bicgstab_iteration="
+              f"{s['bicgstab_s'] / max(s['bicgstab_iterations'], 1) * 1e3!r} "
+              f"stencil7_flow={s['flow_launches']} "
+              f"stencil7_transport={s['transport_launches']} "
+              f"peak_bytes={s['peak_bytes']}")
+    print(f"transport (t1) {label}: cells={flow.nodes} run_s={seconds!r} "
+          f"conc_min={cmin!r} conc_max={cmax!r} final_residual={resid!r} "
+          f"rclose={PLUME_TRANSPORT['inner_rclose']!r} "
+          f"stencil7_launches={counts['launches']}")
+    if not all(r.converged and r.transport_converged for r in recs):
+        raise AssertionError(f"transport (t1) {label}: a step did not "
+                             "converge")
+    if not (-CONC_SLACK <= cmin and cmax <= 1.0 + CONC_SLACK
+            and np.isfinite(cmin) and np.isfinite(cmax)):
+        raise AssertionError(f"transport (t1) {label}: concentrations "
+                             f"[{cmin}, {cmax}] outside [0, 1]")
+    if not resid <= PLUME_TRANSPORT["inner_rclose"]:
+        raise AssertionError(f"transport (t1) {label}: final residual "
+                             f"{resid} above the closure")
+    if any(s["transport_launches"] for s in steps) \
+            or not all(s["flow_launches"] for s in steps) \
+            or counts["plain_on_cuda"]:
+        raise AssertionError(f"transport (t1) {label}: the flow must go "
+                             "through stencil7, the transport must not")
+    if time_gather:
+        inner = sum(s["bicgstab_iterations"] for s in steps)
+        solve = sum(s["bicgstab_s"] for s in steps)
+        time_transport_gather(sim, last, solve / inner * 1e3)
+    return sim, recs, counts["launches"]
+
+
+def write_plume_deck(ws, shape):
+    """(t1) as a deck: the flow deck of ``write_flagship_deck`` with the
+    recharge as an RCH6 list with a CONCENTRATION aux column (OPEN/CLOSE),
+    a GWT6 model with every (t1) package (DSP with XT3D_OFF), a GWF6-GWT6
+    exchange, two solution groups (CG, BICGSTAB), concentrations saved
+    every step."""
+    nlay, nrow, ncol = shape
+    ims = {k: PLUME_FLOW[k] for k in ("outer_dvclose", "outer_maximum",
+                                      "inner_maximum", "inner_dvclose",
+                                      "inner_rclose")}
+    write_flagship_deck(ws, nlay, nrow, ncol, rcha=None,
+                        tdis=list(PLUME_PERIODS), ims=ims, oc_last=False,
+                        extra_packages=["RCH6 m.rch"])
+    ii, jj = np.divmod(np.arange(nrow * ncol), ncol)
+    with open(os.path.join(ws, "rch.txt"), "w") as f:
+        f.write("".join(f"1 {i + 1} {j + 1} 0.0001 {PLUME_RCH_CONC!r}\n"
+                        for i, j in zip(ii.tolist(), jj.tolist())))
+    _write(ws, "m.rch", f"""BEGIN OPTIONS
+  AUXILIARY CONCENTRATION
+END OPTIONS
+BEGIN DIMENSIONS
+  MAXBOUND {nrow * ncol}
+END DIMENSIONS
+BEGIN PERIOD 1
+  OPEN/CLOSE rch.txt
+END PERIOD
+""")
+    _write(ws, "mfsim.nam", """BEGIN TIMING
+  TDIS6 sim.tdis
+END TIMING
+BEGIN MODELS
+  GWF6 m.nam FLAGSHIP
+  GWT6 t.nam PLUME
+END MODELS
+BEGIN EXCHANGES
+  GWF6-GWT6 ft.exg FLAGSHIP PLUME
+END EXCHANGES
+BEGIN SOLUTIONGROUP 1
+  IMS6 sim.ims FLAGSHIP
+END SOLUTIONGROUP
+BEGIN SOLUTIONGROUP 2
+  IMS6 t.ims PLUME
+END SOLUTIONGROUP
+""")
+    t = PLUME_TRANSPORT
+    _write(ws, "ft.exg", "BEGIN OPTIONS\nEND OPTIONS\n")
+    _write(ws, "t.ims", f"""BEGIN NONLINEAR
+  OUTER_DVCLOSE {t['outer_dvclose']!r}
+  OUTER_MAXIMUM {t['outer_maximum']}
+END NONLINEAR
+BEGIN LINEAR
+  INNER_MAXIMUM {t['inner_maximum']}
+  INNER_DVCLOSE {t['inner_dvclose']!r}
+  INNER_RCLOSE {t['inner_rclose']!r}
+  LINEAR_ACCELERATION BICGSTAB
+END LINEAR
+""")
+    shutil.copy(os.path.join(ws, "m.dis"), os.path.join(ws, "t.dis"))
+    _write(ws, "t.nam", """BEGIN PACKAGES
+  DIS6 t.dis
+  IC6 t.ic
+  ADV6 t.adv
+  DSP6 t.dsp
+  MST6 t.mst
+  SSM6 t.ssm
+  CNC6 t.cnc
+  SRC6 t.src
+  OC6 t.oc
+END PACKAGES
+""")
+    _write(ws, "t.ic", "BEGIN GRIDDATA\n  STRT\n    CONSTANT 0.0\n"
+           "END GRIDDATA\n")
+    _write(ws, "t.adv", "BEGIN OPTIONS\n  SCHEME TVD\nEND OPTIONS\n")
+    d = PLUME_DSP
+    _write(ws, "t.dsp", "BEGIN OPTIONS\n  XT3D_OFF\nEND OPTIONS\n"
+           "BEGIN GRIDDATA\n" + "".join(
+               f"  {k.upper()}\n    CONSTANT {v!r}\n" for k, v in d.items())
+           + "END GRIDDATA\n")
+    s = PLUME_SORPTION
+    _write(ws, "t.mst", f"""BEGIN OPTIONS
+  FIRST_ORDER_DECAY
+  SORPTION LINEAR
+END OPTIONS
+BEGIN GRIDDATA
+  POROSITY
+    CONSTANT 0.3
+  DECAY
+    CONSTANT {PLUME_DECAY!r}
+  BULK_DENSITY
+    CONSTANT {s['bulk_density']!r}
+  DISTCOEF
+    CONSTANT {s['distcoef']!r}
+END GRIDDATA
+""")
+    _write(ws, "t.ssm", "BEGIN SOURCES\n  RCH-1 AUX CONCENTRATION\n"
+           "END SOURCES\n")
+    cnc, src = plume_layout(shape)
+    for name, nodes, value in (("t.cnc", cnc, 1.0), ("t.src", src,
+                                                     PLUME_SRC)):
+        rows = "".join(f"  1 {n // ncol + 1} {n % ncol + 1} {value!r}\n"
+                       for n in nodes)
+        _write(ws, name, f"BEGIN DIMENSIONS\n  MAXBOUND {len(nodes)}\n"
+               f"END DIMENSIONS\nBEGIN PERIOD 1\n{rows}END PERIOD\n")
+    _write(ws, "t.oc", """BEGIN OPTIONS
+  CONCENTRATION FILEOUT t.ucn
+END OPTIONS
+BEGIN PERIOD 1
+  SAVE CONCENTRATION ALL
+END PERIOD
+""")
+
+
+def run_plume_deck(device, shape, memory):
+    """(t2) the (t1) deck through the command-line entry: its .ucn records
+    against (t1)'s concentrations, its counts against (t1)'s."""
+    msim, mrecs = memory
+    ws = tempfile.mkdtemp(prefix="plume_")
+    try:
+        t0 = time.perf_counter()
+        write_plume_deck(ws, shape)
+        write_s = time.perf_counter() - t0
+        out = io.StringIO()
+        with captured_loads(device) as loads, counted_run() as counts, \
+                contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            code = cli_main([ws] + ([] if torch.device(device).type == "cuda"
+                                    else ["--device", "cpu"]))
+            sync(device)
+            cli_s = time.perf_counter() - t0
+        sim, load_s = loads[0]
+        recs = sim.records
+        ucn = read_head_file(os.path.join(ws, "t.ucn"))
+        nlay = shape[0]
+        concs = [np.concatenate([r["data"].reshape(-1) for r in
+                                 ucn[i:i + nlay]])
+                 for i in range(0, len(ucn), nlay)]
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    counts_of = [(r.outer, r.inner, r.transport_outer, r.transport_inner)
+                 for r in recs]
+    want = [(r.outer, r.inner, r.transport_outer, r.transport_inner)
+            for r in mrecs]
+    bitwise = len(concs) == len(msim.conc_records) and all(
+        np.array_equal(a, b) for a, b in zip(concs, msim.conc_records))
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(concs, msim.conc_records))
+    print(f"transport (t2) plume deck cli exit={code} written_s={write_s!r} "
+          f"wall_s={cli_s!r} load_s={load_s!r} counts={counts_of} "
+          f"ucn_records={len(concs)} bitwise_equal_t1={bitwise} "
+          f"max|c_deck - c_t1|={err!r} "
+          f"stencil7_launches={counts['launches']} "
+          f"stdout={out.getvalue().strip()!r}")
+    if code != 0 or "Normal termination" not in out.getvalue() \
+            or len(concs) != len(mrecs) or counts_of != want \
+            or not err <= DECK_FUSED_ATOL or counts["plain_on_cuda"] \
+            or not counts["launches"]:
+        raise AssertionError("the plume deck differs from (t1)")
+    return counts["launches"]
+
+
+# (t3) the BUY/VSC wedge of the properties phase with its transport
+WEDGE_PERIODS = ((10.0, 2, 1.0),)
+WEDGE_MXITER = 3
+
+
+def wedge_models(device, shape):
+    flow = build_gwf("buy vsc wedge", flagship_grid(*shape),
+                     buy=dict(denseref=1000.0, drhodc=0.7, crhoref=0.0),
+                     vsc=dict(viscref=1.0, dviscdc=0.01), device=device,
+                     **flagship_args(*shape))
+    nlay, nrow, ncol = shape
+    sea = [(k * nrow * ncol + i * ncol + ncol - 1, 35.0)
+           for k in range(nlay) for i in range(nrow)]
+    gwt = build_gwt("wedge", flow.grid, porosity=0.3,
+                    strt=wedge(*shape), cnc=sea, device=device)
+    return flow, gwt
+
+
+def run_wedge(device, shape, mxiter, label):
+    """(t3) once: returns (simulation, records, flow self-consistency
+    error, launches)."""
+    flow, gwt = wedge_models(device, shape)
+    settings = ImsSettings(**BENCH, linear_acceleration="bicgstab")
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in WEDGE_PERIODS)),
+                     flow, settings, gwt=gwt,
+                     gwt_settings=ImsSettings(**PLUME_TRANSPORT))
+    sim.sgp_mxiter = mxiter
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        recs = sim.run()
+        sync(device)
+        seconds = time.perf_counter() - t0
+    # the flow's self-consistency: the last step re-solved at the final
+    # concentration
+    pkgs = dataclasses.replace(flow.packages, buy_conc=sim.conc)
+    h2, info, _ = sim.solution.solve_timestep(
+        torch.as_tensor(recs[-2].head, device=device), recs[-1].totim
+        - recs[-2].totim, kstp=len(recs), iss=False, pkgs=pkgs)
+    err = float((h2.cpu() - torch.as_tensor(recs[-1].head)).abs().max())
+    print(f"transport (t3) wedge {label} mxiter={mxiter}: "
+          f"cells={flow.nodes} run_s={seconds!r} "
+          f"counts={[(r.outer, r.inner) for r in recs]} "
+          f"group_passes={[r.group_iterations for r in recs]} "
+          f"transport={[(r.transport_outer, r.transport_inner) for r in recs]} "
+          f"self_consistency={err!r} resolve_converged={info.converged} "
+          f"conc_max={float(sim.conc.max())!r} "
+          f"stencil7_launches={counts['launches']}")
+    if not (all(r.converged and r.transport_converged for r in recs)
+            and info.converged and counts["launches"]
+            and not counts["plain_on_cuda"]):
+        raise AssertionError(f"transport (t3) wedge {label} failed")
+    return sim, recs, err, counts["launches"]
+
+
+def small_transport_models(dev):
+    """(name, run) of the small transport twins: ``run()`` returns (the
+    final concentration on the CPU, [(flow outer, transport outer)],
+    converged, transport settings)."""
+    from modflow6_torch.models.gwt.exchange import merge_gwt_models
+    from modflow6_torch.models.gwf import exchange
+    trans = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
+                 inner_rclose=1e-9, inner_maximum=500,
+                 linear_acceleration="bicgstab")
+    flow_s = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
+                  inner_rclose=1e-9, inner_maximum=500)
+    grid = dict(nlay=2, nrow=12, ncol=10, delr=10.0, delc=10.0, top=20.0,
+                botm=np.stack([np.full((12, 10), 10.0),
+                               np.zeros((12, 10))]))
+    rng = np.random.default_rng(21)
+    fkw = dict(k=np.exp(rng.normal(0.0, 0.5, 240)), strt=15.0,
+               storage={"ss": 1e-4, "iconvert": 0},
+               chd=[(i * 10, 16.0) for i in range(12)]
+               + [(120 + i * 10 + 9, 14.0) for i in range(12)],
+               wel=[(65, -20.0)], rch=[(n, 1e-3) for n in range(120)])
+
+    def run(name, periods=((20.0, 4, 1.2),), ats=None, ats_percel=None,
+            **tkw):
+        g = DisGrid.create(**grid)
+        sim = Simulation(
+            Tdis(tuple(StressPeriod(*p) for p in periods)),
+            build_gwf(name, g, device=dev, **fkw), ImsSettings(**flow_s),
+            gwt=build_gwt(name, g, device=dev, porosity=0.3,
+                          ssm_spec={"RCH": 0.5}, **tkw),
+            gwt_settings=ImsSettings(**trans))
+        if ats is not None:
+            sim.ats = {1: ats}
+            sim.ats_percel = ats_percel
+        recs = sim.run()
+        return (torch.as_tensor(sim.conc_records[-1]),
+                [(r.outer, r.transport_outer, r.totim) for r in recs],
+                all(r.converged and r.transport_converged for r in recs),
+                trans)
+
+    dsp = dict(alh=5.0, ath1=0.5, atv=0.05, diffc=1e-3)
+    twins = [(f"{scheme} with dsp", lambda scheme=scheme: run(
+        scheme, scheme=scheme, dsp=dsp, cnc=[(3, 1.0)]))
+        for scheme in ("upstream", "central", "tvd")]
+    twins += [
+        ("freundlich, zero-order decay", lambda: run(
+            "freundlich", cnc=[(3, 1.0)], decay=(2, 1e-3), sorption=dict(
+                isrb=2, bulk_density=1.6, distcoef=0.2, sp2=0.7))),
+        ("langmuir, zero-order decay", lambda: run(
+            "langmuir", cnc=[(3, 1.0)], decay=(2, 1e-3), sorption=dict(
+                isrb=3, bulk_density=1.6, distcoef=0.3, sp2=2.0))),
+        ("ist", lambda: run("ist", cnc=[(3, 1.0)], ist=dict(
+            thetaim=0.1, zetaim=0.05, volfrac=0.3, bulk_density=1.6,
+            distcoef=0.2, isrb=1))),
+        ("src and repeated cnc", lambda: run(
+            "src", cnc=[(3, 0.4), (3, 1.0), (44, 0.5)],
+            src=[(70, 0.05), (70, 0.02), (71, 0.01)])),
+        ("ats_percel", lambda: run(
+            "percel", periods=((40.0, 1, 1.0),), cnc=[(3, 1.0)],
+            ats=ats_mod.AtsPeriod(dt0=1.0, dtmin=0.01, dtmax=20.0,
+                                  dtadj=2.0, dtfailadj=5.0),
+            ats_percel=0.5))]
+
+    def merged():
+        half = dict(grid, ncol=5, botm=grid["botm"][:, :, :5])
+        g = DisGrid.create(**half)
+        members = [build_gwf(n, g, k=2.0, strt=15.0, device=dev, chd=chd,
+                             storage={"ss": 1e-4, "iconvert": 0})
+                   for n, chd in (("w", [(i * 5, 16.0) for i in range(12)]),
+                                  ("e", [(60 + i * 5 + 4, 14.0)
+                                         for i in range(12)]))]
+        pairs = [exchange.ExchangePair(k * 60 + i * 5 + 4, k * 60 + i * 5,
+                                       ihc=1, cl1=5.0, cl2=5.0, hwva=10.0)
+                 for k in range(2) for i in range(12)]
+        fm = exchange.merge_gwf_models(members, [exchange.GwfGwfExchange(
+            0, 1, pairs)])
+        tm = merge_gwt_models([build_gwt("tw", g, cnc=[(3, 1.0)],
+                                         device=dev, porosity=0.3),
+                               build_gwt("te", g, device=dev,
+                                         porosity=0.3)], fm)
+        sim = Simulation(Tdis((StressPeriod(20.0, 4, 1.2),)), fm,
+                         ImsSettings(**flow_s), gwt=tm,
+                         gwt_settings=ImsSettings(**trans))
+        recs = sim.run()
+        return (torch.as_tensor(sim.conc_records[-1]),
+                [(r.outer, r.transport_outer) for r in recs],
+                all(r.converged and r.transport_converged for r in recs),
+                trans)
+
+    return twins + [("two merged gwt models", merged)]
+
+
+def check_small_transport(device, names=None):
+    """Small transport twins on the card against the CPU (upstream,
+    central and TVD with DSP; Freundlich and Langmuir sorption with
+    zero-order decay; IST; SRC and repeated CNC cells; ATS_PERCEL; two
+    merged GWT models): equal outer counts (and ATS step times within
+    1e-12), concentrations within 10 × outer_dvclose."""
+    cpu = dict(small_transport_models("cpu"))
+    for name, run in small_transport_models(device):
+        if names is not None and name not in names:
+            continue
+        c, k, ok, s = run()
+        c0, k0, ok0, _ = cpu[name]()
+        err = float((c - c0).abs().max())
+        bar = CLOSURE_FACTOR * s["outer_dvclose"]
+        same = [row[:2] for row in k] == [row[:2] for row in k0] and all(
+            abs(a[2] - b[2]) <= 1e-12 * max(abs(b[2]), 1.0)
+            for a, b in zip(k, k0) if len(a) > 2)
+        print(f"small transport {name}: card counts={k} converged={ok}; "
+              f"cpu counts={k0} converged={ok0}; max|dc|={err!r} "
+              f"bar={bar!r}")
+        if not (ok and ok0 and same and len(k) == len(k0) and err <= bar):
+            raise AssertionError(f"small transport {name}: the card "
+                                 "disagrees with the CPU")
+
+
+def run_transport(device, shape=BENCH_SHAPE):
+    """The transport phase: (t1) the plume twice (bitwise), (t2) its deck
+    through the command-line entry, (t3) the density-coupled wedge with
+    MXITER twice (bitwise) and with MXITER 1.  Returns the stencil7
+    launches, which must be some: the flow models keep their grid
+    shape."""
+    t0 = time.perf_counter()
+    sims = [run_plume(device, shape, f"run {i}",
+                      time_gather=i == 1 and torch.device(device).type
+                      == "cuda") for i in (1, 2)]
+    (s1, r1, l1), (s2, r2, l2) = sims
+    same = [(r.outer, r.inner, r.transport_outer, r.transport_inner)
+            for r in r1] == [(r.outer, r.inner, r.transport_outer,
+                              r.transport_inner) for r in r2] and all(
+        np.array_equal(a, b) for a, b in zip(s1.conc_records,
+                                             s2.conc_records))
+    print(f"transport (t1) two runs bitwise equal={same}")
+    if not same:
+        raise AssertionError("the two plume runs differ")
+    del s2, sims
+    launches = l1 + l2 + run_plume_deck(device, shape, (s1, r1))
+    del s1
+    wedges = [run_wedge(device, shape, WEDGE_MXITER, f"run {i}")
+              for i in (1, 2)]
+    (w1, wr1, e1, wl1), (w2, wr2, e2, wl2) = wedges
+    same = [(r.outer, r.inner, r.group_iterations) for r in wr1] == [
+        (r.outer, r.inner, r.group_iterations) for r in wr2] and all(
+        np.array_equal(a.head, b.head) for a, b in zip(wr1, wr2)) and all(
+        np.array_equal(a, b) for a, b in zip(w1.conc_records,
+                                             w2.conc_records))
+    del wedges, w1, w2
+    _, _, e_lagged, wl3 = run_wedge(device, shape, 1, "lagged")
+    print(f"transport (t3) two runs bitwise equal={same} self_consistency "
+          f"mxiter={WEDGE_MXITER} {e1!r} against mxiter=1 {e_lagged!r}")
+    if not (same and e1 < e_lagged):
+        raise AssertionError("the wedge runs differ, or the group loop did "
+                             "not make the flow more consistent")
+    launches += wl1 + wl2 + wl3
+    print(f"transport phase in {time.perf_counter() - t0!r} s, "
+          f"stencil7_launches={launches}")
+    if not launches:
+        raise AssertionError("the transport runs launched no stencil7 "
+                             "kernel")
+    return launches
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -4167,7 +4744,8 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
-          "unstructured", "properties", "advanced", "coupling", "utilities")
+          "unstructured", "properties", "advanced", "coupling", "utilities",
+          "transport")
 
 
 def main():
@@ -4220,6 +4798,7 @@ def main():
         check_small_newton(device)
         check_small_general(device)
         check_small_coupling(device)
+        check_small_transport(device)
     if "bench" in phases:
         launches["fused"], _, _, mixed_inners, _ = run_bench(device, "mixed")
         f64_launches, fused_head, kiters, inners, _ = run_bench(device, "f64")
@@ -4255,6 +4834,8 @@ def main():
         launches["coupling"] = run_coupling(device)
     if "utilities" in phases:
         launches["utilities"] = run_utilities(device)
+    if "transport" in phases:
+        launches["transport"] = run_transport(device)
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -4278,6 +4859,7 @@ def main():
         "launches_advanced_path": advanced_launches,
         "launches_coupling_path": launches["coupling"],
         "launches_utilities_path": launches["utilities"],
+        "launches_transport_path": launches["transport"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

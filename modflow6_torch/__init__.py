@@ -6,8 +6,11 @@ or Newton, rewetting, rotated anisotropy, horizontal-flow barriers, XT3D
 with its Newton form), STO, CHD/WEL/RCH/DRN/RIV/GHB/EVT, GNC, BUY, VSC,
 CSUB with delay interbeds, TVK/TVS, the advanced packages MAW, LAK and SFR
 (``models.gwf.advanced.AugmentedGwfModel``), UZF, MVR, several models
-joined by GWF6-GWF6 exchanges, preconditioned CG or BiCGSTAB (``f64`` or
-``mixed`` precision), in the fused time step and on the deck path
+joined by GWF6-GWF6 exchanges, and GWT solute transport on its flows
+(``models.gwt``: FMI, ADV with TVD, DSP, MST, IST, SSM, CNC, SRC; BUY and
+VSC at the transport's concentration), preconditioned CG or BiCGSTAB
+(``f64`` or ``mixed`` precision), in the fused time step and on the deck
+path
 (``python -m modflow6_torch <workspace>``: ``mfsim.nam`` loader,
 ``Simulation``, ``NumericalSolution``, ``.hds``/``.cbc``/``.grb``/listing
 output), with adaptive time steps, TS6/TAS6 series, OBS6 observations,

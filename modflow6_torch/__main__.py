@@ -8,8 +8,10 @@ runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device and without that flag the program fails.  A time step that does
 not converge ends the run with exit code 1, unless mfsim.nam sets
 CONTINUE: then the run goes on, reports the failures and ends normally, as
-the reference program does.  The reference's ``-l/--level`` profiling flag
-is not ported.
+the reference program does.  A transport (GWT) step that does not converge
+is reported in the listing (``*** GWT NONCONVERGENCE kper= kstp= ***``)
+and counted on standard error; as in the reference, it does not end the
+run.  The reference's ``-l/--level`` profiling flag is not ported.
 """
 
 from __future__ import annotations
@@ -70,6 +72,10 @@ def main(argv=None):
         # failed steps, as the reference program does
         print(f"Simulation convergence failure occurred {failed} time(s)",
               file=sys.stderr)
+    failed_gwt = sum(not r.transport_converged for r in recs)
+    if failed_gwt:
+        print(f"Transport convergence failure occurred {failed_gwt} "
+              "time(s)", file=sys.stderr)
     print(f"Normal termination of simulation ({elapsed:.1f} s, "
           f"{len(recs)} steps)")
     return 0

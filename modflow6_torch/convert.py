@@ -50,6 +50,18 @@ Keys of ``arrays``:
   ``MergedGrid`` with the merged topology, for ``split_heads`` and the
   output files.
 
+``gwt_from_reference`` does the same for a reference ``GwtModel``, and
+``simulation_from_reference`` converts a simulation's transport model too
+(its ``gwt`` entry).  Keys of its ``arrays``: ``strt``, ``ibound0``,
+``top``, ``bot``, ``area`` per cell; the edge topology (the keys above,
+the DIS grid's fixed slots among them); ``mst_{field}`` for the fields of
+the reference's ``MstArrays``; optional ``dsp_{field}`` (``DspData``'s
+arrays), ``ist_{field}`` (``IstData``'s) with ``cim``, and ``cnc_node``,
+``cnc_conc``, ``cnc_mask``, ``src_node``, ``src_q``, ``src_mask``.  Its
+``options``: ``iadvwt``, ``eqnsclfac``, ``idcy``, ``isrb``, ``ssm_spec``
+(package name → concentration) and, with DSP or IST, ``dsp`` ({idisp,
+idiffc}) and ``ist`` ({idcy, isrb}).
+
 ``npf_options`` and ``sto_options`` hold the fields of the reference's
 ``NpfOptions`` and ``StoOptions`` (``inewton`` and ``satomega`` among
 them); ``model_options`` the reference GwfModel's ``inewton``,
@@ -79,6 +91,8 @@ from .models.gwf.uzf import COLUMN_FIELDS, make_uzf
 from .models.gwf.buy import make_buy
 from .models.gwf.vsc import make_vsc
 from .models.gwf.model import GwfModel, PackageData
+from .models.gwt import dsp as dsp_mod, ist as ist_mod, mst as mst_mod
+from .models.gwt.model import CncData, GwtModel, SrcData
 from .models.simulation import Simulation
 from .solution.ims import ImsSettings
 from .timing.tdis import StressPeriod, Tdis
@@ -229,6 +243,50 @@ def from_reference(arrays: dict, *, grid_shape, npf_options: dict,
     return _augmented(model, specs) if specs else model
 
 
+def gwt_from_reference(arrays: dict, *, options: dict, device=None,
+                       name: str = "converted", grid=None) -> GwtModel:
+    """The port's GwtModel from a reference GwtModel's arrays (see the
+    module docstring); ``grid``, when given, is the host grid of the
+    output files and of the host topology."""
+    device = resolve_device(device)
+
+    def f64(value):
+        return torch.tensor(np.asarray(value), dtype=torch.float64,
+                            device=device)
+
+    dtopo = dataclasses.replace(npf.DeviceTopology.from_host(
+        {key: arrays[key] for key in _TOPOLOGY}, device), grid_shape=None)
+    mst = mst_mod.MstArrays(**{key: f64(value) for key, value in
+                               _prefixed(arrays, "mst_").items()})
+    extra = {}
+    if options.get("dsp") is not None:
+        extra["dsp"] = dsp_mod.DspData(
+            **{key: f64(value) for key, value in
+               _prefixed(arrays, "dsp_").items()}, **options["dsp"])
+    if options.get("ist") is not None:
+        extra["ist"] = ist_mod.IstData(
+            **{key: f64(value) for key, value in
+               _prefixed(arrays, "ist_").items()}, **options["ist"])
+        extra["cim"] = f64(arrays["cim"])
+    for pkg, cls in (("cnc", CncData), ("src", SrcData)):
+        if f"{pkg}_node" in arrays:
+            extra[pkg] = _package(cls, _prefixed(arrays, pkg + "_"), device)
+    topo = None
+    if grid is not None:
+        topo = (grid.build_edge_topology() if isinstance(grid, DisGrid)
+                else grid.build_topology())
+    return GwtModel(
+        name=name, grid=grid, topo=topo, dtopo=dtopo, strt=f64(arrays["strt"]),
+        ibound0=torch.tensor(np.asarray(arrays["ibound0"]),
+                             dtype=torch.int32, device=device),
+        mst_opts=mst_mod.MstOptions(idcy=int(options["idcy"]),
+                                    isrb=int(options["isrb"])),
+        mst_arrays=mst, iadvwt=int(options["iadvwt"]),
+        eqnsclfac=float(options.get("eqnsclfac", 1.0)),
+        ssm_spec=options.get("ssm_spec"), top=f64(arrays["top"]),
+        bot=f64(arrays["bot"]), area=f64(arrays["area"]), **extra)
+
+
 def _host(value):
     if isinstance(value, torch.Tensor):
         return value.cpu().numpy()
@@ -338,7 +396,11 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
       fields, in their order ((node, value, mask) for chd, wel and rch)}};
     - ``oc``: {kper: {(verb, what): spec}} or None; ``fail_fast``;
     - optional ``tvk``, ``tvs``: {kper: [(node, PROP, value)]};
-    - optional ``uzf``: ``uzf_state`` of the reference's UZF columns.
+    - optional ``uzf``: ``uzf_state`` of the reference's UZF columns;
+    - optional ``gwt``: the transport model, {``name``, ``arrays``,
+      ``options`` (as ``gwt_from_reference`` takes them), ``settings``
+      (the fields of its ``ImsSettings``, or None), ``oc``, ``conc_path``,
+      ``sgp_mxiter``}, on the flow model's grid.
     """
     device = resolve_device(device)
     grid = _GRIDS[state.get("grid_class", "dis")].create(**state["grid"])
@@ -349,9 +411,23 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
     tdis = Tdis(tuple(StressPeriod(float(p), int(n), float(m))
                       for p, n, m in state["tdis"]))
     oc = None if state["oc"] is None else OutputControl(state["oc"])
+    gwt_kwargs = {}
+    t = state.get("gwt")
+    if t is not None:
+        gwt_kwargs = dict(
+            gwt=gwt_from_reference(t["arrays"], options=t["options"],
+                                   device=device, name=t["name"],
+                                   grid=grid),
+            gwt_settings=None if t["settings"] is None
+            else ImsSettings(**t["settings"]),
+            gwt_oc=None if t["oc"] is None else OutputControl(t["oc"]),
+            conc_path=t.get("conc_path"))
     sim = Simulation(tdis, model, ImsSettings(**state["settings"]),
                      transient=list(state["transient"]), hds_path=hds_path,
-                     cbc_path=cbc_path, lst_path=lst_path, oc=oc)
+                     cbc_path=cbc_path, lst_path=lst_path, oc=oc,
+                     **gwt_kwargs)
+    if t is not None:
+        sim.sgp_mxiter = int(t.get("sgp_mxiter", 1))
     sim.fail_fast = bool(state["fail_fast"])
     sim.tvk = dict(state.get("tvk") or {})
     sim.tvs = dict(state.get("tvs") or {})

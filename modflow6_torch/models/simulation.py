@@ -22,12 +22,21 @@ retryloop): a failed attempt is solved again at a shorter step, and as
 The files hold the grid rows of an augmented model; neither it nor a
 merged model gets a ``.grb`` file, as in the reference, whose composites
 have no single user grid; a merged model's heads file holds its rows in
-the merged order as one 1 × nodes record per step.  The transport
-coupling (``gwt``, which would hand the concentrations to BUY and VSC,
-and ``ats_percel``, the advective ATS limit) and PRT are outside the
-ported slice: ``gwt`` and ``ats_percel`` raise.  Without transport BUY and
-VSC see a concentration only where ``period_data`` sets ``buy_conc``, as
-in the reference.
+the merged order as one 1 × nodes record per step.
+
+A GWT model (``gwt``) steps after the flow in every time step (the
+solution-group order, flow first): FMI builds its flow fields from the
+accepted flow step, the transport system is solved from the step-start
+concentration, IST's immobile concentration advances, and the step's
+concentration is committed and written to the concentration file
+(``conc_path``, saved per ``gwt_oc``).  BUY and VSC read that
+concentration (``buy_conc``), lagged by a step; with ``sgp_mxiter`` > 1
+the solution group iterates flow and transport within the step until the
+concentration settles (the reference's SolutionGroup sgp_ca, with every
+transport solve from the step-start concentration: R9 in ROADMAP Queue
+C).  ``ats_percel`` limits an adaptive step to the transport's Courant
+step (ADV ATS_PERCEL).  Without transport BUY and VSC see a concentration
+only where ``period_data`` sets ``buy_conc``, as in the reference.
 
 The output phase works on the model's device.  Face flows, their per-cell
 sums (the CHD flows) and the storage rates are computed there from the
@@ -41,15 +50,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..constants import DHNOFLO
 from .discretization import DisGrid, DisuGrid, DisvGrid
-from ..ops.smoothing import quadratic_saturation
-from ..ops.storage import ss_capacity, ss_terms, sy_capacity
 from ..solution.ims import ImsSettings, NumericalSolution
 from ..timing import ats as ats_mod
 from ..timing.tdis import Tdis
@@ -59,6 +66,10 @@ from ..utils.budget import Budget
 from ..utils.csvout import OuterCsvWriter
 from .gwf import csub as csub_mod
 from .gwf import uzf as uzf_mod
+from .gwt import adv as adv_mod
+from .gwt import ist as ist_mod
+from .gwt.builder import DEFAULT_GWT_SETTINGS
+from .gwt.fmi import FlowFields, from_gwf_step, storage_rates
 
 
 class ConvergenceFailure(RuntimeError):
@@ -79,21 +90,59 @@ class StepRecord:
     output_seconds: float = 0.0     # budget, record and file output
     uzf_resolves: int = 0           # uzf_cc re-solves of the step
     retries: int = 0                # ATS attempts that failed before it
+    transport_converged: bool = True
+    transport_outer: int = 0        # the step's transport solve
+    transport_inner: int = 0
+    fmi_seconds: float = 0.0        # the transport's flow fields
+    transport_seconds: float = 0.0  # the committed transport solve
+    group_iterations: int = 1       # solution-group passes (sgp_mxiter)
+
+
+class _Transport(NamedTuple):
+    """A transport solve of one time step, before it is committed."""
+    fields: FlowFields
+    conc: torch.Tensor
+    info: object
+    fmi_seconds: float
+    solve_seconds: float
+    passes: int
 
 
 class Simulation:
-    """One flow model + one IMS solution + TDIS."""
+    """One flow model + one IMS solution + TDIS, and optionally one GWT
+    model with its own IMS solution."""
 
     def __init__(self, tdis: Tdis, model, settings: ImsSettings,
                  transient=None, hds_path=None, cbc_path=None,
                  lst_path=None, outer_csv_path=None, oc=None, gwt=None,
-                 obs=None, nc_path=None):
-        if gwt is not None:
-            raise NotImplementedError(
-                "the GWT transport coupling (gwt=) is not ported")
+                 obs=None, nc_path=None, gwt_settings=None, conc_path=None,
+                 gwt_oc=None, conc_text="CONCENTRATION"):
         self.tdis = tdis
         self.model = model
         self.solution = NumericalSolution(model, settings)
+        # the sequentially coupled GWT model (solution-group order: flow
+        # first, FMI hands its flows to transport, SolutionGroup.f90:48)
+        self.gwt = gwt
+        self.gwt_oc = gwt_oc
+        self.conc_text = conc_text
+        self.conc = None
+        self.conc_records: list = []
+        self.gwt_solution = None
+        self.conc_hds = None
+        if gwt is not None:
+            if hasattr(model, "n_extra"):
+                raise NotImplementedError(
+                    "GWT over a flow model with MAW, LAK, SFR or MVR rows "
+                    "(their transport is APT: LKT, SFT, MWT, MVT)")
+            self.gwt_solution = NumericalSolution(
+                gwt, gwt_settings or ImsSettings(**DEFAULT_GWT_SETTINGS))
+            self.conc = gwt.strt
+            if conc_path:
+                self.conc_hds = HeadFileWriter(conc_path, text=conc_text)
+        # solution-group Picard over flow and transport (mfsim.nam
+        # SOLUTIONGROUP MXITER, SolutionGroup.f90 sgp_ca)
+        self.sgp_mxiter = 1
+        self.sgp_dclose = 1e-6
         # output control PERIOD selection (utils.oc.OutputControl); None →
         # save every step when the file paths are configured
         self.oc = oc
@@ -202,11 +251,19 @@ class Simulation:
         return best if best is not None else self.model.packages
 
     def step_packages(self, kper):
-        """The period's packages with the step-start CSUB state."""
+        """The period's packages with the step-start CSUB state and, with
+        BUY or VSC beside a transport model, the step-start concentration
+        (the flow sees the latest transport solution)."""
         pkgs = self.period_packages(kper)
         if self.model.csub is not None:
             pkgs = dataclasses.replace(pkgs, csub_state=self.csub_state)
+        if self.conc is not None and self._density_coupled:
+            pkgs = dataclasses.replace(pkgs, buy_conc=self.conc)
         return pkgs
+
+    @property
+    def _density_coupled(self) -> bool:
+        return self.model.buy is not None or self.model.vsc is not None
 
     def _augment_uzf(self, pkgs, delt, head):
         """March the UZF columns from the committed state at ``head``
@@ -291,6 +348,13 @@ class Simulation:
             res, pkgs = self._uzf_pending
             self.uzf_theta, self.uzf_watab = res.theta, res.watab
             self._uzf_pending = None
+        transport = None
+        if (self.gwt is not None and self.sgp_mxiter > 1
+                and self._density_coupled and self.uzf is None
+                and model.csub is None):
+            head, info, aux, pkgs, transport = self._group_picard(
+                head, info, aux, head_old, pkgs, kstp, delt, iss)
+            ibound, cond = aux["ibound"], aux["cond"]
         if model.csub is not None:
             # pkgs keeps the start-of-step state (for budgets); then the
             # state advances: es0 ← es, pcs ← max(pcs, es), compaction +=
@@ -356,6 +420,14 @@ class Simulation:
                          uzf_resolves=self._uzf_resolves)
         self.records.append(rec)
 
+        # ---- the sequentially coupled transport step (flow → FMI → GWT)
+        if self.gwt is not None:
+            if transport is None:
+                transport = self._solve_transport(head, head_old, aux, pkgs,
+                                                  kstp, delt, iss)
+            self._commit_transport(rec, transport, aux["ibound"], kper, kstp,
+                                   delt)
+
         # ---- outputs (OC SAVE selection when PERIOD blocks are present)
         save_head = (self.oc.active("SAVE", "HEAD", kper, kstp, nstp)
                      if has_oc else kstp % save_heads_every == 0)
@@ -383,6 +455,13 @@ class Simulation:
                 head_np[:ng].reshape(shape3d),
                 f"HEAD IN LAYER   AT END OF TIME STEP {kstp}, "
                 f"STRESS PERIOD {kper}"))
+        if self.conc_hds is not None and (
+                self.gwt_oc.active("SAVE", self.conc_text, kper, kstp, nstp)
+                if self.gwt_oc is not None and self.gwt_oc.periods
+                else True):
+            self.conc_hds.write_step(
+                kstp, kper, pertim, totim,
+                self.conc_records[-1].reshape(_shape3d(self.gwt.grid)))
         rec.solve_seconds = t1 - t0
         rec.output_seconds = time.perf_counter() - t1
         if not info.converged:
@@ -398,6 +477,71 @@ class Simulation:
                     f"kstp={kstp} (set the mfsim.nam CONTINUE option to "
                     "run on)")
         return head
+
+    def _solve_transport(self, head, head_old, aux, pkgs, kstp, delt, iss,
+                         passes=1):
+        """FMI's fields of a flow solution (with IST's step-start immobile
+        concentration) and the transport solved on them from the
+        step-start concentration; commits nothing."""
+        gwt = self.gwt
+        t0 = time.perf_counter()
+        fields = from_gwf_step(self.model, head, head_old, aux["ibound"],
+                               aux["cond"], delt, iss, pkgs=pkgs,
+                               ssm_spec=gwt.ssm_spec, gwt=gwt)
+        if gwt.ist is not None:
+            fields = dataclasses.replace(fields, cim=gwt.cim)
+        gwt.set_flows(fields)
+        self._sync()
+        t1 = time.perf_counter()
+        conc, info, _ = self.gwt_solution.solve_timestep(
+            self.conc, delt, kstp=kstp, iss=False, pkgs=fields)
+        self._sync()
+        return _Transport(fields, conc, info, t1 - t0,
+                          time.perf_counter() - t1, passes)
+
+    def _group_picard(self, head, info, aux, head_old, pkgs, kstp, delt,
+                      iss):
+        """The solution group's Picard passes (SolutionGroup.f90 sgp_ca
+        with MXITER): the transport from the step-start concentration on
+        the latest flow, then the flow again at the new concentration,
+        until two transport solutions differ by at most ``sgp_dclose`` or
+        ``sgp_mxiter`` passes ran; one host read a pass.  Returns the last
+        flow solution, its packages and the transport solved on it."""
+        transport = self._solve_transport(head, head_old, aux, pkgs, kstp,
+                                          delt, iss)
+        for passes in range(2, self.sgp_mxiter + 1):
+            pkgs = dataclasses.replace(pkgs, buy_conc=transport.conc)
+            head, info, aux = self.solution.solve_timestep(
+                head_old, delt, kstp=kstp, iss=iss, pkgs=pkgs)
+            prev = transport.conc
+            transport = self._solve_transport(head, head_old, aux, pkgs,
+                                              kstp, delt, iss, passes)
+            if float((transport.conc - prev).abs().max()) <= \
+                    self.sgp_dclose:
+                break
+        return head, info, aux, pkgs, transport
+
+    def _commit_transport(self, rec, transport, ibound, kper, kstp, delt):
+        """Commit the step's transport solution: IST's immobile
+        concentration (at the flow's ibound, as the reference's update
+        takes it), the concentration and the step's record."""
+        gwt = self.gwt
+        conc, info = transport.conc, transport.info
+        if gwt.ist is not None:
+            gwt.cim = ist_mod.ist_update(gwt.ist, transport.fields.sat,
+                                         gwt.area, gwt.top, gwt.bot, ibound,
+                                         self.conc, gwt.cim, conc, delt)
+        self.conc = conc
+        self.conc_records.append(conc.cpu().numpy())
+        rec.fmi_seconds = transport.fmi_seconds
+        rec.transport_seconds = transport.solve_seconds
+        rec.transport_converged = info.converged
+        rec.transport_outer = info.outer_iterations
+        rec.transport_inner = info.inner_iterations
+        rec.group_iterations = transport.passes
+        if not info.converged:
+            self._lst_lines.append(
+                f"*** GWT NONCONVERGENCE kper={kper} kstp={kstp} ***")
 
     def _write_grb(self):
         """Write the binary grid file beside the heads output (the
@@ -462,15 +606,16 @@ class Simulation:
             self.hds.close()
         if self.cbc:
             self.cbc.close()
+        if self.conc_hds is not None:
+            self.conc_hds.close()
 
     def run(self, save_heads_every=1, max_retries=10):
         """Time loop.  Periods listed in ``self.ats`` step adaptively
         (``_adaptive_period``); the others walk the fixed TDIS
         subdivision."""
-        if self.ats_percel is not None:
+        if self.gwt is not None and self.uzf is not None:
             raise NotImplementedError(
-                "ats_percel (the GWT advection's ATS_PERCEL limit) is not "
-                "ported")
+                "GWT beside UZF (the unsaturated zone's transport is UZT)")
         head = self.model.strt
         t0 = time.perf_counter()
         self._write_grb()
@@ -506,6 +651,16 @@ class Simulation:
         delt = ats_mod.initial_delt(a)
         pertim, kstp = 0.0, 0
         while pertim < period.perlen - 1e-12:
+            if self.gwt is not None and self.ats_percel \
+                    and self.gwt._fields is not None:
+                # the transport's Courant step on the last flow fields
+                # (model_dt / adv_dt role); one host read
+                g = self.gwt
+                dtadv = float(adv_mod.adv_dtmax(
+                    g.dtopo, g._fields, g.ibound0, g.mst_arrays.porosity,
+                    g.area, g.top, g.bot, self.ats_percel))
+                if np.isfinite(dtadv):
+                    delt = min(delt, dtadv)
             delt = min(ats_mod.clamp(delt, a), period.perlen - pertim)
             kstp += 1
             t0 = time.perf_counter()
@@ -531,14 +686,7 @@ class Simulation:
     # ------------------------------------------------------------ helpers
 
     def _shape3d(self):
-        """The (nlay, nrow, ncol) that the output records state: a DISV
-        grid is (nlay, 1, ncpl), a DISU grid (1, 1, nodes)."""
-        shp = self.model.grid.shape
-        if len(shp) == 3:
-            return shp
-        if len(shp) == 2:
-            return (shp[0], 1, shp[1])
-        return (1, 1, shp[0])
+        return _shape3d(self.model.grid)
 
     def _flowja_csr(self, head, ibound, cond, pkgs):
         """The full CSR flowja array (diagonal entries zero) as numpy,
@@ -636,22 +784,16 @@ class Simulation:
 
     def _storage_rates(self, head, head_old, ibound, delt):
         """Per-cell SS and SY rates (reference sto_cq gwf-sto.f90)."""
-        o, a = self.model.sto_opts, self.model.sto_arrays
-        tled = 1.0 / delt
-        tp, bt = a.top, a.bot
-        is_conv = a.iconvert != 0
-        snold = torch.where(is_conv, quadratic_saturation(tp, bt, head_old,
-                                                          o.satomega), 1.0)
-        snnew = torch.where(is_conv, quadratic_saturation(tp, bt, head,
-                                                          o.satomega), 1.0)
-        rho1 = ss_capacity(o.istor_coef, tp, bt, a.area, a.ss) * tled
-        aterm, rhsterm = ss_terms(a.iconvert, o.iorig_ss, o.iconf_ss, tp, bt,
-                                  rho1, rho1, snnew, snold, head, head_old)
-        rate_ss = aterm * head - rhsterm
-        rho2 = sy_capacity(a.area, a.sy) * tled
-        tthk = tp - bt
-        rate_sy = torch.where(is_conv,
-                              rho2 * tthk * snold - rho2 * tthk * snnew, 0.0)
-        act = ibound >= 1
-        return (torch.where(act, rate_ss, 0.0),
-                torch.where(act, rate_sy, 0.0))
+        return storage_rates(self.model.sto_opts, self.model.sto_arrays,
+                             head, head_old, ibound, delt)
+
+
+def _shape3d(grid):
+    """The (nlay, nrow, ncol) that the output records of ``grid`` state: a
+    DISV grid is (nlay, 1, ncpl), a DISU or merged grid (1, 1, nodes)."""
+    shp = grid.shape
+    if len(shp) == 3:
+        return shp
+    if len(shp) == 2:
+        return (shp[0], 1, shp[1])
+    return (1, 1, shp[0])

@@ -456,7 +456,7 @@ class NumericalSolution:
         if pkgs is None:
             pkgs = model.packages
         ibound, head = model.boundary_state(head_old, pkgs)
-        wetdry = model.wetdry
+        wetdry = getattr(model, "wetdry", None)   # a GWT model has none
         if ibound_in is not None:
             # keep cells that dried in earlier steps dry (but let CHD
             # repinning from boundary_state win)

@@ -5,9 +5,12 @@ GWF slices need (reference IDM load + SimulationCreate,
 src/Utilities/Idm/IdmLoad.f90, src/SimulationCreate.f90:200-729):
 ``load_tdis``, ``load_ims``, ``load_dis``, ``load_disv``, ``load_disu``,
 ``load_oc``, the list-package reader, ``load_exchange_gwfgwf``, the GWF
-model loader and ``load_simulation`` for one GWF6 model, or several joined
-by GWF6-GWF6 exchanges (merged into one model, with the exchanges' MVR6
-movers), on DIS, DISV or DISU grids, with the
+and GWT model loaders and ``load_simulation`` for one GWF6 model, or
+several joined by GWF6-GWF6 exchanges (merged into one model, with the
+exchanges' MVR6 movers), or one GWF6 model and one GWT6 model joined by a
+GWF6-GWT6 exchange (whose file, as in the reference, is not read), each
+with the IMS that its solution group names it in and the group's MXITER,
+on DIS, DISV or DISU grids, with the
 packages DIS6/DISV6/DISU6, IC6, NPF6, STO6, CHD6, WEL6, DRN6, RIV6, GHB6,
 EVT6 (with NSEG segments), RCH6 (list or READASARRAYS), BUY6, CSUB6 (no-delay
 and delay interbeds, the first period's settings; the reference's
@@ -27,16 +30,26 @@ IHDWET) with the WETDRY array, the NPF TVK6 and STO TVS6 subpackages (to
 ``Simulation.tvk``/``tvs``), WEL AUTO_FLOW_REDUCE, and the IMS options
 NO_PTC and PRECONDITIONER_LEVELS/PRECONDITIONER_DROP_TOLERANCE (the
 reference program's ILU settings, mapped to a Chebyshev preconditioner of
-order 4 with a warning).
+order 4 with a warning).  A GWT6 model reads DIS6/DISV6/DISU6, IC6,
+ADV6 (SCHEME), DSP6 (with XT3D_OFF), MST6 (decay, and linear, Freundlich
+or Langmuir sorption: R10 in ROADMAP Queue C), SSM6 (AUX sources, from
+the flow list package's period-1 auxiliary column), CNC6 and SRC6 (period
+1) and OC6 (its CONCENTRATION file).
 
 Everything else a deck can ask for raises ``NotImplementedError`` naming
 the package or keyword: other model types and exchange types, several
 models with no exchange, XT3D (which the reference's loader reads past,
-running the two-point scheme), HFB6, ATS6 in TDIS (read past there too:
-adaptive steps reach a ``Simulation`` only through ``Simulation.ats``),
+running the two-point scheme), HFB6, in a GWT6 model: later PERIOD blocks
+of CNC6 or SRC6, SSM aux values that change after period 1, SSM srctype
+AUXMIXED (run as AUX there), IST6 (which it has no branch for), ADV6
+ATS_PERCEL, DSP6 without XT3D_OFF and MST6 DECAY_SORBED (all read past or
+run another way there), LKT6, SFT6, MWT6, UZT6 and MVT6 (APT), GWE6,
+ATS6 in TDIS (read past there too: adaptive steps reach a ``Simulation``
+only through ``Simulation.ats``),
 NETCDF_MESH2D and a list package's own OBS6 option (both read past
 there), TS6 values in MAW6, LAK6 and SFR6, and HPC6; and where the
-reference refuses: UZF or CSUB in a merged model,
+reference refuses: several GWT6 models, GWT6 beside several GWF6 models,
+UZF or CSUB in a merged model,
 TVK/TVS with several models, standard-package mover providers outside the
 first model, later PERIOD blocks of an exchange's MVR6.  Beyond the
 reference, these raise by name too: later PERIOD blocks of MAW6, LAK6,
@@ -340,7 +353,10 @@ def load_oc(path, mdir, component="gwf-oc"):
             if verb in ("SAVE", "PRINT"):
                 actions[(verb, what)] = parse_spec(toks[2:])
         oc.set_period(b.index, actions)
-    return _fileout("HEAD"), _fileout("BUDGET"), oc
+    # a transport model's CONCENTRATION file takes the place of HEAD's
+    # (tsp-oc)
+    return (_fileout("HEAD") or _fileout("CONCENTRATION"), _fileout("BUDGET"),
+            oc)
 
 
 def _cellid_to_node(toks, grid, start=0):
@@ -360,11 +376,12 @@ def _load_period_lists(path, grid, ncols, component=None):
     """Read a list-based stress package file.
 
     Returns (options, dimensions, {kper: [(node, v1, v2, ...)]}, ts_refs,
-    {kper: [BOUNDNAME or None]}) where ``ts_refs`` lists (kper, row, col,
-    SERIESNAME) for values given as time-series names (utl-ts per-entry
-    bindings; the TS6 FILEIN option supplies the series), with 0.0 in the
-    entry until the series binds.  Auxiliary columns do not enter the flow
-    model and are read past.
+    {kper: [BOUNDNAME or None]}, {kper: {AUXNAME: [values]}}) where
+    ``ts_refs`` lists (kper, row, col, SERIESNAME) for values given as
+    time-series names (utl-ts per-entry bindings; the TS6 FILEIN option
+    supplies the series), with 0.0 in the entry until the series binds.
+    The auxiliary columns do not enter the flow model; SSM reads them (the
+    reference's ``pkg_aux`` form).
     """
     bf = BlockFile(path)
     opts = bf.options()
@@ -373,11 +390,14 @@ def _load_period_lists(path, grid, ncols, component=None):
     _refuse(opts, _UNPORTED_LIST_OPTIONS, path)
     dims = bf.dimensions()
     aux = opts.get("AUXILIARY")
-    naux = len(aux) if isinstance(aux, list) else int(bool(aux))
+    aux_names = [str(a).upper() for a in
+                 (aux if isinstance(aux, list) else [aux] if aux else [])]
+    naux = len(aux_names)
     has_bnames = "BOUNDNAMES" in opts
-    periods, bnames, ts_refs = {}, {}, []
+    periods, bnames, ts_refs, aux_periods = {}, {}, [], {}
     for b in bf.get_all("PERIOD"):
         entries, names = [], []
+        auxvals = {a: [] for a in aux_names}
         for row, toks in enumerate(bf.expand_open_close(b)):
             node, ntok = _cellid_to_node(toks, grid)
             vals = []
@@ -389,12 +409,15 @@ def _load_period_lists(path, grid, ncols, component=None):
                     ts_refs.append((b.index, row, col, t.upper()))
                     vals.append(0.0)
             entries.append((node, *vals))
+            for ia, a in enumerate(aux_names):
+                auxvals[a].append(float(toks[ntok + ncols + ia]))
             at = ntok + ncols + naux
             names.append(toks[at].upper() if has_bnames and len(toks) > at
                          else None)
         periods[b.index] = entries
         bnames[b.index] = names
-    return opts, dims, periods, ts_refs, bnames
+        aux_periods[b.index] = auxvals
+    return opts, dims, periods, ts_refs, bnames, aux_periods
 
 
 _LIST_PACKAGES = {
@@ -653,6 +676,7 @@ def _load_gwf_model(ws, mfname, mname, device):
 
     # --- stress packages with period data
     pkg_periods = {}   # attr -> {kper: entries}
+    pkg_aux = {}       # attr -> {kper: {AUXNAME: [values]}}
     pkg_opts = {}      # attr -> options of the package's (last) file
     ts_bindings = []   # (attr, kper, row, col, TimeSeries)
     bname_rows = {}    # BOUNDNAME -> (PKG, row) for observation IDs
@@ -660,15 +684,16 @@ def _load_gwf_model(ws, mfname, mname, device):
     for ftype, (attr, ncols, _) in _LIST_PACKAGES.items():
         if ftype not in pkg_files:
             continue
-        all_periods = {}
+        all_periods, all_aux = {}, {}
         for ifile, path in enumerate(pkg_files[ftype]):
             # several files of one type merge their entries
             if ftype == "EVT6":
                 # segmented ET: extra pxdp/petm columns (gwf-evt.dfn NSEG)
                 nseg = BlockFile(path).dimensions().get("NSEG", 1)
                 ncols = 3 + 2 * (nseg - 1)
-            pkg_opts[attr], _, periods, ts_refs, bnames = _load_period_lists(
-                path, grid, ncols, component="gwf-" + ftype[:-1].lower())
+            pkg_opts[attr], _, periods, ts_refs, bnames, auxp = \
+                _load_period_lists(path, grid, ncols,
+                                   component="gwf-" + ftype[:-1].lower())
             for row, name in enumerate(bnames.get(1, [])):
                 if name and ifile:
                     late_bnames.add(name)
@@ -679,7 +704,12 @@ def _load_gwf_model(ws, mfname, mname, device):
                                             ts_refs, ifile, mdir)
             for kper, entries in periods.items():
                 all_periods.setdefault(kper, []).extend(entries)
+            for kper, av in auxp.items():
+                tgt = all_aux.setdefault(kper, {})
+                for a, vals in av.items():
+                    tgt.setdefault(a, []).extend(vals)
         pkg_periods[attr] = all_periods
+        pkg_aux[attr] = all_aux
 
     # maxbound across periods per package (static shapes)
     first_pkgs = {}
@@ -779,7 +809,7 @@ def _load_gwf_model(ws, mfname, mname, device):
                 uzf_entries=uzf_entries, adv_periods=adv_periods,
                 storage=storage,
                 sto_periods=sto_periods, pkg_periods=pkg_periods,
-                maxbound=maxbound, first_pkgs=first_pkgs,
+                pkg_aux=pkg_aux, maxbound=maxbound, first_pkgs=first_pkgs,
                 hds_path=hds_path, cbc_path=cbc_path, oc=oc, tvk=tvk,
                 tvs=tvs, ts_bindings=ts_bindings, tas=tas, obs=obs,
                 nc_out=nc_out)
@@ -1049,14 +1079,188 @@ def _merge_period_data(simulation, bundles, offsets, device):
         simulation.period_data[kper] = PackageData(**merged)
 
 
+# package types of a GWT name file that the slice covers
+_GWT_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "ADV6", "DSP6", "MST6",
+                 "SSM6", "CNC6", "SRC6", "OC6")
+# the name of each GWT package type outside the slice, for its refusal
+_GWT_UNPORTED = {"IST6": "IST6 (the immobile domain reaches a model only "
+                         "through build_gwt(ist=...), as in the reference)",
+                 "LKT6": "LKT6 (APT transport)", "SFT6": "SFT6 (APT "
+                 "transport)", "MWT6": "MWT6 (APT transport)",
+                 "UZT6": "UZT6 (APT transport)", "MVT6": "MVT6 (APT "
+                 "transport)"}
+_SORPTION = {"LINEAR": 1, "FREUNDLICH": 2, "LANGMUIR": 3}
+
+
+def _first_period_entries(path, grid, what):
+    """The PERIOD 1 entries of a CNC6 or SRC6 file; a later PERIOD block
+    raises (the reference uses period 1 only)."""
+    _, _, periods, ts_refs, _, _ = _load_period_lists(path, grid, 1)
+    late = sorted(k for k in periods if k != 1)
+    if late:
+        raise _not_ported(f"{path}: PERIOD {late[0]} of {what} (the "
+                          "reference applies the PERIOD 1 block only)")
+    if ts_refs:
+        raise _not_ported(f"{path}: time-series values (TS6) in {what}")
+    return periods.get(1, [])
+
+
+def _load_gwt_model(ws, mfname, mname, device):
+    """One GWT model's name file and packages (IC, ADV, DSP, MST, SSM, CNC,
+    SRC, OC) → a bundle dict (the reference's _load_gwt_model,
+    loader.py:1010-1116).  SSM's sources are resolved against the flow
+    model in ``load_simulation``."""
+    from ...models.gwt import builder as gwt_builder
+
+    mnam = BlockFile(os.path.join(ws, mfname))
+    mdir = os.path.dirname(os.path.join(ws, mfname))
+    pkg_files = {}
+    for toks in mnam.get("PACKAGES").lines:
+        ftype = toks[0].upper()
+        if ftype in _GWT_UNPORTED:
+            raise _not_ported(f"{mfname}: package {_GWT_UNPORTED[ftype]}")
+        if ftype not in _GWT_PACKAGES:
+            raise _not_ported(f"{mfname}: package {ftype}")
+        if ftype in pkg_files:
+            raise _not_ported(f"{mfname}: several {ftype} packages")
+        pkg_files[ftype] = os.path.join(mdir, toks[1])
+    if "IC6" not in pkg_files:
+        raise ValueError(f"{mfname}: model requires an IC6 package")
+    grid = _load_grid({k: [v] for k, v in pkg_files.items()})
+    shp = grid.shape
+
+    strt = read_grid_array(BlockFile(pkg_files["IC6"]), "GRIDDATA", "STRT",
+                           shp, mdir, default=0.0)
+
+    scheme = "upstream"
+    if "ADV6" in pkg_files:
+        path = pkg_files["ADV6"]
+        aopts = BlockFile(path).options()
+        schema.check_options("gwt-adv", aopts, path)
+        # the reference reads SCHEME alone
+        _refuse(aopts, ("ATS_PERCEL",), path)
+        if "SCHEME" in aopts:
+            schema.check_valid_value("gwt-adv", "options", "SCHEME",
+                                     aopts["SCHEME"], path)
+        scheme = str(aopts.get("SCHEME", "upstream")).lower()
+
+    dsp = None
+    if "DSP6" in pkg_files:
+        path = pkg_files["DSP6"]
+        dsp_bf = BlockFile(path)
+        dopts = dsp_bf.options()
+        # the reference computes the two-point form whatever the options
+        # say; MODFLOW 6 runs XT3D unless XT3D_OFF is given
+        if "XT3D_OFF" not in dopts:
+            raise _not_ported(
+                f"{path}: DSP6 without XT3D_OFF (its XT3D dispersion; the "
+                "reference computes the two-point form)")
+        _refuse(dopts, ("XT3D_RHS",), path)
+        dsp = {}
+        for key in ("ALH", "ALV", "ATH1", "ATH2", "ATV", "DIFFC"):
+            arr = read_grid_array(dsp_bf, "GRIDDATA", key, shp, mdir)
+            if arr is not None:
+                dsp[key.lower()] = arr.reshape(-1)
+
+    porosity, decay, sorption = 0.3, None, None
+    if "MST6" in pkg_files:
+        path = pkg_files["MST6"]
+        mst_bf = BlockFile(path)
+        mopts = mst_bf.options()
+        schema.check_options("gwt-mst", mopts, path)
+        schema.check_griddata("gwt-mst", mst_bf, path)
+        gd = mst_bf.get("GRIDDATA")
+        if "DECAY_SORBED" in schema.griddata_names(
+                gd.lines if gd is not None else []):
+            # the reference decays the sorbed phase at DECAY
+            raise _not_ported(f"{path}: griddata DECAY_SORBED")
+        porosity = read_grid_array(mst_bf, "GRIDDATA", "POROSITY", shp, mdir,
+                                   default=0.3).reshape(-1)
+        decay_arr = read_grid_array(mst_bf, "GRIDDATA", "DECAY", shp, mdir)
+        if decay_arr is not None:
+            decay = (2 if "ZERO_ORDER_DECAY" in mopts else 1,
+                     decay_arr.reshape(-1))
+        sorb = mopts.get("SORPTION")
+        if sorb:
+            # R10: the reference's loader names constants that its mst
+            # module lacks, so any SORPTION option fails there
+            schema.check_valid_value("gwt-mst", "options", "SORPTION", sorb,
+                                     path)
+            sorption = dict(isrb=_SORPTION[str(sorb).upper()], **{
+                key.lower(): read_grid_array(mst_bf, "GRIDDATA", key, shp,
+                                             mdir, default=0.0).reshape(-1)
+                for key in ("BULK_DENSITY", "DISTCOEF", "SP2")})
+
+    cnc = src = None
+    if "CNC6" in pkg_files:
+        cnc = _first_period_entries(pkg_files["CNC6"], grid, "CNC6")
+    if "SRC6" in pkg_files:
+        src = _first_period_entries(pkg_files["SRC6"], grid, "SRC6")
+
+    # SSM: SOURCES records (pname, srctype, auxname)
+    ssm_sources = []
+    if "SSM6" in pkg_files:
+        path = pkg_files["SSM6"]
+        ssm_bf = BlockFile(path)
+        if ssm_bf.get("FILEINPUT") is not None:
+            raise _not_ported(f"{path}: FILEINPUT (SPC6 files)")
+        b = ssm_bf.get("SOURCES")
+        for toks in (b.lines if b is not None else []):
+            srctype = toks[1].upper()
+            if srctype == "AUXMIXED":
+                raise _not_ported(f"{path}: SSM srctype AUXMIXED (the "
+                                  "reference runs it as AUX)")
+            if srctype != "AUX":
+                raise _not_ported(f"{path}: SSM srctype {srctype}")
+            ssm_sources.append((toks[0].upper(), toks[2].upper()))
+
+    conc_path = oc = None
+    if "OC6" in pkg_files:
+        conc_path, _, oc = load_oc(pkg_files["OC6"], mdir,
+                                   component="gwt-oc")
+
+    model = gwt_builder.build_gwt(
+        mname, grid, porosity=porosity, strt=strt.reshape(-1), scheme=scheme,
+        decay=decay, sorption=sorption, cnc=cnc, src=src, dsp=dsp,
+        device=device)
+    return dict(name=mname, model=model, grid=grid, ssm_sources=ssm_sources,
+                conc_path=conc_path, oc=oc)
+
+
+def _ssm_spec(gwt_bundle, flow_bundle):
+    """SSM AUX sources → {PKG: per-entry concentration}: the flow package's
+    period-1 auxiliary column, padded to its maxbound (the reference's
+    loader.py:1515-1534).  Values that change after period 1 raise: the
+    reference keeps the period-1 column."""
+    spec = {}
+    for pname, auxname in gwt_bundle["ssm_sources"]:
+        attr = pname[:3].lower()
+        auxp = flow_bundle["pkg_aux"].get(attr, {})
+        vals = auxp.get(1, {}).get(auxname)
+        if vals is None:
+            raise ValueError(
+                f"SSM source {pname} references aux {auxname} but the "
+                f"{attr.upper()} package has no such period-1 column")
+        for kper, av in sorted(auxp.items()):
+            if kper != 1 and av.get(auxname) != vals:
+                raise _not_ported(
+                    f"SSM source {pname}: {auxname} values that change in "
+                    f"PERIOD {kper} (the reference keeps period 1's)")
+        arr = np.zeros(flow_bundle["maxbound"][attr])
+        arr[:len(vals)] = vals
+        spec[attr.upper()] = arr
+    return spec or None
+
+
 def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
                     device=None):
     """Load mfsim.nam and everything it references → Simulation.
 
     Supported: GWF6 models, one or several joined by GWF6-GWF6 exchanges,
-    with one IMS solution (see the module docstring).  ``device=None``
-    puts the model on the CUDA device and raises when there is none; pass
-    ``"cpu"`` to run on the CPU.
+    with one IMS solution, or one GWF6 model and one GWT6 model with a
+    GWF6-GWT6 exchange and an IMS solution each (see the module
+    docstring).  ``device=None`` puts the model on the CUDA device and
+    raises when there is none; pass ``"cpu"`` to run on the CPU.
     """
     device = resolve_device(device)
     ws = os.path.abspath(workspace)
@@ -1072,18 +1276,31 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     models_blk = sim.get("MODELS")
     if models_blk is None or not models_blk.lines:
         raise ValueError("mfsim.nam names no model")
-    entries = []
+    entries, gwt_entries = [], []
     for i, toks in enumerate(models_blk.lines):
         mtype = toks[0].upper()
         mname = toks[2].upper() if len(toks) > 2 else f"MODEL{i + 1}"
-        if mtype != "GWF6":
+        if mtype not in ("GWF6", "GWT6"):
             raise _not_ported(f"mfsim.nam: model type {mtype}")
-        entries.append((toks[1], mname))
+        (entries if mtype == "GWF6" else gwt_entries).append((toks[1], mname))
+    if not entries:
+        raise _not_ported("mfsim.nam: a model without a GWF6 model (flows "
+                          "from FMI6 files)")
+    if len(gwt_entries) > 1:
+        raise _not_ported("mfsim.nam: several GWT6 models (the reference's "
+                          "loader refuses them too)")
+    if gwt_entries and len(entries) > 1:
+        raise _not_ported("mfsim.nam: GWT6 beside several GWF6 models (a "
+                          "GWF6-GWT6 exchange with a merged flow model; the "
+                          "reference's loader refuses it too)")
     names = [mname for _, mname in entries]
+    gwt_names = [mname for _, mname in gwt_entries]
     exchange_entries = []
     exg_blk = sim.get("EXCHANGES")
     for toks in (exg_blk.lines if exg_blk is not None else []):
         etype, m1, m2 = toks[0].upper(), toks[2].upper(), toks[3].upper()
+        if etype == "GWF6-GWT6" and m1 in names and m2 in gwt_names:
+            continue        # the reference never opens its file
         if etype != "GWF6-GWF6":
             raise _not_ported(f"mfsim.nam: exchange {etype}")
         if m1 == m2:
@@ -1098,14 +1315,20 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
         raise _not_ported("mfsim.nam: more than one model without a "
                           "GWF6-GWF6 exchange (separate solutions)")
 
-    # solution groups → the model's IMS settings
-    settings = None
+    # solution groups → each model's IMS settings (by the model names on
+    # the IMS6 record; the first IMS serves a model that none names), and
+    # the group Picard's MXITER
+    by_model, first, mxiter = {}, None, 1
     for sg in sim.get_all("SOLUTIONGROUP"):
         for toks in sg.lines:
-            if toks[0].upper() == "IMS6" and settings is None:
-                settings = load_ims(os.path.join(ws, toks[1]))
-    if settings is None:
-        settings = ImsSettings()
+            if toks[0].upper() == "MXITER":
+                mxiter = int(toks[1])
+            if toks[0].upper() == "IMS6":
+                ims = load_ims(os.path.join(ws, toks[1]))
+                first = first or ims
+                for name in toks[2:]:
+                    by_model[name.upper()] = ims
+    settings = by_model.get(names[0], first or ImsSettings())
 
     bundles = [_load_gwf_model(ws, mfname, mname, device)
                for mfname, mname in entries]
@@ -1127,12 +1350,27 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
                                        linear_acceleration="bicgstab")
     transient = _transient_flags(tdis, bundle["storage"],
                                  bundle["sto_periods"])
+    gwt_kwargs = {}
+    if gwt_entries:
+        if bundle["uzf_entries"] is not None:
+            raise _not_ported("GWT beside UZF (the unsaturated zone's "
+                              "transport is UZT)")
+        gwt_bundle = _load_gwt_model(ws, *gwt_entries[0], device)
+        if gwt_bundle["grid"].nodes != bundle["grid"].nodes:
+            raise ValueError("the GWT6 model's grid differs from the GWF6 "
+                             "model's")
+        gwt = gwt_bundle["model"]
+        gwt.ssm_spec = _ssm_spec(gwt_bundle, bundle)
+        gwt_kwargs = dict(gwt=gwt, gwt_settings=by_model.get(gwt_names[0]),
+                          conc_path=gwt_bundle["conc_path"],
+                          gwt_oc=gwt_bundle["oc"])
     simulation = Simulation(
         tdis, model, settings, transient=transient,
         hds_path=hds_path or bundle["hds_path"],
         cbc_path=cbc_path or bundle["cbc_path"],
         lst_path=lst_path, oc=bundle["oc"], obs=bundle["obs"],
-        nc_path=bundle["nc_out"])
+        nc_path=bundle["nc_out"], **gwt_kwargs)
+    simulation.sgp_mxiter = mxiter
     # reference failure semantics: abort on nonconvergence unless the
     # simulation CONTINUE option is set (sim-nam continue keyword)
     simulation.fail_fast = "CONTINUE" not in sopts

@@ -5,9 +5,10 @@ kernel, a small input deck run through the deck path on the card against
 the CPU, the small Newton, PTC and rewetting models of chip_smoke.py,
 its small MAW, LAK and SFR models with repeated sums (two card runs
 bitwise equal), its small coupling twins (UZF with seepage and
-groundwater ET, a mover chain, a two-model exchange mover), and its
+groundwater ET, a mover chain, a two-model exchange mover), its
 utilities deck (TS6, TAS6, OBS6, NetCDF) stepping adaptively with
-retries.
+retries, and its small transport twins (GWT with each scheme, sorption,
+IST, SRC/CNC, ATS_PERCEL, two merged models).
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -497,3 +498,18 @@ def test_series_obs_deck_with_ats_retries_on_card_matches_cpu(cuda,
                       for line in want[1:]])
         np.testing.assert_array_equal(g[:, 0], w[:, 0])
         np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("twin", ["upstream with dsp", "central with dsp",
+                                  "tvd with dsp",
+                                  "freundlich, zero-order decay",
+                                  "langmuir, zero-order decay", "ist",
+                                  "src and repeated cnc", "ats_percel",
+                                  "two merged gwt models"])
+def test_small_transport_twins_on_card_match_cpu(cuda, twin):
+    """chip_smoke.py's small transport twins through Simulation on the
+    card against the CPU: equal outer counts (flow and transport, and the
+    adaptive steps' times), concentrations within 10 × outer_dvclose; the
+    transport solve launches no stencil7 kernel."""
+    from chip_smoke import check_small_transport
+    check_small_transport(cuda, names=[twin])

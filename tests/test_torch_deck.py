@@ -646,6 +646,21 @@ END CONTINUOUS
 """
 
 
+def _gwt(packages, files=None, model="GWT6"):
+    """mfsim.nam with a transport model T on the array deck's grid, its
+    name file listing ``packages`` beside DIS, IC, ADV and MST."""
+    nam = ("BEGIN PACKAGES\n  DIS6 m.dis\n  IC6 t.ic\n  ADV6 t.adv\n"
+           f"  MST6 t.mst\n  {packages}\nEND PACKAGES\n")
+    return ("mfsim.nam", lambda t: t.replace(
+        "  GWF6 m.nam ARR\n", f"  GWF6 m.nam ARR\n  {model} t.nam T\n"
+    ).replace("BEGIN EXCHANGES\n",
+              "BEGIN EXCHANGES\n  GWF6-GWT6 x.exg ARR T\n"),
+        {"t.nam": nam, "t.ic": "BEGIN GRIDDATA\n  STRT\n    CONSTANT 0.0\n"
+         "END GRIDDATA\n", "t.adv": "BEGIN OPTIONS\n  SCHEME UPSTREAM\n"
+         "END OPTIONS\n", "t.mst": "BEGIN GRIDDATA\n  POROSITY\n"
+         "    CONSTANT 0.2\nEND GRIDDATA\n", **(files or {})})
+
+
 UNSUPPORTED = {
     "DRN6": ("m.nam", _add_package("DRN6 m.drn"), {"m.drn": _list_file(
         2, ["1 2 2 27.0 3.0", "2 4 3 9.5 1.5"])}),
@@ -717,8 +732,14 @@ UNSUPPORTED = {
         "  PRECONDITIONER_DROP_TOLERANCE 1e-3\n  INNER_MAXIMUM")),
     "ATS6": ("sim.tdis", _add_option("ATS6 FILEIN sim.ats")),
     "HPC6": ("mfsim.nam", _add_option("HPC6 FILEIN sim.hpc")),
-    "GWT6": ("mfsim.nam", lambda t: t.replace("GWF6 m.nam ARR",
-                                              "GWT6 m.nam ARR")),
+    # a GWT6 model loads now (test_torch_gwt_decks.py); these stay refused
+    "GWE6": _gwt("", model="GWE6"),
+    "LKT6": _gwt("LKT6 t.lkt"),
+    "IST6": _gwt("IST6 t.ist"),
+    "AUXMIXED": _gwt("SSM6 t.ssm", {"t.ssm": "BEGIN SOURCES\n  WEL-1 "
+                                    "AUXMIXED CONCENTRATION\nEND SOURCES\n"}),
+    "XT3D_OFF": _gwt("DSP6 t.dsp", {"t.dsp": "BEGIN GRIDDATA\n  ALH\n"
+                                    "    CONSTANT 1.0\nEND GRIDDATA\n"}),
     "more than one model": ("mfsim.nam", lambda t: t.replace(
         "  GWF6 m.nam ARR\n", "  GWF6 m.nam ARR\n  GWF6 m.nam ARR2\n")),
     "GWF6-GWF6": ("mfsim.nam", lambda t: t.replace(
@@ -844,7 +865,7 @@ def test_schema_component_is_the_reference(component):
 
 
 def test_schema_holds_only_the_loaded_components():
-    assert len(schema.load_schema()) == 29
+    assert len(schema.load_schema()) == 32
 
 
 # ------------------------------------------------------------- deck runs

@@ -427,22 +427,26 @@ def test_multi_model_refusals(case, tmp_path):
     """What the reference refuses raises here by name (several models
     with no exchange, UZF or CSUB in a composite, TVK/TVS with several
     models, a standard-package provider outside the first model, later
-    PERIOD blocks of an exchange's MVR6), and so do later PERIOD blocks
-    of a member's features and the other exchange types."""
+    PERIOD blocks of an exchange's MVR6, a GWT6 model beside several GWF6
+    models), and so do later PERIOD blocks of a member's features."""
     ws = str(tmp_path)
     write_exchange_mvr_deck(ws, exg_period2=case == "exchange-mvr-period")
     match = {"no-exchange": "more than one model", "uzf": "UZF",
              "csub": "CSUB", "tvk": "TVK", "provider": "first model",
              "exchange-mvr-period": "exchange MVR",
-             "sfr-period": "SFR", "gwf6-gwt6": "GWF6-GWT6"}[case]
+             "sfr-period": "SFR",
+             "gwf6-gwt6": "GWT6 beside several GWF6 models"}[case]
     sim_nam = tmp_path / "mfsim.nam"
     if case == "no-exchange":
         sim_nam.write_text(sim_nam.read_text().replace(
             "  GWF6-GWF6 ab.exg M1 M2\n", ""))
     elif case == "gwf6-gwt6":
+        # a transport model beside the two flow models: refused by name,
+        # as the reference's loader refuses it
         sim_nam.write_text(sim_nam.read_text().replace(
             "  GWF6-GWF6 ab.exg M1 M2\n",
-            "  GWF6-GWF6 ab.exg M1 M2\n  GWF6-GWT6 x.exg M1 M2\n"))
+            "  GWF6-GWF6 ab.exg M1 M2\n  GWF6-GWT6 x.exg M1 T\n").replace(
+            "END MODELS", "  GWT6 t.nam T\nEND MODELS"))
     elif case in ("uzf", "csub", "tvk"):
         files = {"uzf": ("UZF6 b.uzf", "b.uzf", """BEGIN DIMENSIONS
   NUZFCELLS 1

@@ -54,6 +54,7 @@ from modflow6_torch.models.gwf import csub
 from modflow6_torch.models.gwf.builder import build_gwf, chd_data
 from modflow6_torch.models.gwf.gnc import build_gnc
 from modflow6_torch.models.gwf.model import PackageData
+from modflow6_torch.models.gwt.builder import build_gwt
 from modflow6_torch.models.simulation import Simulation
 from modflow6_torch.solution import ImsSettings
 from modflow6_torch.solution.ims import NumericalSolution
@@ -389,7 +390,8 @@ def test_buy_and_vsc_simulation_matches_reference():
                                               buy_conc=pj.buy_conc)
     sim.period_data[1] = dataclasses.replace(port.packages,
                                              buy_conc=pt.buy_conc)
-    for a, b in zip(sim.run(), jsim.run()):
+    recs = sim.run()
+    for a, b in zip(recs, jsim.run()):
         assert a.converged and b.converged
         np.testing.assert_allclose(a.head, b.head, atol=1e-8)
     assert abs(sim.budget.percent_discrepancy()) < 1e-6
@@ -397,9 +399,18 @@ def test_buy_and_vsc_simulation_matches_reference():
         np.testing.assert_allclose(
             [sim.budget.terms[name].rate_in, sim.budget.terms[name].rate_out],
             [term.rate_in, term.rate_out], rtol=1e-7, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="gwt"):
-        Simulation(Tdis((StressPeriod(1.0, 1, 1.0),)), port,
-                   ImsSettings(**settings), gwt=object())
+    # a transport model in its place: its concentration reaches BUY and
+    # VSC through buy_conc, so the first step (at the transport's initial
+    # concentration, the same field) has the same heads, bit for bit
+    gwt = build_gwt("t", DisGrid.create(**grid), porosity=0.3,
+                    strt=pt.buy_conc.numpy(), device="cpu")
+    gsim = Simulation(Tdis((StressPeriod(2.0, 2, 1.0),)), port,
+                      ImsSettings(**settings), gwt=gwt,
+                      gwt_settings=ImsSettings(**settings))
+    grecs = gsim.run()
+    assert all(r.converged and r.transport_converged for r in grecs)
+    np.testing.assert_array_equal(grecs[0].head, recs[0].head)
+    assert not np.array_equal(gsim.conc_records[0], pt.buy_conc.numpy())
 
 
 def test_buy_uniform_crhoref_equals_plain_run_bitwise():

@@ -38,6 +38,7 @@ from modflow6_tpu.utils.mf6io import load_simulation as ref_load
 from modflow6_torch.models.discretization import DisGrid
 from modflow6_torch.models.gwf import uzf
 from modflow6_torch.models.gwf.builder import build_gwf
+from modflow6_torch.models.gwt.builder import build_gwt
 from modflow6_torch.models.simulation import Simulation
 from modflow6_torch.solution import ImsSettings
 from modflow6_torch.timing import ats
@@ -454,10 +455,55 @@ def test_ats_with_uzf_failed_attempts_leave_no_trace():
 
 
 def test_ats_percel_raises():
-    sim, _ = _ats_sims()
-    sim.ats_percel = 0.5
-    with pytest.raises(NotImplementedError, match="ats_percel"):
-        sim.run()
+    """ADV ATS_PERCEL, which raised until the GWT transport was ported: an
+    adaptive period's steps are cut to the transport's Courant step on the
+    last flow fields (adv_dt); the accepted step lengths equal the
+    reference's, and the limit binds."""
+    from modflow6_tpu.models.discretization import DisGrid as JaxDisGrid
+    from modflow6_tpu.models.gwf.builder import build_gwf as jax_build_gwf
+    from modflow6_tpu.models.gwt.builder import build_gwt as jax_build_gwt
+    from modflow6_tpu.models.simulation import Simulation as JaxSimulation
+    from modflow6_tpu.solution import ImsSettings as JaxImsSettings
+    from modflow6_tpu.timing.ats import AtsPeriod as JaxAts
+    from modflow6_tpu.timing.tdis import StressPeriod as JaxPeriod
+    from modflow6_tpu.timing.tdis import Tdis as JaxTdis
+    n = 15
+    grid = dict(nlay=1, nrow=1, ncol=n, delr=10.0, delc=10.0, top=10.0,
+                botm=np.zeros((1, 1, n)))
+    fkw = dict(k=20.0, strt=6.0, storage={"ss": 1e-3, "iconvert": 0},
+               chd=[(0, 9.0), (n - 1, 5.0)])
+    tkw = dict(porosity=0.3, strt=0.0, cnc=[(0, 1.0)])
+    flow = dict(outer_dvclose=1e-8, inner_dvclose=1e-10, inner_rclose=1e-9,
+                inner_maximum=500)
+    trans = dict(outer_dvclose=1e-6, inner_dvclose=1e-8, inner_rclose=1e-6,
+                 inner_maximum=500, linear_acceleration="bicgstab")
+    ats_kw = dict(dt0=2.0, dtmin=0.01, dtmax=50.0, dtadj=2.0, dtfailadj=5.0)
+    delts = {}
+    for pkg in ("port", "ref"):
+        if pkg == "port":
+            sim = Simulation(
+                Tdis((StressPeriod(30.0, 1, 1.0),)),
+                build_gwf("m", DisGrid.create(**grid), device="cpu", **fkw),
+                ImsSettings(**flow),
+                gwt=build_gwt("t", DisGrid.create(**grid), device="cpu",
+                              **tkw), gwt_settings=ImsSettings(**trans))
+            sim.ats = {1: ats.AtsPeriod(**ats_kw)}
+        else:
+            sim = JaxSimulation(
+                JaxTdis((JaxPeriod(30.0, 1, 1.0),)),
+                jax_build_gwf("m", JaxDisGrid.create(**grid), **fkw),
+                JaxImsSettings(**flow),
+                gwt=jax_build_gwt("t", JaxDisGrid.create(**grid), **tkw),
+                gwt_settings=JaxImsSettings(**trans))
+            sim.ats = {1: JaxAts(**ats_kw)}
+        sim.ats_percel = 0.5
+        recs = sim.run()
+        t = [0.0] + [r.totim for r in recs]
+        delts[pkg] = np.diff(t)
+    np.testing.assert_allclose(delts["port"], delts["ref"], rtol=1e-12)
+    # the Courant limit, far below dtmax, sets the steps after the first
+    assert len(delts["port"]) > 8
+    assert delts["port"][1:-1].max() < 0.1 * ats_kw["dtmax"]
 
 
 # ------------------------------------------------------------ R7, R8
