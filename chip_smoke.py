@@ -24,15 +24,17 @@ over two periods, BUY and VSC with a seawater wedge, and small XT3D, GNC,
 CSUB, BUY/VSC and TVK/TVS twins on the card against the CPU; and the
 advanced packages (``advanced``): the bench model with 1024 multi-layer
 wells, 256 lakes and a 4160-reach stream network through ``Simulation``
-twice (bitwise equal, no stencil launch: the augmented table has no grid
-shape), the same model as a MAW6/LAK6/SFR6 deck with a second period
+once (no stencil launch: the augmented table has no grid shape; the apt
+phase repeats these features, with movers, and holds the repeat bitwise),
+the same model as a MAW6/LAK6/SFR6 deck with a second period
 through the command-line entry, the gather product at the table's width,
 and small MAW, LAK, SFR and repeated-sum twins on the card against the
 CPU; and the coupling (``coupling``): UZF columns on every top cell of the
 bench grid through ``Simulation`` twice (bitwise equal, the structured
 solve through the stencil kernel) and as a UZF6 deck with a second period
 through the command-line entry, about 320 movers on the advanced phase's
-model twice (bitwise equal) and as an MVR6 deck, and the bench grid split
+model once (the apt phase's (a1) runs it twice, bitwise, and its (a2) as
+an MVR6 deck with transport), and the bench grid split
 into two models joined by GWF6-GWF6 exchanges, merged and run over the
 gather against the single model, and as a two-model deck through the
 command-line entry; with small UZF, mover-chain and exchange-mover twins
@@ -54,7 +56,25 @@ same as a GWF6 + GWT6 deck through the command-line entry against it, and
 the seawater wedge with BUY and VSC reading the transport's concentration
 with MXITER 3, twice, against MXITER 1; with small transport twins
 (schemes, sorption, IST, SRC/CNC, ATS_PERCEL, two merged models) on the
-card against the CPU in the ``small`` phase.
+card against the CPU in the ``small`` phase; and the advanced-package
+transport (``apt``): the coupling phase's mover model (1024 wells, 256
+lakes, 4160 reaches, 323 movers) with the plume's GWT model and a
+concentration row per feature (SFT inflow at 1.0 on the headwater
+reaches, LKT rain at 0.0, MWT on the pumping wells) through
+``Simulation`` twice (bitwise equal), the same as a GWF6 + GWT6 deck with
+LKT6/SFT6/MWT6/MVT6 through the command-line entry (its .ucn bitwise equal
+to the in-memory run), and UZT on the coupling phase's million UZF columns
+(no model here has a grid shape: no stencil7 launch); and heat (``gwe``):
+the bench model with a GWE model (TVD, EST, CND, CTP at 80 °C, ESL,
+recharge at 25 °C) over the plume's steps twice (bitwise equal; its flow
+through the stencil kernel), the same as a GWF6 + GWE6 deck through the
+command-line entry, and the mover model with LKE/SFE/MWE rows once; with
+small APT and GWE twins on the card against the CPU in the ``small``
+phase.  The value checks of these runs hold the grid rows and the wells',
+lakes' and UZT columns' rows whose water balance closes to the sources'
+range; a reach's flow has no storage where its transport has its volume,
+so a reach that dries concentrates its mass (R19 in ROADMAP Queue C): the
+reaches' values are reported, not bounded.
 
 Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          without one, and on any failed
@@ -71,7 +91,8 @@ Output of the smoke run, in order: the device, the kernel build,
 kernel-vs-plain checks with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
 general-path runs, the property-package runs, the advanced-package runs,
-the coupling runs, the utilities runs, the transport runs, one JSON line
+the coupling runs, the utilities runs, the transport runs, the apt runs,
+the gwe runs, one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -110,6 +131,8 @@ from modflow6_torch.models.gwf.builder import (              # noqa: E402
     build_gwf, chd_data, rch_data, wel_data)
 from modflow6_torch.models.gwf.gnc import build_gnc          # noqa: E402
 from modflow6_torch.models.gwf.model import PackageData      # noqa: E402
+from modflow6_torch.models.gwe.builder import build_gwe      # noqa: E402
+from modflow6_torch.models.gwt.apt import AugmentedGwtModel  # noqa: E402
 from modflow6_torch.models.gwt.builder import build_gwt      # noqa: E402
 from modflow6_torch.models.simulation import Simulation      # noqa: E402
 from modflow6_torch.ops import stencil                       # noqa: E402
@@ -390,9 +413,11 @@ def counted_run():
     counts["launches"] = stencil.stencil7.launches
 
 
-def run_bench(device, precision, preconditioner="jacobi", jacobi=None):
-    """bench.py's configuration through the port: a warm-up run, then a
-    timed run whose kernel launches are counted.  With another
+def run_bench(device, precision, preconditioner="jacobi", jacobi=None,
+              warmup=True):
+    """bench.py's configuration through the port: a warm-up run (unless
+    ``warmup`` is false), then a timed run whose kernel launches are
+    counted.  With another
     preconditioner than Jacobi the run is held against the Jacobi ``f64``
     run of this call, ``jacobi`` = (heads, inner_total of the same
     precision): heads within 10 x outer_dvclose, fewer inner iterations,
@@ -403,8 +428,9 @@ def run_bench(device, precision, preconditioner="jacobi", jacobi=None):
                            preconditioner=preconditioner),
         iss=False, nsteps=3)
     delts = [5.0, 5.0, 5.0]
-    run(model.strt, delts)
-    torch.cuda.synchronize()
+    if warmup:
+        run(model.strt, delts)
+        torch.cuda.synchronize()
     with counted_run() as counts:
         t0 = time.perf_counter()
         head, kiters, inners, convs = run(model.strt, delts)
@@ -2386,7 +2412,7 @@ def feature_balances(model, x, x_old, delt):
     sfr = model.sfr
     stage = x[model._sfr_offset:model._sfr_offset + sfr.nreaches]
     q, _ = sfr._manning(stage)
-    q_route, div_in = sfr.routing(q)
+    q_route, div_in, _ = sfr.routing(q)
     routed = (q_route[sfr.upstream] * sfr.frac).sum(dim=1).cpu().numpy()
     terms = [bud["SFR-EXT"], routed, div_in.cpu().numpy(), bud["SFR-OUT"],
              -bud["SFR-GWF"]]
@@ -2409,9 +2435,10 @@ def advanced_settings():
 def run_advanced_memory(device, shape=BENCH_SHAPE):
     """(a) The bench model with 1024 wells, 256 lakes and 4160 reaches
     through ``Simulation`` (3 transient steps of 5.0, BiCGSTAB, Jacobi,
-    ``f64``); (b) the same run again, bitwise equal; (d) the gather product
-    at width Ktot.  Returns (records of (a), the stencil7 launches of (a)
-    and (b))."""
+    ``f64``); (d) the gather product at width Ktot.  The bitwise repeat
+    (b) is the apt phase's: its (a1) runs these features, with movers and
+    their transport, twice.  Returns (records of (a), the stencil7
+    launches of (a))."""
     torch.cuda.reset_peak_memory_stats()
     model, table_s, build_s = advanced_model(device, shape)
     N, R, ktot = model.n_grid, model.n_extra, model.Ktot
@@ -2427,7 +2454,9 @@ def run_advanced_memory(device, shape=BENCH_SHAPE):
         raise AssertionError("the augmented model has a grid shape")
     maw0 = model.maw
     runs, launches = [], 0
-    for label in ("a", "b"):
+    # one run: the apt phase's (a1) repeats this flow, with movers and
+    # the transport, and holds its repeat bitwise
+    for label in ("a",):
         model.maw = maw0
         torch.cuda.reset_peak_memory_stats()
         sim, recs, seconds, counts = simulate(model, [(15.0, 3, 1.0)],
@@ -2456,13 +2485,6 @@ def run_advanced_memory(device, shape=BENCH_SHAPE):
                    for r in recs):
             raise AssertionError("the augmented run's heads")
         runs.append(recs)
-    same = all(np.array_equal(p.head, q.head) for p, q in zip(*runs))
-    counts_same = [(r.outer, r.inner) for r in runs[0]] == [
-        (r.outer, r.inner) for r in runs[1]]
-    print(f"advanced (b) vs (a): heads and feature rows bitwise equal="
-          f"{same} counts equal={counts_same}")
-    if not (same and counts_same):
-        raise AssertionError("two card runs of the augmented model differ")
     model.maw = maw0
     diag, off, rhs, h = first_system(model)
     mv = make_matvec(model.system_topo, diag, off)
@@ -3107,11 +3129,14 @@ def time_mover_chain(model, x):
 
 def run_mvr_memory(device, shape):
     """(m1) The advanced phase's model with about 320 movers through
-    ``Simulation`` (3 steps of 5.0, BiCGSTAB with Jacobi, ``f64``); (m2)
-    the same run again, bitwise equal; neither launches stencil7.  Returns
-    (m1)'s records."""
+    ``Simulation`` (3 steps of 5.0, BiCGSTAB with Jacobi, ``f64``); it
+    launches no stencil7.  The bitwise repeat (m2) is the apt phase's (a1),
+    which runs this flow with its transport twice.  Returns (m1)'s
+    records."""
     runs = []
-    for label in ("m1", "m2"):
+    # one run: the apt phase's (a1) repeats this flow with the transport
+    # and holds its repeat bitwise
+    for label in ("m1",):
         reset_peak(device)
         t0 = time.perf_counter()
         model = mvr_model(device, shape)
@@ -3142,13 +3167,6 @@ def run_mvr_memory(device, shape):
         if not rel <= 1e-12 or "WEL-TO-MVR" not in table:
             raise AssertionError("the movers' totals disagree")
         runs.append(recs)
-    same = all(np.array_equal(p.head, q.head) for p, q in zip(*runs))
-    counts_same = [(r.outer, r.inner) for r in runs[0]] == [
-        (r.outer, r.inner) for r in runs[1]]
-    print(f"coupling (m2) vs (m1): heads and feature rows bitwise equal="
-          f"{same} counts equal={counts_same}")
-    if not (same and counts_same):
-        raise AssertionError("two card runs of the mover model differ")
     if torch.device(device).type == "cuda":
         ms, eager_ms, same = time_mover_chain(model, x)
         print(f"coupling (m) mover chain, {model.mvr.nmovers} movers: "
@@ -3158,54 +3176,6 @@ def run_mvr_memory(device, shape):
             raise AssertionError("the rounds disagree with the mover-by-"
                                  "mover chain")
     return runs[0]
-
-
-def run_mvr_deck(device, memory_recs, shape):
-    """(m3) The model of (m1) written as a deck (MAW6, LAK6, SFR6 and
-    MVR6, the MOVER option on WEL, MAW, LAK and SFR) through
-    ``load_simulation`` and ``Simulation``: heads within DECK_FUSED_ATOL
-    of (m1)'s."""
-    nlay, nrow, ncol = shape
-    grid = flagship_grid(*shape)
-    _, records = coupling_movers(shape)
-    with tempfile.TemporaryDirectory() as ws:
-        files = write_advanced_files(ws, advanced_features(
-            grid, flagship_kfield(*shape)), grid)
-        for name in ("m.maw", "m.lak", "m.sfr"):
-            path = os.path.join(ws, name)
-            text = open(path).read()
-            _write(ws, name, "BEGIN OPTIONS\n  MOVER\nEND OPTIONS\n" + text)
-        _write(ws, "m.mvr", "BEGIN DIMENSIONS\n  MAXMVR "
-               f"{len(records)}\n  MAXPACKAGES 4\nEND DIMENSIONS\n"
-               "BEGIN PACKAGES\n  WEL-1\n  MAW-1\n  LAK-1\n  SFR-1\n"
-               "END PACKAGES\nBEGIN PERIOD 1\n" + "\n".join(records)
-               + "\nEND PERIOD\n")
-        write_flagship_deck(ws, nlay, nrow, ncol, acc="BICGSTAB",
-                            tdis=[(15.0, 3, 1.0)], wel_options="  MOVER\n",
-                            extra_packages=files + ["MVR6 m.mvr"])
-        t0 = time.perf_counter()
-        sim = load_simulation(ws, device=device)
-        sync(device)
-        load_s = time.perf_counter() - t0
-        with counted_run() as counts:
-            t0 = time.perf_counter()
-            recs = sim.run()
-            sync(device)
-            run_s = time.perf_counter() - t0
-    err = max(float(np.abs(g.head - w.head).max())
-              for g, w in zip(recs, memory_recs))
-    counts_equal = [(r.outer, r.inner) for r in recs] == [
-        (r.outer, r.inner) for r in memory_recs]
-    print(f"coupling (m3) mvr deck load_s={load_s!r} run_s={run_s!r} "
-          f"movers={sim.model.mvr.nmovers} outers={[r.outer for r in recs]} "
-          f"inners={[r.inner for r in recs]} counts equal to (m1)="
-          f"{counts_equal} max|x - x_(m1)|={err!r} bar={DECK_FUSED_ATOL!r} "
-          f"budget_percent_discrepancy={sim.budget.percent_discrepancy()!r}"
-          f" stencil7_launches={counts['launches']}")
-    if not (all(r.converged for r in recs) and err <= DECK_FUSED_ATOL):
-        raise AssertionError("the mover deck failed its checks")
-    if counts["launches"]:
-        raise AssertionError("the mover deck went through the stencil")
 
 
 def two_model_args(shape):
@@ -3495,14 +3465,18 @@ def check_small_coupling(device, names=None):
 
 
 def run_coupling(device, shape=BENCH_SHAPE):
-    """The coupling phase: (u1)-(u3) UZF, (m1)-(m3) MVR, (x1)-(x2) two
-    models, at ``shape`` (the small twins run in the small phase).
+    """The coupling phase: (u1)-(u3) UZF, (m1) MVR, (x1)-(x2) two models,
+    at ``shape`` (the small twins run in the small phase; (m2) and (m3),
+    the mover run's repeat and its deck, are the apt phase's (a1) and
+    (a2)).
     Returns the stencil7
     launches of the UZF runs, which must be some: the UZF model keeps its
     grid shape."""
     recs, launches = run_uzf_memory(device, shape)
     launches += run_uzf_deck(device, recs, shape)
-    run_mvr_deck(device, run_mvr_memory(device, shape), shape)
+    # (m3), the MVR6 deck, is the apt phase's (a2): the same mover deck
+    # with its transport, held bitwise against (a1)
+    run_mvr_memory(device, shape)
     run_two_model_deck(device, run_two_models(device, shape), shape)
     if not launches:
         raise AssertionError("the UZF runs launched no stencil7 kernel")
@@ -4128,18 +4102,22 @@ def plume_layout(shape):
     return cnc, src
 
 
-def plume_models(device, shape):
-    """(flow, transport) of (t1): ``flagship`` and its contaminant plume."""
+def plume_transport(device, grid, shape):
+    """(t1)'s contaminant plume on the bench grid ``grid``."""
     nlay, nrow, ncol = shape
-    flow = flagship(*shape, device)
     cnc, src = plume_layout(shape)
-    gwt = build_gwt(
-        "plume", flow.grid, porosity=0.3, strt=0.0, scheme="tvd",
+    return build_gwt(
+        "plume", grid, porosity=0.3, strt=0.0, scheme="tvd",
         dsp=PLUME_DSP, decay=(1, PLUME_DECAY), sorption=PLUME_SORPTION,
         cnc=[(n, 1.0) for n in cnc], src=[(n, PLUME_SRC) for n in src],
         ssm_spec={"RCH": np.full(nrow * ncol, PLUME_RCH_CONC)},
         device=device)
-    return flow, gwt
+
+
+def plume_models(device, shape):
+    """(flow, transport) of (t1): ``flagship`` and its contaminant plume."""
+    flow = flagship(*shape, device)
+    return flow, plume_transport(device, flow.grid, shape)
 
 
 def instrument_transport(sim, device):
@@ -4214,17 +4192,18 @@ def final_residual(sim, last):
     return float(torch.where(ib > 0, r, 0.0).abs().max())
 
 
-def time_transport_gather(sim, last, ms_per_iteration):
+def time_transport_gather(sim, last, ms_per_iteration, label="transport "
+                          "(t1)"):
     """The ELL gather product of the last transport system (K = 6 on a DIS
-    grid), 100 launches per CUDA event pair, beside its byte bound and its
-    share of a BiCGSTAB iteration (two products; ``ms_per_iteration`` from
-    the linear solves' own seconds)."""
+    grid, Ktot with APT rows), 100 launches per CUDA event pair, beside its
+    byte bound and its share of a BiCGSTAB iteration (two products;
+    ``ms_per_iteration`` from the linear solves' own seconds)."""
     diag, off, _, _ = final_system(sim, last)
     nbr, x = sim.gwt.dtopo.nbr, sim.conc
     n, k = nbr.shape
     ms = back_to_back_ms(lambda: spmv(nbr, diag, off, x))
     bound = ell_bound_ms(n, k)
-    print(f"transport (t1) ell product K={k} rows={n} ms={ms!r} "
+    print(f"{label} ell product K={k} rows={n} ms={ms!r} "
           f"bound_ms={bound!r} share_of_bound={bound / ms!r} "
           f"share_of_bicgstab_iteration={2 * ms / ms_per_iteration!r}")
 
@@ -4282,25 +4261,31 @@ def run_plume(device, shape, label, time_gather=False):
     return sim, recs, counts["launches"]
 
 
-def write_plume_deck(ws, shape):
-    """(t1) as a deck: the flow deck of ``write_flagship_deck`` with the
-    recharge as an RCH6 list with a CONCENTRATION aux column (OPEN/CLOSE),
-    a GWT6 model with every (t1) package (DSP with XT3D_OFF), a GWF6-GWT6
-    exchange, two solution groups (CG, BICGSTAB), concentrations saved
-    every step."""
+def write_coupled_flow(ws, shape, model="GWT6", tname="PLUME",
+                       aux="CONCENTRATION", value=None,
+                       periods=PLUME_PERIODS, flow=PLUME_FLOW, acc="CG",
+                       transport=None, **deck):
+    """The flow deck of ``write_flagship_deck`` with the recharge as an
+    RCH6 list carrying an ``aux`` column (OPEN/CLOSE) at ``value``, a
+    ``model`` transport model named ``tname`` (t.nam, whose files the
+    caller writes), a GWF6-``model`` exchange, and two solution groups
+    (the flow's ``acc``, BICGSTAB for the transport at ``transport``'s
+    closures); ``deck``: further ``write_deck`` arguments."""
     nlay, nrow, ncol = shape
-    ims = {k: PLUME_FLOW[k] for k in ("outer_dvclose", "outer_maximum",
-                                      "inner_maximum", "inner_dvclose",
-                                      "inner_rclose")}
-    write_flagship_deck(ws, nlay, nrow, ncol, rcha=None,
-                        tdis=list(PLUME_PERIODS), ims=ims, oc_last=False,
-                        extra_packages=["RCH6 m.rch"])
+    transport = transport or PLUME_TRANSPORT
+    ims = {k: flow[k] for k in ("outer_dvclose", "outer_maximum",
+                                "inner_maximum", "inner_dvclose",
+                                "inner_rclose")}
+    write_flagship_deck(ws, nlay, nrow, ncol, rcha=None, tdis=list(periods),
+                        ims=ims, acc=acc, oc_last=False,
+                        extra_packages=["RCH6 m.rch"]
+                        + list(deck.pop("extra_packages", [])), **deck)
     ii, jj = np.divmod(np.arange(nrow * ncol), ncol)
     with open(os.path.join(ws, "rch.txt"), "w") as f:
-        f.write("".join(f"1 {i + 1} {j + 1} 0.0001 {PLUME_RCH_CONC!r}\n"
+        f.write("".join(f"1 {i + 1} {j + 1} 0.0001 {value!r}\n"
                         for i, j in zip(ii.tolist(), jj.tolist())))
     _write(ws, "m.rch", f"""BEGIN OPTIONS
-  AUXILIARY CONCENTRATION
+  AUXILIARY {aux}
 END OPTIONS
 BEGIN DIMENSIONS
   MAXBOUND {nrow * ncol}
@@ -4309,24 +4294,24 @@ BEGIN PERIOD 1
   OPEN/CLOSE rch.txt
 END PERIOD
 """)
-    _write(ws, "mfsim.nam", """BEGIN TIMING
+    _write(ws, "mfsim.nam", f"""BEGIN TIMING
   TDIS6 sim.tdis
 END TIMING
 BEGIN MODELS
   GWF6 m.nam FLAGSHIP
-  GWT6 t.nam PLUME
+  {model} t.nam {tname}
 END MODELS
 BEGIN EXCHANGES
-  GWF6-GWT6 ft.exg FLAGSHIP PLUME
+  GWF6-{model} ft.exg FLAGSHIP {tname}
 END EXCHANGES
 BEGIN SOLUTIONGROUP 1
   IMS6 sim.ims FLAGSHIP
 END SOLUTIONGROUP
 BEGIN SOLUTIONGROUP 2
-  IMS6 t.ims PLUME
+  IMS6 t.ims {tname}
 END SOLUTIONGROUP
 """)
-    t = PLUME_TRANSPORT
+    t = transport
     _write(ws, "ft.exg", "BEGIN OPTIONS\nEND OPTIONS\n")
     _write(ws, "t.ims", f"""BEGIN NONLINEAR
   OUTER_DVCLOSE {t['outer_dvclose']!r}
@@ -4340,18 +4325,33 @@ BEGIN LINEAR
 END LINEAR
 """)
     shutil.copy(os.path.join(ws, "m.dis"), os.path.join(ws, "t.dis"))
-    _write(ws, "t.nam", """BEGIN PACKAGES
-  DIS6 t.dis
-  IC6 t.ic
-  ADV6 t.adv
-  DSP6 t.dsp
-  MST6 t.mst
-  SSM6 t.ssm
-  CNC6 t.cnc
-  SRC6 t.src
-  OC6 t.oc
-END PACKAGES
-""")
+
+
+def _block_file(ws, name, shape, nodes, value):
+    """A CNC6/SRC6/CTP6/ESL6 file of one PERIOD 1 entry per layer-1 node."""
+    ncol = shape[2]
+    rows = "".join(f"  1 {n // ncol + 1} {n % ncol + 1} {value!r}\n"
+                   for n in nodes)
+    _write(ws, name, f"BEGIN DIMENSIONS\n  MAXBOUND {len(nodes)}\n"
+           f"END DIMENSIONS\nBEGIN PERIOD 1\n{rows}END PERIOD\n")
+
+
+def write_plume_deck(ws, shape, periods=PLUME_PERIODS, flow=PLUME_FLOW,
+                     acc="CG", apt_files=(), **deck):
+    """(t1) as a deck: ``write_coupled_flow`` with the recharge at its
+    concentration, a GWT6 model with every (t1) package (DSP with
+    XT3D_OFF), concentrations saved every step; ``apt_files``: further
+    (name-file line, text) of the transport model (the APT files)."""
+    write_coupled_flow(ws, shape, value=PLUME_RCH_CONC, periods=periods,
+                       flow=flow, acc=acc, **deck)
+    _write(ws, "t.nam", "BEGIN PACKAGES\n" + "".join(
+        f"  {line}\n" for line in (
+            "DIS6 t.dis", "IC6 t.ic", "ADV6 t.adv", "DSP6 t.dsp",
+            "MST6 t.mst", "SSM6 t.ssm", "CNC6 t.cnc", "SRC6 t.src",
+            "OC6 t.oc") + tuple(line for line, _ in apt_files))
+        + "END PACKAGES\n")
+    for line, text in apt_files:
+        _write(ws, line.split()[1], text)
     _write(ws, "t.ic", "BEGIN GRIDDATA\n  STRT\n    CONSTANT 0.0\n"
            "END GRIDDATA\n")
     _write(ws, "t.adv", "BEGIN OPTIONS\n  SCHEME TVD\nEND OPTIONS\n")
@@ -4379,12 +4379,8 @@ END GRIDDATA
     _write(ws, "t.ssm", "BEGIN SOURCES\n  RCH-1 AUX CONCENTRATION\n"
            "END SOURCES\n")
     cnc, src = plume_layout(shape)
-    for name, nodes, value in (("t.cnc", cnc, 1.0), ("t.src", src,
-                                                     PLUME_SRC)):
-        rows = "".join(f"  1 {n // ncol + 1} {n % ncol + 1} {value!r}\n"
-                       for n in nodes)
-        _write(ws, name, f"BEGIN DIMENSIONS\n  MAXBOUND {len(nodes)}\n"
-               f"END DIMENSIONS\nBEGIN PERIOD 1\n{rows}END PERIOD\n")
+    _block_file(ws, "t.cnc", shape, cnc, 1.0)
+    _block_file(ws, "t.src", shape, src, PLUME_SRC)
     _write(ws, "t.oc", """BEGIN OPTIONS
   CONCENTRATION FILEOUT t.ucn
 END OPTIONS
@@ -4658,6 +4654,591 @@ def run_transport(device, shape=BENCH_SHAPE):
     return launches
 
 
+def small_apt_models(dev):
+    """(name, run) of the small APT and GWE twins (a 3 x 10 grid with a
+    pumping well, a lake with an outlet, six reaches with a diversion,
+    UZF columns, movers): ``run()`` returns (the final values on the CPU,
+    [(flow outer, transport outer)], converged, transport settings)."""
+    from modflow6_torch.models.gwe.exchange import merge_gwe_models
+    from modflow6_torch.models.gwf import exchange
+    from modflow6_torch.models.gwf import uzf as uzf_mod
+    s = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
+             inner_rclose=1e-9, inner_maximum=500,
+             linear_acceleration="bicgstab")
+    heat_s = dict(s, inner_rclose=s["inner_rclose"] * 1000.0 * 4184.0)
+    grid = dict(nlay=1, nrow=3, ncol=10, delr=100.0, delc=100.0, top=50.0,
+                botm=np.zeros((1, 3, 10)))
+    fkw = dict(k=5.0, strt=30.0, chd=[(i * 10, 30.0) for i in range(3)],
+               storage={"ss": 1e-5, "sy": 0.2, "iconvert": 1},
+               wel=[(26, -1.0)], rch=[(n, 1e-4) for n in range(30)])
+    wells = [dict(radius=0.2, strt=30.0, rate=-2.0,
+                  connections=[(7, 5.0), (8, 4.0)]),
+             dict(radius=0.2, strt=30.0, rate=0.5, connections=[(28, 3.0)])]
+    lakes = ([dict(strt=31.5, bottom=29.0, surf_area=1e4, rainfall=2.0,
+                   evap=0.5, connections=[(5, 1e-3, 29.0), (6, 1e-3, 29.0)])],
+             [dict(lake=0, to=-1, type="manning", invert=31.0, width=2.0,
+                   rough=0.03, slope=1e-3)])
+    reaches = [dict(node=11 + r, cond=0.5, strtop=29.5 - 0.1 * r, width=3.0,
+                    rough=0.03, slope=1e-3, length=100.0,
+                    strt=29.8 - 0.1 * r, inflow=2.0 if r == 0 else 0.0,
+                    upstream=[(r - 1, 1.0)] if 0 < r < 5 else [],
+                    diversions=[dict(to=5, cprior="fraction", flow=0.3)]
+                    if r == 2 else []) for r in range(6)]
+    cols = [dict(node=n, vks=0.3, thtr=0.05, thts=0.35, thti=0.1, eps=3.5,
+                 celtop=49.0, celbot=0.0, surfdep=1.0, area=1e4, finf=1e-3,
+                 pet=0.0, extdp=1.0, extwc=0.05) for n in (2, 3)]
+
+    def run(name, kind="gwt", maw=False, lak=False, sfr=False, mvr=None,
+            uzf=False, ext=None):
+        g = DisGrid.create(**grid)
+        flow = AugmentedGwfModel(
+            build_gwf(name, g, device=dev, **fkw),
+            maw=build_maw(wells, g) if maw else None,
+            lak=build_lak(*lakes) if lak else None,
+            sfr=build_sfr(reaches) if sfr else None, mvr=mvr)
+        if kind == "gwt":
+            base = build_gwt(name, g, porosity=0.3, device=dev,
+                             ssm_spec={"RCH": 0.2})
+        else:
+            base = build_gwe(name, g, strt=10.0, device=dev,
+                             cnd=dict(ktw=0.58, kts=2.5),
+                             ssm_spec={"RCH": 20.0})
+        columns = (uzf_mod.make_uzf(cols, nz=10, device=dev) if uzf
+                   else None)
+        gwt = AugmentedGwtModel(base, flow, uzf=columns)
+        if kind == "gwe":
+            gwt.strt_extra = torch.full((gwt.n_extra,), 10.0,
+                                        dtype=torch.float64, device=dev)
+        settings = s if kind == "gwt" else heat_s
+        sim = Simulation(Tdis((StressPeriod(20.0, 4, 1.2),)), flow,
+                         ImsSettings(**s), gwt=gwt,
+                         gwt_settings=ImsSettings(**settings))
+        sim.uzf = columns
+        sim.apt_ext_conc = ext or {}
+        recs = sim.run()
+        return (torch.as_tensor(sim.conc_records[-1]),
+                [(r.outer, r.transport_outer) for r in recs],
+                all(r.converged and r.transport_converged for r in recs),
+                settings)
+
+    def gwe_packages():
+        g = DisGrid.create(**grid)
+        sim = Simulation(
+            Tdis((StressPeriod(20.0, 4, 1.2),)),
+            build_gwf("gwe", g, device=dev, **fkw), ImsSettings(**s),
+            gwt=build_gwe("gwe", g, strt=10.0, scheme="tvd", device=dev,
+                          cnd=dict(alh=10.0, ath1=1.0, ktw=0.58, kts=2.5),
+                          ctp=[(3, 60.0), (3, 80.0)],
+                          esl=[(17, 1e6), (17, 2e6)],
+                          decay=(3, 1.0, 2.0), ssm_spec={"RCH": 20.0}),
+            gwt_settings=ImsSettings(**heat_s), conc_text="TEMPERATURE")
+        recs = sim.run()
+        return (torch.as_tensor(sim.conc_records[-1]),
+                [(r.outer, r.transport_outer) for r in recs],
+                all(r.converged and r.transport_converged for r in recs),
+                heat_s)
+
+    def merged():
+        half = dict(grid, ncol=5, botm=grid["botm"][:, :, :5])
+        g = DisGrid.create(**half)
+        members = [build_gwf(n, g, k=2.0, strt=15.0, device=dev, chd=chd,
+                             storage={"ss": 1e-4, "iconvert": 0})
+                   for n, chd in (("w", [(i * 5, 16.0) for i in range(3)]),
+                                  ("e", [(i * 5 + 4, 14.0)
+                                         for i in range(3)]))]
+        pairs = [exchange.ExchangePair(i * 5 + 4, i * 5, ihc=1, cl1=50.0,
+                                       cl2=50.0, hwva=100.0)
+                 for i in range(3)]
+        fm = exchange.merge_gwf_models(members, [exchange.GwfGwfExchange(
+            0, 1, pairs)])
+        kw = dict(strt=10.0, device=dev, cnd=dict(ktw=0.58, kts=2.5))
+        tm = merge_gwe_models([build_gwe("ew", g, ctp=[(0, 40.0)], **kw),
+                               build_gwe("ee", g, esl=[(7, 1e6)], **kw)], fm)
+        sim = Simulation(Tdis((StressPeriod(20.0, 4, 1.2),)), fm,
+                         ImsSettings(**s), gwt=tm,
+                         gwt_settings=ImsSettings(**heat_s))
+        recs = sim.run()
+        return (torch.as_tensor(sim.conc_records[-1]),
+                [(r.outer, r.transport_outer) for r in recs],
+                all(r.converged and r.transport_converged for r in recs),
+                heat_s)
+
+    wel_mvr = [dict(provider="wel", iprov=0, receiver="sfr", ircv=1,
+                    mvrtype="factor", value=0.5)]
+    sfr_mvr = [dict(provider="sfr", iprov=4, receiver="lak", ircv=0,
+                    mvrtype="factor", value=1.0)]
+    twins = []
+    for kind, t in (("gwt", dict(lak=0.5, sfr=1.0, maw=0.3, uzf=0.8)),
+                    ("gwe", dict(lak=15.0, sfr=18.0, maw=12.0, uzf=20.0))):
+        names = ("lkt", "sft with a diversion", "mwt", "uzt") \
+            if kind == "gwt" else ("lke", "sfe with a diversion", "mwe",
+                                   "uze")
+        for name, feat in zip(names, ("lak", "sfr", "maw", "uzf")):
+            twins.append((name, lambda kind=kind, feat=feat, t=t: run(
+                feat, kind, ext={feat: t[feat]}, **{feat: True})))
+    twins += [
+        ("mvt from a wel provider", lambda: run(
+            "mvtw", sfr=True, mvr=wel_mvr, ext={"sfr": 1.0})),
+        ("mvt from a feature provider", lambda: run(
+            "mvtf", lak=True, sfr=True, mvr=sfr_mvr,
+            ext={"sfr": 1.0, "lak": 0.0})),
+        ("gwe with each package", gwe_packages),
+        ("merge_gwe_models", merged)]
+    return twins
+
+
+def check_small_apt(device, names=None):
+    """Small APT and GWE twins on the card against the CPU (LKT, SFT with
+    a diversion, MWT, UZT and their GWE analogs, MVT from a WEL provider
+    and from a feature provider, GWE with each package, two merged GWE
+    models): equal outer counts, values within 10 × outer_dvclose."""
+    cpu = dict(small_apt_models("cpu"))
+    for name, run in small_apt_models(device):
+        if names is not None and name not in names:
+            continue
+        c, k, ok, s = run()
+        c0, k0, ok0, _ = cpu[name]()
+        err = float((c - c0).abs().max())
+        bar = CLOSURE_FACTOR * s["outer_dvclose"]
+        print(f"small apt/gwe {name}: card counts={k} converged={ok}; cpu "
+              f"counts={k0} converged={ok0}; max|dc|={err!r} bar={bar!r}")
+        if not (ok and ok0 and k == k0 and err <= bar):
+            raise AssertionError(f"small apt/gwe {name}: the card disagrees "
+                                 "with the CPU")
+
+
+# ------------------------------------------------ the apt and gwe phases
+
+# (a1)-(a3) and (e3): the advanced model's three 5-d steps
+APT_PERIODS = ((15.0, 3, 1.0),)
+# (e1)-(e3): heat on the bench grid; TVD, EST, CND, CTP at 80 °C on the
+# plume's CNC block, ESL on its SRC cells, recharge at 25 °C through SSM,
+# starting at 10 °C; the west CHD column's inflow enters at 0 °C (SSM's
+# default), so the sources' range is [0, 80]
+HEAT_EST = dict(porosity=0.3, rhos=2650.0, cps=800.0)
+HEAT_CND = dict(alh=10.0, ath1=1.0, atv=0.1, ktw=0.58, kts=2.5)
+HEAT_CTP, HEAT_ESL, HEAT_RCH, HEAT_STRT = 80.0, 1.0e6, 25.0, 10.0
+# the heat transport's closures: the plume's with inner_rclose scaled by
+# rhow·cpw, the factor of every entry of an energy system, and an outer
+# closure of 0.1 °C: on the long steps TVD's Picard iterates settle into a
+# two-cycle whose amplitude grows with the grid and the step (at 1e-5 °C a
+# CPU run of (e1) at 4 x 128 x 128 takes outer_maximum on every 365-d step)
+HEAT_TRANSPORT = dict(PLUME_TRANSPORT, outer_dvclose=0.1,
+                      inner_rclose=PLUME_TRANSPORT["inner_rclose"]
+                      * 1000.0 * 4184.0)
+# (e3)'s sources: SFE INFLOW 18 °C on the headwater reaches, LKE RAINFALL
+# 15 °C
+HEAT_SFE, HEAT_LKE = 18.0, 15.0
+
+
+def heat_transport(device, grid, shape):
+    """(e1)'s GWE model on the bench grid ``grid``."""
+    nlay, nrow, ncol = shape
+    ctp, esl = plume_layout(shape)
+    return build_gwe(
+        "heat", grid, strt=HEAT_STRT, scheme="tvd", cnd=HEAT_CND,
+        ctp=[(n, HEAT_CTP) for n in ctp], esl=[(n, HEAT_ESL) for n in esl],
+        ssm_spec={"RCH": np.full(nrow * ncol, HEAT_RCH)}, device=device,
+        **HEAT_EST)
+
+
+def apt_models(device, shape, kind="gwt"):
+    """(flow, transport, sources) of (a1), or of (e3) with ``kind`` "gwe":
+    ``mvr_model``'s features and movers with the plume's GWT model (or
+    (e1)'s GWE model) and the features' rows; SFT INFLOW 1.0 (SFE 18 °C)
+    on the headwater reaches, LKT RAINFALL 0.0 (LKE 15 °C), MWT (MWE) on
+    the pumping wells, the GWE rows starting at 10 °C."""
+    flow = mvr_model(device, shape)
+    head = (flow.sfr.inflow > 0).to(torch.float64)
+    if kind == "gwt":
+        base = plume_transport(device, flow.grid, shape)
+        ext = {"sfr": head, "lak": 0.0, "maw": 0.0}
+    else:
+        base = heat_transport(device, flow.grid, shape)
+        ext = {"sfr": head * HEAT_SFE, "lak": HEAT_LKE, "maw": 0.0}
+    gwt = AugmentedGwtModel(base, flow)
+    if kind == "gwe":
+        gwt.strt_extra = torch.full((gwt.n_extra,), HEAT_STRT,
+                                    dtype=torch.float64, device=device)
+    return flow, gwt, ext
+
+
+def print_steps(label, recs, steps):
+    for r, s in zip(recs, steps):
+        print(f"{label} kper={r.kper} kstp={r.kstp} flow outer={r.outer} "
+              f"inner={r.inner} transport outer={r.transport_outer} "
+              f"inner={r.transport_inner} fmi_s={r.fmi_seconds!r} "
+              f"extract_apt_flows_s={r.apt_seconds!r} "
+              f"assembly_s={s['assembly_s']!r} "
+              f"bicgstab_iterations={s['bicgstab_iterations']} "
+              f"bicgstab_s={s['bicgstab_s']!r} ms_per_bicgstab_iteration="
+              f"{s['bicgstab_s'] / max(s['bicgstab_iterations'], 1) * 1e3!r}"
+              f" stencil7_flow={s['flow_launches']} "
+              f"stencil7_transport={s['transport_launches']} "
+              f"peak_bytes={s['peak_bytes']}")
+
+
+def balanced_features(gwt, flows, delt):
+    """(bool[feature rows], the largest relative imbalance): the feature
+    rows whose water balance in the transport's terms closes (|in − out −
+    Δstorage| within 1e-6 of their sum, and their water above 1e-9 of the
+    largest feature's).  Only there is a feature's concentration bound to
+    its sources' range: a lake's evaporation takes water and no mass (LKT's
+    evapoconcentration), and a reach's flow equation has no storage where
+    the transport's has the reach's volume, so a reach that dries within a
+    step concentrates its mass into the water left (to 1e5-1e14 on the
+    coupling phase's mover model at 4 x 128 x 128 on the CPU, as the
+    reference's equations give), which its downstream reaches inherit
+    (ROADMAP Queue C, R19);
+    ``run_coupled`` leaves the reaches out of its check."""
+    f = {k: getattr(flows, k).cpu().numpy() for k in (
+        "v_new", "v_old", "out_q", "ext_q", "q_conn", "pair_q",
+        "mvr_cell_q")}
+    inflow = f["v_old"] / delt + f["ext_q"]
+    outflow = f["v_new"] / delt + f["out_q"]
+    conn = gwt.conn_feat.cpu().numpy()
+    np.add.at(outflow, conn, np.maximum(f["q_conn"], 0.0))
+    np.add.at(inflow, conn, np.maximum(-f["q_conn"], 0.0))
+    np.add.at(inflow, gwt.pair_dst.cpu().numpy(), f["pair_q"])
+    np.add.at(inflow, gwt.mvr_cell_dst.cpu().numpy(), f["mvr_cell_q"])
+    size = inflow + outflow
+    imbalance = np.abs(inflow - outflow) / np.where(size > 0, size, 1.0)
+    return ((imbalance <= 1e-6) & (size > 1e-9 * size.max(initial=0.0)),
+            float(imbalance.max(initial=0.0)))
+
+
+def run_coupled(label, sim, device, bounds, rclose, time_gather=False):
+    """``sim`` once, instrumented: the per-step lines, the checks every
+    transport run of the apt and gwe phases passes (every step converged,
+    every value finite, the grid rows within ``bounds`` to 1e-4 and, with
+    APT rows, the balanced well, lake and UZT rows (``balanced_features``)
+    too, the reaches reported beside them, the
+    last system's residual within ``rclose``, no plain stencil on the
+    card), and with ``time_gather`` the transport's gather at its table
+    width.  Returns (records, stencil7 launches of the flow, of the
+    transport)."""
+    steps, last = instrument_transport(sim, device)
+    fields = []
+    solve = sim._solve_transport
+
+    def keep(*args, **kwargs):
+        out = solve(*args, **kwargs)
+        fields.append(out.fields)
+        return out
+
+    sim._solve_transport = keep
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        recs = sim.run()
+        sync(device)
+        seconds = time.perf_counter() - t0
+    resid = final_residual(sim, last)
+    gwt = sim.gwt
+    n = gwt.grid.nodes
+    checked, others, worst = [], [], 0.0
+    for c, f, r, p in zip(sim.conc_records, fields, recs, [None] + recs[:-1]):
+        checked.append(c[:n])
+        if isinstance(gwt, AugmentedGwtModel):
+            ok, imb = balanced_features(gwt, f, r.totim - (p.totim if p
+                                                            else 0.0))
+            # the reaches inherit what a drying reach upstream concentrated
+            sfr = getattr(gwt.gwf, "sfr", None)
+            if sfr is not None:
+                first = gwt.gwf._sfr_offset - n
+                ok[first:first + sfr.nreaches] = False
+            checked.append(c[n:][ok])
+            others.append(c[n:][~ok])
+            worst = max(worst, imb)
+    lo = min(float(c.min(initial=np.inf)) for c in checked)
+    hi = max(float(c.max(initial=-np.inf)) for c in checked)
+    other = np.concatenate(others) if others else np.zeros(0)
+    out = int(((other < bounds[0] - CONC_SLACK)
+               | (other > bounds[1] + CONC_SLACK)).sum())
+    nbr = gwt.dtopo.nbr
+    print_steps(label, recs, steps)
+    print(f"{label}: rows={gwt.nodes} feature_rows="
+          f"{getattr(gwt, 'n_extra', 0)} Ktot={nbr.shape[1]} table_bytes="
+          f"{nbr.numel() * nbr.element_size()} run_s={seconds!r} "
+          f"checked min={lo!r} max={hi!r} bounds={bounds}; unbalanced "
+          f"feature values (all steps)={other.size}, out of bounds={out}, "
+          f"range=[{float(other.min(initial=0.0))!r}, "
+          f"{float(other.max(initial=0.0))!r}], largest relative water "
+          f"imbalance={worst!r}; final_residual={resid!r} "
+          f"rclose={rclose!r} stencil7_launches={counts['launches']} "
+          f"peak_bytes={max(s['peak_bytes'] for s in steps)}")
+    if not all(r.converged and r.transport_converged for r in recs):
+        raise AssertionError(f"{label}: a step did not converge")
+    if not all(np.isfinite(c).all() for c in sim.conc_records):
+        raise AssertionError(f"{label}: values not finite")
+    if not (bounds[0] - CONC_SLACK <= lo and hi <= bounds[1] + CONC_SLACK):
+        raise AssertionError(f"{label}: values [{lo}, {hi}] outside "
+                             f"{bounds}")
+    if not resid <= rclose:
+        raise AssertionError(f"{label}: final residual {resid} above the "
+                             "closure")
+    if counts["plain_on_cuda"] or any(s["transport_launches"]
+                                      for s in steps):
+        raise AssertionError(f"{label}: the plain stencil on the card, or "
+                             "a transport solve through the stencil")
+    if time_gather and torch.device(device).type == "cuda":
+        inner = sum(s["bicgstab_iterations"] for s in steps)
+        solve = sum(s["bicgstab_s"] for s in steps)
+        time_transport_gather(sim, last, solve / inner * 1e3, label)
+    return recs, sum(s["flow_launches"] for s in steps), \
+        sum(s["transport_launches"] for s in steps)
+
+
+def bitwise_runs(label, a, b):
+    """Two runs' counts and transport records bitwise equal."""
+    (sa, ra), (sb, rb) = a, b
+    same = [(r.outer, r.inner, r.transport_outer, r.transport_inner)
+            for r in ra] == [(r.outer, r.inner, r.transport_outer,
+                              r.transport_inner) for r in rb] and all(
+        np.array_equal(p, q) for p, q in zip(sa.conc_records,
+                                             sb.conc_records)) and all(
+        np.array_equal(p.head, q.head) for p, q in zip(ra, rb))
+    print(f"{label} two runs bitwise equal={same}")
+    if not same:
+        raise AssertionError(f"{label}: the two runs differ")
+
+
+def run_apt_memory(device, shape, label, time_gather=False):
+    """(a1) once: the mover model's flow and its APT transport through
+    ``Simulation``."""
+    flow, gwt, ext = apt_models(device, shape)
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in APT_PERIODS)),
+                     flow, advanced_settings(), gwt=gwt,
+                     gwt_settings=ImsSettings(**PLUME_TRANSPORT))
+    sim.apt_ext_conc = ext
+    recs, fl, tl = run_coupled(f"apt (a1) {label}", sim, device, (0.0, 1.0),
+                               PLUME_TRANSPORT["inner_rclose"], time_gather)
+    return sim, recs, fl + tl
+
+
+def apt_files(shape):
+    """(a2)'s transport files: SFT6 (INFLOW 1.0 on the headwater reaches),
+    LKT6 (RAINFALL 0.0), MWT6 and MVT6."""
+    wells, lakes, path, ntrib, nmain, nside = advanced_layout(*shape)
+    R = len(path)
+    sft = "BEGIN PACKAGEDATA\n" + "".join(
+        f"  {r + 1} 0.0\n" for r in range(R)) + "END PACKAGEDATA\n" \
+        "BEGIN PERIOD 1\n" + "".join(
+            f"  {r + 1} INFLOW 1.0\n" for r in (0, ntrib)) + "END PERIOD\n"
+    lkt = "BEGIN PACKAGEDATA\n" + "".join(
+        f"  {k + 1} 0.0\n" for k in range(len(lakes))) + \
+        "END PACKAGEDATA\nBEGIN PERIOD 1\n" + "".join(
+            f"  {k + 1} RAINFALL 0.0\n" for k in range(len(lakes))) + \
+        "END PERIOD\n"
+    mwt = "BEGIN PACKAGEDATA\n" + "".join(
+        f"  {w + 1} 0.0\n" for w in range(len(wells))) + "END PACKAGEDATA\n"
+    return [("SFT6 t.sft", sft), ("LKT6 t.lkt", lkt), ("MWT6 t.mwt", mwt),
+            ("MVT6 t.mvt", "BEGIN OPTIONS\nEND OPTIONS\n")]
+
+
+def run_deck_cli(label, device, ws, memory, values_file, text):
+    """A written deck through the command-line entry: its values file
+    (.ucn) against the in-memory run's records bitwise, its counts equal.
+    Returns the stencil7 launches."""
+    msim, mrecs = memory
+    out = io.StringIO()
+    with captured_loads(device) as loads, counted_run() as counts, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        code = cli_main([ws] + ([] if torch.device(device).type == "cuda"
+                                else ["--device", "cpu"]))
+        sync(device)
+        cli_s = time.perf_counter() - t0
+    sim, load_s = loads[0]
+    recs = sim.records
+    ucn = read_head_file(os.path.join(ws, values_file))
+    n = msim.gwt.grid.nodes
+    nlay = msim.gwt.grid.shape[0]
+    vals = [np.concatenate([r["data"].reshape(-1) for r in ucn[i:i + nlay]])
+            for i in range(0, len(ucn), nlay)]
+    counts_of = [(r.outer, r.inner, r.transport_outer, r.transport_inner)
+                 for r in recs]
+    want = [(r.outer, r.inner, r.transport_outer, r.transport_inner)
+            for r in mrecs]
+    bitwise = len(vals) == len(msim.conc_records) and all(
+        np.array_equal(a, b[:n]) for a, b in zip(vals, msim.conc_records))
+    err = max(float(np.abs(a - b[:n]).max())
+              for a, b in zip(vals, msim.conc_records))
+    texts = {r["text"].strip() for r in ucn}
+    print(f"{label} deck cli exit={code} wall_s={cli_s!r} load_s={load_s!r} "
+          f"counts={counts_of} records={len(vals)} texts={sorted(texts)} "
+          f"bitwise_equal_in_memory={bitwise} max|deck - memory|={err!r} "
+          f"stencil7_launches={counts['launches']} "
+          f"stdout={out.getvalue().strip()!r}")
+    if code != 0 or "Normal termination" not in out.getvalue() \
+            or counts_of != want or not bitwise or texts != {text} \
+            or counts["plain_on_cuda"]:
+        raise AssertionError(f"{label}: the deck differs from its in-memory "
+                             "run")
+    return counts["launches"]
+
+
+def write_apt_deck(ws, shape):
+    """(a2): (a1) as a deck: the mover deck of (m3) (MAW6, LAK6, SFR6,
+    MVR6, the MOVER options) with the recharge as an RCH6 list at the
+    plume's concentration, and the plume's GWT6 model with the APT
+    files."""
+    grid = flagship_grid(*shape)
+    _, records = coupling_movers(shape)
+    files = write_advanced_files(ws, advanced_features(
+        grid, flagship_kfield(*shape)), grid)
+    for name in ("m.maw", "m.lak", "m.sfr"):
+        text = open(os.path.join(ws, name)).read()
+        _write(ws, name, "BEGIN OPTIONS\n  MOVER\nEND OPTIONS\n" + text)
+    _write(ws, "m.mvr", "BEGIN DIMENSIONS\n  MAXMVR "
+           f"{len(records)}\n  MAXPACKAGES 4\nEND DIMENSIONS\n"
+           "BEGIN PACKAGES\n  WEL-1\n  MAW-1\n  LAK-1\n  SFR-1\n"
+           "END PACKAGES\nBEGIN PERIOD 1\n" + "\n".join(records)
+           + "\nEND PERIOD\n")
+    write_plume_deck(ws, shape, periods=APT_PERIODS,
+                     flow=dict(BENCH), acc="BICGSTAB",
+                     apt_files=apt_files(shape), wel_options="  MOVER\n",
+                     extra_packages=files + ["MVR6 m.mvr"])
+
+
+def run_uzt(device, shape):
+    """(a3) UZT on the coupling phase's UZF columns (one per top cell)
+    through ``Simulation``: an augmented flow model without features (the
+    reference's Simulation runs UZT on an AugmentedGwfModel), the plume's
+    GWT model with a row per column, the infiltration at 1.0."""
+    from modflow6_torch.models.gwf import uzf as uzf_mod
+    flow = AugmentedGwfModel(uzf_base(device, shape))
+    uzf = uzf_mod.make_uzf(uzf_columns(shape), device=device, **UZF_FLAGS)
+    base = plume_transport(device, flow.grid, shape)
+    base.ssm_spec = None
+    gwt = AugmentedGwtModel(base, flow, uzf=uzf)
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in APT_PERIODS)),
+                     flow, ImsSettings(**BENCH), gwt=gwt,
+                     gwt_settings=ImsSettings(**PLUME_TRANSPORT))
+    sim.uzf = uzf
+    sim.apt_ext_conc = {"uzf": 1.0}
+    recs, fl, tl = run_coupled("apt (a3) uzt", sim, device, (0.0, 1.0),
+                               PLUME_TRANSPORT["inner_rclose"])
+    print(f"apt (a3) uzt: columns={uzf.node.shape[0]} uzf_resolves="
+          f"{[r.uzf_resolves for r in recs]}")
+    return fl + tl
+
+
+def run_apt(device, shape=BENCH_SHAPE):
+    """The apt phase: (a1) the mover model with APT transport twice
+    (bitwise), (a2) its deck through the command-line entry, (a3) UZT on
+    the UZF columns.  Returns the stencil7 launches (none: no model here
+    has a grid shape)."""
+    t0 = time.perf_counter()
+    runs = [run_apt_memory(device, shape, f"run {i}", time_gather=i == 1)
+            for i in (1, 2)]
+    bitwise_runs("apt (a1)", runs[0][:2], runs[1][:2])
+    launches = runs[0][2] + runs[1][2]
+    del runs[1]
+    with tempfile.TemporaryDirectory() as ws:
+        write_apt_deck(ws, shape)
+        launches += run_deck_cli("apt (a2)", device, ws, runs[0][:2],
+                                 "t.ucn", "CONCENTRATION")
+    del runs
+    launches += run_uzt(device, shape)
+    print(f"apt phase in {time.perf_counter() - t0!r} s, "
+          f"stencil7_launches={launches}")
+    if launches:
+        raise AssertionError("the apt runs launched stencil7")
+    return launches
+
+
+def run_heat_memory(device, shape, label):
+    """(e1) once: the bench model and its heat transport through
+    ``Simulation`` over (t1)'s steps."""
+    flow = flagship(*shape, device)
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in PLUME_PERIODS)),
+                     flow, ImsSettings(**PLUME_FLOW),
+                     gwt=heat_transport(device, flow.grid, shape),
+                     gwt_settings=ImsSettings(**HEAT_TRANSPORT),
+                     conc_text="TEMPERATURE")
+    recs, fl, tl = run_coupled(f"gwe (e1) {label}", sim, device,
+                               (0.0, HEAT_CTP),
+                               HEAT_TRANSPORT["inner_rclose"])
+    return sim, recs, fl + tl
+
+
+def write_heat_deck(ws, shape):
+    """(e2): (e1) as a GWF6 + GWE6 deck: the recharge as an RCH6 list with
+    a TEMPERATURE column, ADV6 TVD, EST6, CND6 (XT3D_OFF), SSM6, CTP6,
+    ESL6, temperatures saved every step."""
+    write_coupled_flow(ws, shape, model="GWE6", tname="HEAT",
+                       aux="TEMPERATURE", value=HEAT_RCH,
+                       transport=HEAT_TRANSPORT)
+    _write(ws, "t.nam", "BEGIN PACKAGES\n" + "".join(
+        f"  {line}\n" for line in (
+            "DIS6 t.dis", "IC6 t.ic", "ADV6 t.adv", "EST6 t.est",
+            "CND6 t.cnd", "SSM6 t.ssm", "CTP6 t.ctp", "ESL6 t.esl",
+            "OC6 t.oc")) + "END PACKAGES\n")
+    _write(ws, "t.ic", f"BEGIN GRIDDATA\n  STRT\n    CONSTANT {HEAT_STRT!r}"
+           "\nEND GRIDDATA\n")
+    _write(ws, "t.adv", "BEGIN OPTIONS\n  SCHEME TVD\nEND OPTIONS\n")
+    e = HEAT_EST
+    _write(ws, "t.est", f"""BEGIN GRIDDATA
+  POROSITY
+    CONSTANT {e['porosity']!r}
+  DENSITY_SOLID
+    CONSTANT {e['rhos']!r}
+  HEAT_CAPACITY_SOLID
+    CONSTANT {e['cps']!r}
+END GRIDDATA
+""")
+    _write(ws, "t.cnd", "BEGIN OPTIONS\n  XT3D_OFF\nEND OPTIONS\n"
+           "BEGIN GRIDDATA\n" + "".join(
+               f"  {k.upper()}\n    CONSTANT {v!r}\n"
+               for k, v in HEAT_CND.items()) + "END GRIDDATA\n")
+    _write(ws, "t.ssm", "BEGIN SOURCES\n  RCH-1 AUX TEMPERATURE\n"
+           "END SOURCES\n")
+    ctp, esl = plume_layout(shape)
+    _block_file(ws, "t.ctp", shape, ctp, HEAT_CTP)
+    _block_file(ws, "t.esl", shape, esl, HEAT_ESL)
+    _write(ws, "t.oc", """BEGIN OPTIONS
+  TEMPERATURE FILEOUT t.ucn
+END OPTIONS
+BEGIN PERIOD 1
+  SAVE TEMPERATURE ALL
+END PERIOD
+""")
+
+
+def run_gwe(device, shape=BENCH_SHAPE):
+    """The gwe phase: (e1) heat on the bench model twice (bitwise), (e2)
+    its deck through the command-line entry, (e3) the mover model with a
+    GWE base (LKE, SFE, MWE rows) once, over (a1)'s first step.  Returns the stencil7 launches,
+    which must be some: (e1)'s flow keeps its grid shape."""
+    t0 = time.perf_counter()
+    runs = [run_heat_memory(device, shape, f"run {i}") for i in (1, 2)]
+    bitwise_runs("gwe (e1)", runs[0][:2], runs[1][:2])
+    launches = runs[0][2] + runs[1][2]
+    del runs[1]
+    with tempfile.TemporaryDirectory() as ws:
+        write_heat_deck(ws, shape)
+        launches += run_deck_cli("gwe (e2)", device, ws, runs[0][:2],
+                                 "t.ucn", "TEMPERATURE")
+    del runs
+    flow, gwe, ext = apt_models(device, shape, kind="gwe")
+    # (e3) takes (a1)'s first 5-d step (the phase's time limit)
+    sim = Simulation(Tdis((StressPeriod(5.0, 1, 1.0),)),
+                     flow, advanced_settings(), gwt=gwe,
+                     gwt_settings=ImsSettings(**HEAT_TRANSPORT),
+                     conc_text="TEMPERATURE")
+    sim.apt_ext_conc = ext
+    recs, fl, tl = run_coupled("gwe (e3) lke/sfe/mwe", sim, device,
+                               (0.0, HEAT_CTP),
+                               HEAT_TRANSPORT["inner_rclose"],
+                               time_gather=True)
+    del sim
+    print(f"gwe phase in {time.perf_counter() - t0!r} s, "
+          f"stencil7_launches={launches}")
+    if not launches:
+        raise AssertionError("the gwe runs launched no stencil7 kernel")
+    return launches
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -4745,7 +5326,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
           "unstructured", "properties", "advanced", "coupling", "utilities",
-          "transport")
+          "transport", "apt", "gwe")
 
 
 def main():
@@ -4799,6 +5380,7 @@ def main():
         check_small_general(device)
         check_small_coupling(device)
         check_small_transport(device)
+        check_small_apt(device)
     if "bench" in phases:
         launches["fused"], _, _, mixed_inners, _ = run_bench(device, "mixed")
         f64_launches, fused_head, kiters, inners, _ = run_bench(device, "f64")
@@ -4806,9 +5388,12 @@ def main():
     if "precond" in phases:
         measure_preconditioner_apply(device)
         jacobi_inner = {"f64": sum(inners), "mixed": sum(mixed_inners)}
+        # no warm-up runs here: their elapsed seconds are printed, not
+        # held to anything
         launches["preconditioned"] = sum(
             run_bench(device, precision, pc,
-                      jacobi=(fused_head, jacobi_inner[precision]))[0]
+                      jacobi=(fused_head, jacobi_inner[precision]),
+                      warmup=False)[0]
             for pc in ("chebyshev", "mg") for precision in ("mixed", "f64"))
     if "deck" in phases:
         launches["deck"] = run_deck_bench(device, fused_head,
@@ -4836,6 +5421,10 @@ def main():
         launches["utilities"] = run_utilities(device)
     if "transport" in phases:
         launches["transport"] = run_transport(device)
+    if "apt" in phases:
+        apt_launches = run_apt(device)
+    if "gwe" in phases:
+        launches["gwe"] = run_gwe(device)
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -4849,7 +5438,8 @@ def main():
         "name": "stencil7", "route": "cuda",
         "source": "modflow6_torch/csrc/stencil7.cu",
         "replaces": "modflow6_tpu/ops/pallas_stencil.py:29",
-        "launches": sum(launches.values()),
+        "launches": sum(launches.values()) + advanced_launches
+        + apt_launches,
         "launches_fused_path": launches["fused"],
         "launches_preconditioned_fused_path": launches["preconditioned"],
         "launches_deck_path": launches["deck"],
@@ -4860,6 +5450,8 @@ def main():
         "launches_coupling_path": launches["coupling"],
         "launches_utilities_path": launches["utilities"],
         "launches_transport_path": launches["transport"],
+        "launches_apt_path": apt_launches,
+        "launches_gwe_path": launches["gwe"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

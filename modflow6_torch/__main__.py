@@ -8,10 +8,10 @@ runs on the CUDA device unless ``--device cpu`` is given; without a CUDA
 device and without that flag the program fails.  A time step that does
 not converge ends the run with exit code 1, unless mfsim.nam sets
 CONTINUE: then the run goes on, reports the failures and ends normally, as
-the reference program does.  A transport (GWT) step that does not converge
-is reported in the listing (``*** GWT NONCONVERGENCE kper= kstp= ***``)
-and counted on standard error; as in the reference, it does not end the
-run.  The reference's ``-l/--level`` profiling flag is not ported.
+the reference program does.  A transport (GWT or GWE) step that does not
+converge is reported in the listing (``*** GWT NONCONVERGENCE kper= kstp=
+***``, GWE for a heat model) and counted on standard error; as in the
+reference, it does not end the run.  The reference's ``-l/--level`` profiling flag is not ported.
 """
 
 from __future__ import annotations

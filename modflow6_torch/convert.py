@@ -60,7 +60,13 @@ arrays), ``ist_{field}`` (``IstData``'s) with ``cim``, and ``cnc_node``,
 ``cnc_conc``, ``cnc_mask``, ``src_node``, ``src_q``, ``src_mask``.  Its
 ``options``: ``iadvwt``, ``eqnsclfac``, ``idcy``, ``isrb``, ``ssm_spec``
 (package name → concentration) and, with DSP or IST, ``dsp`` ({idisp,
-idiffc}) and ``ist`` ({idcy, isrb}).
+idiffc}) and ``ist`` ({idcy, isrb}).  ``gwe_from_reference`` does the same
+for a reference GweModel: the same cell and topology keys, ``est_{field}``
+for the fields of ``EstArrays``, optional ``cnd_{field}`` (``CndData``'s
+arrays) and ``ctp_node``, ``ctp_conc``, ``ctp_mask``, ``esl_node``,
+``esl_q``, ``esl_mask``; its ``options``: ``iadvwt``, ``ssm_spec``, ``est``
+(the fields of ``EstOptions``) and, with CND, ``cnd`` ({idisp, iktw,
+ikts}).
 
 ``npf_options`` and ``sto_options`` hold the fields of the reference's
 ``NpfOptions`` and ``StoOptions`` (``inewton`` and ``satomega`` among
@@ -92,7 +98,10 @@ from .models.gwf.buy import make_buy
 from .models.gwf.vsc import make_vsc
 from .models.gwf.model import GwfModel, PackageData
 from .models.gwt import dsp as dsp_mod, ist as ist_mod, mst as mst_mod
+from .models.gwt.apt import AugmentedGwtModel
 from .models.gwt.model import CncData, GwtModel, SrcData
+from .models.gwe import cnd as cnd_mod, est as est_mod
+from .models.gwe.model import GweModel
 from .models.simulation import Simulation
 from .solution.ims import ImsSettings
 from .timing.tdis import StressPeriod, Tdis
@@ -287,6 +296,44 @@ def gwt_from_reference(arrays: dict, *, options: dict, device=None,
         bot=f64(arrays["bot"]), area=f64(arrays["area"]), **extra)
 
 
+def gwe_from_reference(arrays: dict, *, options: dict, device=None,
+                       name: str = "converted", grid=None) -> GweModel:
+    """The port's GweModel from a reference GweModel's arrays (see the
+    module docstring); ``grid``, when given, is the host grid of the
+    output files and of the host topology."""
+    device = resolve_device(device)
+
+    def f64(value):
+        return torch.tensor(np.asarray(value), dtype=torch.float64,
+                            device=device)
+
+    dtopo = dataclasses.replace(npf.DeviceTopology.from_host(
+        {key: arrays[key] for key in _TOPOLOGY}, device), grid_shape=None)
+    extra = {}
+    if options.get("cnd") is not None:
+        extra["cnd"] = cnd_mod.CndData(
+            **{key: f64(value) for key, value in
+               _prefixed(arrays, "cnd_").items()}, **options["cnd"])
+    for pkg, cls in (("ctp", CncData), ("esl", SrcData)):
+        if f"{pkg}_node" in arrays:
+            extra[pkg] = _package(cls, _prefixed(arrays, pkg + "_"), device)
+    topo = None
+    if grid is not None:
+        topo = (grid.build_edge_topology() if isinstance(grid, DisGrid)
+                else grid.build_topology())
+    return GweModel(
+        name=name, grid=grid, topo=topo, dtopo=dtopo, strt=f64(arrays["strt"]),
+        ibound0=torch.tensor(np.asarray(arrays["ibound0"]),
+                             dtype=torch.int32, device=device),
+        est_opts=est_mod.EstOptions(**options["est"]),
+        est_arrays=est_mod.EstArrays(**{
+            key: f64(value) for key, value in
+            _prefixed(arrays, "est_").items()}),
+        iadvwt=int(options["iadvwt"]), ssm_spec=options.get("ssm_spec"),
+        top=f64(arrays["top"]), bot=f64(arrays["bot"]),
+        area=f64(arrays["area"]), **extra)
+
+
 def _host(value):
     if isinstance(value, torch.Tensor):
         return value.cpu().numpy()
@@ -398,9 +445,14 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
     - optional ``tvk``, ``tvs``: {kper: [(node, PROP, value)]};
     - optional ``uzf``: ``uzf_state`` of the reference's UZF columns;
     - optional ``gwt``: the transport model, {``name``, ``arrays``,
-      ``options`` (as ``gwt_from_reference`` takes them), ``settings``
-      (the fields of its ``ImsSettings``, or None), ``oc``, ``conc_path``,
-      ``sgp_mxiter``}, on the flow model's grid.
+      ``options`` (as ``gwt_from_reference`` takes them, or
+      ``gwe_from_reference`` with ``kind`` "gwe"), ``settings`` (the fields
+      of its ``ImsSettings``, or None), ``oc``, ``conc_path``,
+      ``conc_text``, ``sgp_mxiter``}, on the flow model's grid, and with
+      APT rows ``apt``: {``strt_extra`` (the features' starting
+      concentrations), ``ext_conc`` (feature package → the sources'
+      concentrations), ``uzt`` (rows for the UZF columns)} over the
+      augmented flow model.
     """
     device = resolve_device(device)
     grid = _GRIDS[state.get("grid_class", "dis")].create(**state["grid"])
@@ -413,27 +465,42 @@ def simulation_from_reference(state: dict, *, device=None, hds_path=None,
     oc = None if state["oc"] is None else OutputControl(state["oc"])
     gwt_kwargs = {}
     t = state.get("gwt")
+    uzf = None
+    if state.get("uzf") is not None:
+        u = state["uzf"]
+        uzf = make_uzf(u["columns"], device=device, **u["flags"])
     if t is not None:
+        convert = (gwe_from_reference if t.get("kind") == "gwe"
+                   else gwt_from_reference)
+        gwt = convert(t["arrays"], options=t["options"], device=device,
+                      name=t["name"], grid=grid)
+        apt = t.get("apt")
+        if apt is not None:
+            gwt = AugmentedGwtModel(gwt, model,
+                                    uzf=uzf if apt.get("uzt") else None)
+            gwt.strt_extra = torch.tensor(np.asarray(apt["strt_extra"]),
+                                          dtype=torch.float64, device=device)
         gwt_kwargs = dict(
-            gwt=gwt_from_reference(t["arrays"], options=t["options"],
-                                   device=device, name=t["name"],
-                                   grid=grid),
-            gwt_settings=None if t["settings"] is None
+            gwt=gwt, gwt_settings=None if t["settings"] is None
             else ImsSettings(**t["settings"]),
             gwt_oc=None if t["oc"] is None else OutputControl(t["oc"]),
-            conc_path=t.get("conc_path"))
+            conc_path=t.get("conc_path"),
+            conc_text=t.get("conc_text", "CONCENTRATION"))
     sim = Simulation(tdis, model, ImsSettings(**state["settings"]),
                      transient=list(state["transient"]), hds_path=hds_path,
                      cbc_path=cbc_path, lst_path=lst_path, oc=oc,
                      **gwt_kwargs)
     if t is not None:
         sim.sgp_mxiter = int(t.get("sgp_mxiter", 1))
+        if t.get("apt") is not None:
+            sim.apt_ext_conc = {
+                kind: torch.tensor(np.asarray(value), dtype=torch.float64,
+                                   device=device)
+                for kind, value in t["apt"]["ext_conc"].items()}
     sim.fail_fast = bool(state["fail_fast"])
     sim.tvk = dict(state.get("tvk") or {})
     sim.tvs = dict(state.get("tvs") or {})
-    if state.get("uzf") is not None:
-        u = state["uzf"]
-        sim.uzf = make_uzf(u["columns"], device=device, **u["flags"])
+    sim.uzf = uzf
     for kper, pkgs in state["period_data"].items():
         sim.period_data[int(kper)] = PackageData(**{
             pkg: _package(_BOUNDS[pkg], dict(zip(

@@ -758,9 +758,11 @@ class SfrData:
         starts as the outflow less what the movers take (``qto``), then
         each diversion on a reach consumes from what the ones before it
         left, in declared order (sfr_calc_div).  Returns (qd[R], div_in[R],
-        the inflow delivered to the diversions' receivers)."""
+        the inflow delivered to the diversions' receivers, div_q[D], the
+        flow of each diversion)."""
         qd = q.clone() if qto is None else torch.clamp(q - qto, min=0.0)
         div_in = torch.zeros_like(q)
+        div_q = []
         for i, (s, t, rule) in enumerate(zip(self.div_src, self.div_to,
                                              self.div_rule)):
             v = self.divflow[i]
@@ -775,7 +777,9 @@ class SfrData:
                 vq = torch.minimum(v, qs)
             qd[s] -= vq
             div_in[t] += vq
-        return qd, div_in
+            div_q.append(vq)
+        return qd, div_in, (torch.stack(div_q) if div_q
+                            else q.new_zeros(0))
 
     def available(self, x, N):
         """The downstream outflow of each reach at the current iterate."""
@@ -811,7 +815,7 @@ class SfrData:
         diag[rrow] += -dq * act
         rhs[rrow] += (q - dq * stage) * act
         # upstream inflows Σ_u frac·Qout_u(s_u) at the current iterate
-        q_route, div_in = self.routing(q, qto)
+        q_route, div_in, _ = self.routing(q, qto)
         q_up = q_route[self.upstream] * self.frac
         rhs[rrow] += -q_up.sum(dim=1) * act
         # the upstream coupling in the Jacobian: reach r gains

@@ -68,36 +68,15 @@ class SrcData(_Entries):
     mask: torch.Tensor   # bool[B]
 
 
-@dataclasses.dataclass
-class GwtModel:
-    """Transport model container (the role of GwfModel for GWF)."""
+class TransportModel:
+    """What GwtModel and GWE's GweModel share: the device, the edge-list
+    topology without a grid shape, the constant-value cells (CNC, CTP),
+    SSM's terms with their sum plan, and the flow fields of the step."""
 
-    name: str
-    grid: object
-    topo: object                  # host Topology (edge order, ELL slots)
-    dtopo: npf_mod.DeviceTopology  # on the device, without a grid shape
-    strt: torch.Tensor            # f64[N] initial concentration
-    ibound0: torch.Tensor         # i32[N]
-    mst_opts: mst_mod.MstOptions
-    mst_arrays: mst_mod.MstArrays
-    iadvwt: int = adv_mod.UPSTREAM
-    eqnsclfac: float = 1.0
-    dsp: Optional[dsp_mod.DspData] = None
-    cnc: Optional[CncData] = None
-    src: Optional[SrcData] = None
-    ssm_on: bool = True                 # SSM on the GWF boundary flows
-    ssm_spec: Optional[dict] = None     # package name → source conc
-    ist: Optional[ist_mod.IstData] = None   # immobile domain
-    cim: Optional[torch.Tensor] = None  # immobile conc, advanced per step
-    top: torch.Tensor = None
-    bot: torch.Tensor = None
-    area: torch.Tensor = None
-    inewton: int = 0
-
-    def __post_init__(self):
+    def _init_transport(self):
         if self.dtopo.grid_shape is not None:
-            raise ValueError("a GWT model multiplies through its ELL table: "
-                             "its DeviceTopology has no grid shape")
+            raise ValueError("a transport model multiplies through its ELL "
+                             "table: its DeviceTopology has no grid shape")
         self._fields = None
         self._ssm_plan = None
         # FMI's concatenated entry layout (fmi._layout)
@@ -123,6 +102,81 @@ class GwtModel:
     def packages(self):
         return None
 
+    def set_flows(self, fields: FlowFields):
+        self._fields = fields
+
+    def _constant(self, data: Optional[CncData], conc):
+        """The cells of ``data`` (CNC or CTP) constant (ibound −1) at their
+        value: of several entries on one cell the last one wins."""
+        ibound = self.ibound0
+        if data is None:
+            return ibound, conc
+        win = data.winners
+        node = data.node[win]
+        ibound = ibound.clone()
+        ibound[node] = -1
+        conc = conc.clone()
+        conc[node] = data.conc[win]
+        return ibound, conc
+
+    def _ssm_sums(self, fields):
+        """The plan of SSM's sums into the entries' cells, in entry order;
+        one per entry layout (the flow fields of one layout share their
+        ``bound_node`` tensor)."""
+        if self._ssm_plan is None or self._ssm_plan[0] is not \
+                fields.bound_node:
+            self._ssm_plan = (fields.bound_node, AddPlan.build(
+                fields.bound_node, fields.bound_node.device, self.nodes))
+        return self._ssm_plan[1]
+
+    def _ssm(self, fields, ibound, diag, rhs):
+        """SSM (tsp-ssm.f90 ssm_fc): an inflow brings mass or energy at the
+        source value (rhs), an outflow leaves at the cell's (diagonal)."""
+        q = fields.bound_q * self.eqnsclfac
+        node = fields.bound_node
+        act = fields.bound_mask & (ibound[node] > 0)
+        inflow = q >= DZERO
+        plan = self._ssm_sums(fields)
+        rhs = plan.add(rhs, torch.where(act & inflow,
+                                        -q * fields.bound_conc, DZERO))
+        diag = plan.add(diag, torch.where(act & ~inflow, q, DZERO))
+        return diag, rhs
+
+    def edge_conductances(self, conc, ibound, pkgs=None):
+        """No conductance of the output phase: a transport step writes no
+        face flows (the reference returns a zero placeholder)."""
+        return None
+
+
+@dataclasses.dataclass
+class GwtModel(TransportModel):
+    """Transport model container (the role of GwfModel for GWF)."""
+
+    name: str
+    grid: object
+    topo: object                  # host Topology (edge order, ELL slots)
+    dtopo: npf_mod.DeviceTopology  # on the device, without a grid shape
+    strt: torch.Tensor            # f64[N] initial concentration
+    ibound0: torch.Tensor         # i32[N]
+    mst_opts: mst_mod.MstOptions
+    mst_arrays: mst_mod.MstArrays
+    iadvwt: int = adv_mod.UPSTREAM
+    eqnsclfac: float = 1.0
+    dsp: Optional[dsp_mod.DspData] = None
+    cnc: Optional[CncData] = None
+    src: Optional[SrcData] = None
+    ssm_on: bool = True                 # SSM on the GWF boundary flows
+    ssm_spec: Optional[dict] = None     # package name → source conc
+    ist: Optional[ist_mod.IstData] = None   # immobile domain
+    cim: Optional[torch.Tensor] = None  # immobile conc, advanced per step
+    top: torch.Tensor = None
+    bot: torch.Tensor = None
+    area: torch.Tensor = None
+    inewton: int = 0
+
+    def __post_init__(self):
+        self._init_transport()
+
     @property
     def is_linear(self) -> bool:
         """True when the assembled system does not depend on the
@@ -137,29 +191,7 @@ class GwtModel:
     def boundary_state(self, conc, pkgs=None):
         """CNC: its cells constant-concentration (ibound −1) at their
         concentration."""
-        ibound = self.ibound0
-        if self.cnc is None:
-            return ibound, conc
-        win = self.cnc.winners
-        node = self.cnc.node[win]
-        ibound = ibound.clone()
-        ibound[node] = -1
-        conc = conc.clone()
-        conc[node] = self.cnc.conc[win]
-        return ibound, conc
-
-    def set_flows(self, fields: FlowFields):
-        self._fields = fields
-
-    def _ssm_sums(self, fields):
-        """The plan of SSM's sums into the entries' cells, in entry order;
-        one per entry layout (the flow fields of one layout share their
-        ``bound_node`` tensor)."""
-        if self._ssm_plan is None or self._ssm_plan[0] is not \
-                fields.bound_node:
-            self._ssm_plan = (fields.bound_node, AddPlan.build(
-                fields.bound_node, fields.bound_node.device, self.nodes))
-        return self._ssm_plan[1]
+        return self._constant(self.cnc, conc)
 
     def assemble(self, conc, conc_old, ibound, delt, iss: bool, pkgs=None):
         """The transport system at the concentration iterate → (diag[N],
@@ -219,17 +251,9 @@ class GwtModel:
             diag = diag + hcof
             rhs = rhs + r
 
-        # SSM (tsp-ssm.f90 ssm_fc): an inflow brings mass at the source
-        # concentration (rhs), an outflow leaves at the cell's (diagonal)
+        # SSM
         if self.ssm_on:
-            q = fields.bound_q * self.eqnsclfac
-            node = fields.bound_node
-            act = fields.bound_mask & (ibound[node] > 0)
-            inflow = q >= DZERO
-            plan = self._ssm_sums(fields)
-            rhs = plan.add(rhs, torch.where(act & inflow,
-                                            -q * fields.bound_conc, DZERO))
-            diag = plan.add(diag, torch.where(act & ~inflow, q, DZERO))
+            diag, rhs = self._ssm(fields, ibound, diag, rhs)
 
         # IST: the immobile-domain transfer (gwt-ist.f90 ist_fc) at the
         # step-start immobile concentration the flow fields carry
@@ -247,8 +271,3 @@ class GwtModel:
                 act, -src.q * self.eqnsclfac, DZERO))
 
         return diag, off, rhs
-
-    def edge_conductances(self, conc, ibound, pkgs=None):
-        """No conductance of the output phase: a transport step writes no
-        face flows (the reference returns a zero placeholder)."""
-        return None

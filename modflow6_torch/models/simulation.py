@@ -37,6 +37,16 @@ transport solve from the step-start concentration: R9 in ROADMAP Queue
 C).  ``ats_percel`` limits an adaptive step to the transport's Courant
 step (ADV ATS_PERCEL).  Without transport BUY and VSC see a concentration
 only where ``period_data`` sets ``buy_conc``, as in the reference.
+The transport model may be a GWE model (``gwe.model.GweModel``: heat,
+its file a TEMPERATURE file) or carry APT rows
+(``gwt.apt.AugmentedGwtModel`` over the augmented flow model: LKT, SFT,
+MWT, UZT and MVT, or their GWE analogs): then FMI runs on the grid rows of
+the base flow model, ``extract_apt_flows`` adds the features' flows (the
+UZF march the step accepted feeds the UZT rows before its state is
+committed), the sources' concentrations come from ``apt_ext_conc``, and
+the concentration file holds the grid rows.  As in the reference, the
+solution group's MXITER does not iterate a model with APT rows: with BUY
+or VSC beside them it raises.
 
 The output phase works on the model's device.  Face flows, their per-cell
 sums (the CHD flows) and the storage rates are computed there from the
@@ -68,8 +78,9 @@ from .gwf import csub as csub_mod
 from .gwf import uzf as uzf_mod
 from .gwt import adv as adv_mod
 from .gwt import ist as ist_mod
+from .gwt.apt import AugmentedGwtModel, extract_apt_flows
 from .gwt.builder import DEFAULT_GWT_SETTINGS
-from .gwt.fmi import FlowFields, from_gwf_step, storage_rates
+from .gwt.fmi import from_gwf_step, storage_rates
 
 
 class ConvergenceFailure(RuntimeError):
@@ -94,16 +105,18 @@ class StepRecord:
     transport_outer: int = 0        # the step's transport solve
     transport_inner: int = 0
     fmi_seconds: float = 0.0        # the transport's flow fields
+    apt_seconds: float = 0.0        # APT's feature flows
     transport_seconds: float = 0.0  # the committed transport solve
     group_iterations: int = 1       # solution-group passes (sgp_mxiter)
 
 
 class _Transport(NamedTuple):
     """A transport solve of one time step, before it is committed."""
-    fields: FlowFields
+    fields: object          # FlowFields, or AptFlows with APT rows
     conc: torch.Tensor
     info: object
     fmi_seconds: float
+    apt_seconds: float      # extract_apt_flows
     solve_seconds: float
     passes: int
 
@@ -129,11 +142,18 @@ class Simulation:
         self.conc_records: list = []
         self.gwt_solution = None
         self.conc_hds = None
+        # APT: the source concentrations of the features' external
+        # inflows, {"maw"|"lak"|"sfr"|"uzf": scalar or per feature}
+        self.apt_ext_conc: dict = {}
         if gwt is not None:
-            if hasattr(model, "n_extra"):
+            apt_rows = isinstance(gwt, AugmentedGwtModel)
+            if hasattr(model, "n_extra") and not apt_rows:
                 raise NotImplementedError(
                     "GWT over a flow model with MAW, LAK, SFR or MVR rows "
-                    "(their transport is APT: LKT, SFT, MWT, MVT)")
+                    "without their transport (an AugmentedGwtModel: LKT, "
+                    "SFT, MWT, MVT)")
+            if apt_rows and gwt.gwf is not model:
+                raise ValueError("the APT rows belong to another flow model")
             self.gwt_solution = NumericalSolution(
                 gwt, gwt_settings or ImsSettings(**DEFAULT_GWT_SETTINGS))
             self.conc = gwt.strt
@@ -258,12 +278,20 @@ class Simulation:
         if self.model.csub is not None:
             pkgs = dataclasses.replace(pkgs, csub_state=self.csub_state)
         if self.conc is not None and self._density_coupled:
-            pkgs = dataclasses.replace(pkgs, buy_conc=self.conc)
+            pkgs = dataclasses.replace(
+                pkgs, buy_conc=self.conc[:self.model.n_grid]
+                if self._apt else self.conc)
         return pkgs
 
     @property
+    def _apt(self) -> bool:
+        """True when the transport model has APT rows."""
+        return isinstance(self.gwt, AugmentedGwtModel)
+
+    @property
     def _density_coupled(self) -> bool:
-        return self.model.buy is not None or self.model.vsc is not None
+        flow = getattr(self.model, "base", self.model)
+        return flow.buy is not None or flow.vsc is not None
 
     def _augment_uzf(self, pkgs, delt, head):
         """March the UZF columns from the committed state at ``head``
@@ -342,10 +370,13 @@ class Simulation:
             solved = self.solve_step(head_old, kper, kstp, delt)
         head, info, aux = solved
         ibound, cond = aux["ibound"], aux["cond"]
+        uzf_step = None
         if self._uzf_pending is not None:
             # commit the column state the accepted solve used; its
-            # packages (with the UZF terms) serve the budget and outputs
+            # packages (with the UZF terms) serve the budget and outputs,
+            # the march and its step-start state the UZT rows
             res, pkgs = self._uzf_pending
+            uzf_step = (res, self.uzf_theta)
             self.uzf_theta, self.uzf_watab = res.theta, res.watab
             self._uzf_pending = None
         transport = None
@@ -424,7 +455,8 @@ class Simulation:
         if self.gwt is not None:
             if transport is None:
                 transport = self._solve_transport(head, head_old, aux, pkgs,
-                                                  kstp, delt, iss)
+                                                  kstp, delt, iss,
+                                                  uzf_step=uzf_step)
             self._commit_transport(rec, transport, aux["ibound"], kper, kstp,
                                    delt)
 
@@ -459,9 +491,11 @@ class Simulation:
                 self.gwt_oc.active("SAVE", self.conc_text, kper, kstp, nstp)
                 if self.gwt_oc is not None and self.gwt_oc.periods
                 else True):
+            # the grid rows (APT's feature rows follow them)
             self.conc_hds.write_step(
                 kstp, kper, pertim, totim,
-                self.conc_records[-1].reshape(_shape3d(self.gwt.grid)))
+                self.conc_records[-1][:self.gwt.grid.nodes].reshape(
+                    _shape3d(self.gwt.grid)))
         rec.solve_seconds = t1 - t0
         rec.output_seconds = time.perf_counter() - t1
         if not info.converged:
@@ -479,24 +513,50 @@ class Simulation:
         return head
 
     def _solve_transport(self, head, head_old, aux, pkgs, kstp, delt, iss,
-                         passes=1):
+                         passes=1, uzf_step=None):
         """FMI's fields of a flow solution (with IST's step-start immobile
         concentration) and the transport solved on them from the
-        step-start concentration; commits nothing."""
+        step-start concentration; commits nothing.  With APT rows, FMI
+        runs on the grid rows of the base flow model and
+        ``extract_apt_flows`` adds the features' flows (with UZT rows, from
+        ``uzf_step``: the step's march and its step-start water content)."""
         gwt = self.gwt
         t0 = time.perf_counter()
-        fields = from_gwf_step(self.model, head, head_old, aux["ibound"],
-                               aux["cond"], delt, iss, pkgs=pkgs,
-                               ssm_spec=gwt.ssm_spec, gwt=gwt)
-        if gwt.ist is not None:
-            fields = dataclasses.replace(fields, cim=gwt.cim)
-        gwt.set_flows(fields)
+        apt_s = 0.0
+        if self._apt:
+            if gwt.gwf is not self.model:
+                raise NotImplementedError(
+                    "APT rows over a flow model rebuilt at a later period "
+                    "(the reference's transport keeps the first period's "
+                    "features)")
+            N = gwt.n_grid
+            fields = from_gwf_step(self.model.base, head[:N], head_old[:N],
+                                   aux["ibound"][:N], None, delt, iss,
+                                   pkgs=pkgs, ssm_spec=gwt.base.ssm_spec,
+                                   gwt=gwt.base)
+            self._sync()
+            t_apt = time.perf_counter()
+            res, theta_old = uzf_step if uzf_step is not None \
+                else (None, None)
+            fields = extract_apt_flows(
+                gwt, head, head_old, fields, delt, iss, pkgs=pkgs,
+                ext_conc=self.apt_ext_conc, uzf_res=res,
+                uzf_theta_old=theta_old)
+            self._sync()
+            apt_s = time.perf_counter() - t_apt
+        else:
+            fields = from_gwf_step(self.model, head, head_old,
+                                   aux["ibound"], aux["cond"], delt, iss,
+                                   pkgs=pkgs, ssm_spec=gwt.ssm_spec, gwt=gwt)
+            if gwt.ist is not None:
+                fields = dataclasses.replace(fields, cim=gwt.cim)
+            gwt.set_flows(fields)
         self._sync()
         t1 = time.perf_counter()
         conc, info, _ = self.gwt_solution.solve_timestep(
             self.conc, delt, kstp=kstp, iss=False, pkgs=fields)
         self._sync()
-        return _Transport(fields, conc, info, t1 - t0,
+        return _Transport(fields, conc, info, t1 - t0 - apt_s, apt_s,
                           time.perf_counter() - t1, passes)
 
     def _group_picard(self, head, info, aux, head_old, pkgs, kstp, delt,
@@ -534,14 +594,16 @@ class Simulation:
         self.conc = conc
         self.conc_records.append(conc.cpu().numpy())
         rec.fmi_seconds = transport.fmi_seconds
+        rec.apt_seconds = transport.apt_seconds
         rec.transport_seconds = transport.solve_seconds
         rec.transport_converged = info.converged
         rec.transport_outer = info.outer_iterations
         rec.transport_inner = info.inner_iterations
         rec.group_iterations = transport.passes
         if not info.converged:
+            kind = "GWE" if self.conc_text == "TEMPERATURE" else "GWT"
             self._lst_lines.append(
-                f"*** GWT NONCONVERGENCE kper={kper} kstp={kstp} ***")
+                f"*** {kind} NONCONVERGENCE kper={kper} kstp={kstp} ***")
 
     def _write_grb(self):
         """Write the binary grid file beside the heads output (the
@@ -613,9 +675,18 @@ class Simulation:
         """Time loop.  Periods listed in ``self.ats`` step adaptively
         (``_adaptive_period``); the others walk the fixed TDIS
         subdivision."""
-        if self.gwt is not None and self.uzf is not None:
+        uzt = getattr(self.gwt, "uzf", None) is not None
+        if self.gwt is not None and self.uzf is not None and not uzt:
             raise NotImplementedError(
-                "GWT beside UZF (the unsaturated zone's transport is UZT)")
+                "GWT beside UZF without UZT rows (the reference's FMI drops "
+                "the UZF flows)")
+        if uzt and self.uzf is None:
+            raise ValueError("UZT rows need the flow model's UZF columns "
+                             "(Simulation.uzf)")
+        if self._apt and self.sgp_mxiter > 1 and self._density_coupled:
+            raise NotImplementedError(
+                "MXITER > 1 with BUY or VSC and APT rows (the reference's "
+                "solution group runs such a model once a step)")
         head = self.model.strt
         t0 = time.perf_counter()
         self._write_grb()
@@ -651,6 +722,10 @@ class Simulation:
         delt = ats_mod.initial_delt(a)
         pertim, kstp = 0.0, 0
         while pertim < period.perlen - 1e-12:
+            if self.gwt is not None and self.ats_percel \
+                    and not hasattr(self.gwt, "mst_arrays"):
+                raise NotImplementedError(
+                    "ATS_PERCEL with a GWE model or APT rows")
             if self.gwt is not None and self.ats_percel \
                     and self.gwt._fields is not None:
                 # the transport's Courant step on the last flow fields

@@ -1,9 +1,11 @@
 """Deck loading of the advanced stress packages MAW6, LAK6 (with its TAB6
-tables), SFR6 and UZF6 of a GWF name file, and of the MVR6 movers of a
-model or of a GWF6-GWF6 exchange.
+tables), SFR6 and UZF6 of a GWF name file, of the MVR6 movers of a model
+or of a GWF6-GWF6 exchange, and of the advanced transport files
+(LKT6/SFT6/MWT6/UZT6 of a GWT name file, LKE6/SFE6/MWE6/UZE6 of a GWE
+one).
 
 A numpy copy of modflow6_tpu/utils/mf6io/advanced_loader.py
-(``_period_blocks``, ``_only_first_period``, ``load_maw``/
+(``_period_blocks``, ``_only_first_period``, ``load_apt``, ``load_maw``/
 ``apply_maw_period``, ``load_lak``/``apply_lak_period``, ``load_sfr``/
 ``apply_sfr_period``, ``load_uzf``/``apply_uzf_period``,
 ``parse_mvr_period``, ``load_mvr``, ``load_exchange_mvr``): the
@@ -392,6 +394,83 @@ def apply_uzf_period(cols, lines, path=""):
         rows = np.searchsorted(cols["iuzno"], record_column(sub, 0, path, int) - 1)
         for k, name in enumerate(("finf", "pet", "extdp", "extwc")[:w - 1]):
             cols[name][rows] = record_column(sub, k + 1, path)
+
+
+# ------------------------------------------------------------------- APT
+
+# the PERIOD settings that give a feature's external inflow its source
+# concentration (or temperature); the reference folds them into one value
+_APT_SOURCES = ("RAINFALL", "RUNOFF", "INFLOW", "EXT-INFLOW")
+# options of the APT files that change the results and are not ported
+_APT_UNPORTED = ("TS6", "OBS6", "FLOW_PACKAGE_AUXILIARY_NAME")
+
+
+def load_apt(path, component):
+    """An APT transport file (gwt-lkt/sft/mwt/uzt and the GWE analogs
+    gwe-lke/sfe/mwe/uze) → dict(strt=[per feature], ext_conc=[per
+    feature]) (the reference's ``load_apt``).
+
+    PACKAGEDATA gives each feature its starting concentration; the PERIOD
+    1 block's RAINFALL, RUNOFF, INFLOW and EXT-INFLOW settings give the
+    source concentration of its external inflows.  The augmented model
+    carries one source concentration per feature, where the reference
+    program tracks each source apart; the reference's loader lets the
+    last setting win, so a feature whose settings differ raises here.
+    STATUS ACTIVE is read past; another STATUS, and CONCENTRATION or
+    TEMPERATURE (the value of a CONSTANT feature, which the reference runs
+    as a source concentration), raise by name, as does a nonzero KTF of a
+    GWE file (the feature–aquifer conduction, which the reference reads
+    past).  Later PERIOD blocks raise, as in the reference."""
+    src = f"{path} ({component.split('-')[1].upper()}6)"
+    bf = BlockFile(path)
+    opts = bf.options()
+    schema.check_options(component, opts, path)
+    for key in _APT_UNPORTED:
+        if key in opts:
+            raise NotImplementedError(f"{src}: option {key} is not ported")
+    strt = {}
+    for toks in bf.get("PACKAGEDATA").lines:
+        strt[int(toks[0]) - 1] = float(toks[1])
+        if component.startswith("gwe-") and len(toks) > 2 \
+                and component != "gwe-uze" and float(toks[2]) != 0.0:
+            raise NotImplementedError(
+                f"{src}: PACKAGEDATA KTF {toks[2]} (the feature-aquifer "
+                "conduction, which the reference reads past)")
+    n = max(strt) + 1 if strt else 0
+    ext = np.zeros(n)
+    given = {}
+    lines = _only_first_period(_period_blocks(bf), src)
+    schema.check_block_keywords(component, "period",
+                                [t[1] for t in lines if len(t) > 1], path)
+    for toks in lines:
+        f = int(toks[0]) - 1
+        key = toks[1].upper()
+        if not 0 <= f < n:
+            raise ValueError(f"{src}: PERIOD names feature {f + 1}, which "
+                             "PACKAGEDATA does not list")
+        if key in _APT_SOURCES:
+            value = float(toks[2])
+            if f in given and given[f][1] != value:
+                raise NotImplementedError(
+                    f"{src}: feature {f + 1} has the source values "
+                    f"{given[f][0]} {given[f][1]} and {key} {value} (one "
+                    "source concentration per feature is ported; the "
+                    "reference keeps the last)")
+            given[f] = (key, value)
+            ext[f] = value
+        elif key == "STATUS":
+            if toks[2].upper() != "ACTIVE":
+                raise NotImplementedError(
+                    f"{src}: STATUS {toks[2].upper()} (the reference "
+                    "reads past it)")
+        elif key in ("CONCENTRATION", "TEMPERATURE"):
+            raise NotImplementedError(
+                f"{src}: period setting {key} (a CONSTANT feature's value, "
+                "which the reference runs as a source concentration)")
+        else:
+            raise NotImplementedError(f"{src}: period setting {key}")
+    return dict(strt=np.asarray([strt.get(i, 0.0) for i in range(n)]),
+                ext_conc=ext)
 
 
 # ------------------------------------------------------------------- MVR

@@ -5,10 +5,11 @@ GWF slices need (reference IDM load + SimulationCreate,
 src/Utilities/Idm/IdmLoad.f90, src/SimulationCreate.f90:200-729):
 ``load_tdis``, ``load_ims``, ``load_dis``, ``load_disv``, ``load_disu``,
 ``load_oc``, the list-package reader, ``load_exchange_gwfgwf``, the GWF
-and GWT model loaders and ``load_simulation`` for one GWF6 model, or
+GWT and GWE model loaders and ``load_simulation`` for one GWF6 model, or
 several joined by GWF6-GWF6 exchanges (merged into one model, with the
-exchanges' MVR6 movers), or one GWF6 model and one GWT6 model joined by a
-GWF6-GWT6 exchange (whose file, as in the reference, is not read), each
+exchanges' MVR6 movers), or one GWF6 model and one GWT6 or GWE6 model
+joined by a GWF6-GWT6 or GWF6-GWE6 exchange (whose file, as in the
+reference, is not read), each
 with the IMS that its solution group names it in and the group's MXITER,
 on DIS, DISV or DISU grids, with the
 packages DIS6/DISV6/DISU6, IC6, NPF6, STO6, CHD6, WEL6, DRN6, RIV6, GHB6,
@@ -34,7 +35,15 @@ order 4 with a warning).  A GWT6 model reads DIS6/DISV6/DISU6, IC6,
 ADV6 (SCHEME), DSP6 (with XT3D_OFF), MST6 (decay, and linear, Freundlich
 or Langmuir sorption: R10 in ROADMAP Queue C), SSM6 (AUX sources, from
 the flow list package's period-1 auxiliary column), CNC6 and SRC6 (period
-1) and OC6 (its CONCENTRATION file).
+1), OC6 (its CONCENTRATION file) and the APT files LKT6, SFT6, MWT6 and
+UZT6 (``advanced_loader.load_apt``: the features' starting concentrations
+and one source concentration each; an ``AugmentedGwtModel`` over the
+augmented flow model, the UZT rows over its UZF columns); MVT6 needs no
+input (the flow model's movers carry mass into the features' rows, and
+the reference has no branch for it).  A GWE6 model reads DIS6/DISV6/DISU6,
+IC6, ADV6, EST6 (with ZERO_ORDER_DECAY_WATER/SOLID), CND6 (with XT3D_OFF),
+SSM6, CTP6 and ESL6 (period 1), OC6 (its TEMPERATURE file) and LKE6, SFE6,
+MWE6, UZE6 (MVE6 as MVT6).
 
 Everything else a deck can ask for raises ``NotImplementedError`` naming
 the package or keyword: other model types and exchange types, several
@@ -43,16 +52,26 @@ running the two-point scheme), HFB6, in a GWT6 model: later PERIOD blocks
 of CNC6 or SRC6, SSM aux values that change after period 1, SSM srctype
 AUXMIXED (run as AUX there), IST6 (which it has no branch for), ADV6
 ATS_PERCEL, DSP6 without XT3D_OFF and MST6 DECAY_SORBED (all read past or
-run another way there), LKT6, SFT6, MWT6, UZT6 and MVT6 (APT), GWE6,
+run another way there); in an APT file TS6, OBS6 and
+FLOW_PACKAGE_AUXILIARY_NAME, a STATUS other than ACTIVE, CONCENTRATION or
+TEMPERATURE settings, two different source values of one feature (the
+reference keeps the last) and a nonzero KTF of LKE6/SFE6/MWE6; in a GWE6
+model GWT package types, a nonzero LATENT_HEAT_VAPORIZATION, CND6 without
+XT3D_OFF, later PERIOD blocks of CTP6 or ESL6, BUY6 or VSC6 beside it;
+APT files beside later PERIOD blocks of the flow model's features;
 ATS6 in TDIS (read past there too: adaptive steps reach a ``Simulation``
 only through ``Simulation.ats``),
 NETCDF_MESH2D and a list package's own OBS6 option (both read past
 there), TS6 values in MAW6, LAK6 and SFR6, and HPC6; and where the
-reference refuses: several GWT6 models, GWT6 beside several GWF6 models,
-UZF or CSUB in a merged model,
+reference refuses: several GWT6 or GWE6 models, GWT6 or GWE6 beside
+several GWF6 models, an APT file beside a flow model without its feature
+or, for UZT6/UZE6, without UZF6 (``ValueError``), UZF or CSUB in a
+merged model,
 TVK/TVS with several models, standard-package mover providers outside the
 first model, later PERIOD blocks of an exchange's MVR6.  Beyond the
-reference, these raise by name too: later PERIOD blocks of MAW6, LAK6,
+reference, these raise by name too: GWT6 or GWE6 beside UZF6 without
+UZT6 (the reference's FMI drops the UZF flows), later PERIOD blocks of
+MAW6, LAK6,
 SFR6 or MVR6 in a merged model (the reference would rebuild the first
 model's features alone), a GWF6-GWF6 exchange of a model with itself, a
 mover on the second of several packages of one type, and the UZF6
@@ -353,19 +372,21 @@ def load_oc(path, mdir, component="gwf-oc"):
             if verb in ("SAVE", "PRINT"):
                 actions[(verb, what)] = parse_spec(toks[2:])
         oc.set_period(b.index, actions)
-    # a transport model's CONCENTRATION file takes the place of HEAD's
-    # (tsp-oc)
-    return (_fileout("HEAD") or _fileout("CONCENTRATION"), _fileout("BUDGET"),
-            oc)
+    # a transport model's CONCENTRATION or TEMPERATURE file takes the
+    # place of HEAD's (tsp-oc)
+    return (_fileout("HEAD") or _fileout("CONCENTRATION")
+            or _fileout("TEMPERATURE"), _fileout("BUDGET"), oc)
 
 
 def _cellid_to_node(toks, grid, start=0):
     """Parse a cellid (1-based: layer row column, layer cell, or node) →
     0-based node; returns (node, ntok)."""
     if isinstance(grid, DisGrid):
+        # grid.node_number's arithmetic on Python ints (a numpy call per
+        # row was a third of a million-row list's parse)
         k, i, j = (int(toks[start]) - 1, int(toks[start + 1]) - 1,
                    int(toks[start + 2]) - 1)
-        return int(grid.node_number(k, i, j)), 3
+        return (k * grid.nrow + i) * grid.ncol + j, 3
     if isinstance(grid, DisvGrid):
         k, c = int(toks[start]) - 1, int(toks[start + 1]) - 1
         return k * grid.ncpl + c, 2
@@ -1079,22 +1100,30 @@ def _merge_period_data(simulation, bundles, offsets, device):
         simulation.period_data[kper] = PackageData(**merged)
 
 
-# package types of a GWT name file that the slice covers
+# package types of a GWT and of a GWE name file that the port covers; the
+# movers' transport (MVT6, MVE6) needs no input of its own: the movers of
+# the flow model carry mass whenever a transport model has APT rows, and
+# the reference's loader has no branch for those files either
 _GWT_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "ADV6", "DSP6", "MST6",
-                 "SSM6", "CNC6", "SRC6", "OC6")
-# the name of each GWT package type outside the slice, for its refusal
+                 "SSM6", "CNC6", "SRC6", "OC6", "LKT6", "SFT6", "MWT6",
+                 "UZT6", "MVT6")
+_GWE_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "ADV6", "CND6", "EST6",
+                 "SSM6", "CTP6", "ESL6", "OC6", "LKE6", "SFE6", "MWE6",
+                 "UZE6", "MVE6")
+# the name of each GWT package type outside the port, for its refusal
 _GWT_UNPORTED = {"IST6": "IST6 (the immobile domain reaches a model only "
-                         "through build_gwt(ist=...), as in the reference)",
-                 "LKT6": "LKT6 (APT transport)", "SFT6": "SFT6 (APT "
-                 "transport)", "MWT6": "MWT6 (APT transport)",
-                 "UZT6": "UZT6 (APT transport)", "MVT6": "MVT6 (APT "
-                 "transport)"}
+                         "through build_gwt(ist=...), as in the reference)"}
+# the APT files of each model type: file type → (feature, component)
+_APT_FILES = {"GWT6": {"LKT6": ("lak", "gwt-lkt"), "SFT6": ("sfr", "gwt-sft"),
+                       "MWT6": ("maw", "gwt-mwt"), "UZT6": ("uzf", "gwt-uzt")},
+              "GWE6": {"LKE6": ("lak", "gwe-lke"), "SFE6": ("sfr", "gwe-sfe"),
+                       "MWE6": ("maw", "gwe-mwe"), "UZE6": ("uzf", "gwe-uze")}}
 _SORPTION = {"LINEAR": 1, "FREUNDLICH": 2, "LANGMUIR": 3}
 
 
 def _first_period_entries(path, grid, what):
-    """The PERIOD 1 entries of a CNC6 or SRC6 file; a later PERIOD block
-    raises (the reference uses period 1 only)."""
+    """The PERIOD 1 entries of a CNC6, SRC6, CTP6 or ESL6 file; a later
+    PERIOD block raises (the reference uses period 1 only)."""
     _, _, periods, ts_refs, _, _ = _load_period_lists(path, grid, 1)
     late = sorted(k for k in periods if k != 1)
     if late:
@@ -1105,57 +1134,107 @@ def _first_period_entries(path, grid, what):
     return periods.get(1, [])
 
 
-def _load_gwt_model(ws, mfname, mname, device):
-    """One GWT model's name file and packages (IC, ADV, DSP, MST, SSM, CNC,
-    SRC, OC) → a bundle dict (the reference's _load_gwt_model,
-    loader.py:1010-1116).  SSM's sources are resolved against the flow
-    model in ``load_simulation``."""
-    from ...models.gwt import builder as gwt_builder
-
+def _transport_files(ws, mfname, mtype):
+    """{file type: path} of a GWT or GWE name file; package types outside
+    the port, or of the other transport model, raise by name."""
     mnam = BlockFile(os.path.join(ws, mfname))
     mdir = os.path.dirname(os.path.join(ws, mfname))
+    known = _GWT_PACKAGES if mtype == "GWT6" else _GWE_PACKAGES
     pkg_files = {}
     for toks in mnam.get("PACKAGES").lines:
         ftype = toks[0].upper()
-        if ftype in _GWT_UNPORTED:
+        if mtype == "GWT6" and ftype in _GWT_UNPORTED:
             raise _not_ported(f"{mfname}: package {_GWT_UNPORTED[ftype]}")
-        if ftype not in _GWT_PACKAGES:
+        if mtype == "GWE6" and (ftype in _GWT_UNPORTED or (
+                ftype in _GWT_PACKAGES and ftype not in _GWE_PACKAGES)):
+            # the reference's GWE loader reads past them
+            raise _not_ported(f"{mfname}: package {ftype} in a GWE6 model "
+                              "(a GWT package)")
+        if ftype not in known:
             raise _not_ported(f"{mfname}: package {ftype}")
         if ftype in pkg_files:
             raise _not_ported(f"{mfname}: several {ftype} packages")
         pkg_files[ftype] = os.path.join(mdir, toks[1])
     if "IC6" not in pkg_files:
         raise ValueError(f"{mfname}: model requires an IC6 package")
+    return mnam, mdir, pkg_files
+
+
+def _adv_scheme(pkg_files, component):
+    """ADV6's SCHEME (the reference reads SCHEME alone: ATS_PERCEL
+    raises)."""
+    if "ADV6" not in pkg_files:
+        return "upstream"
+    path = pkg_files["ADV6"]
+    aopts = BlockFile(path).options()
+    schema.check_options(component, aopts, path)
+    _refuse(aopts, ("ATS_PERCEL",), path)
+    if "SCHEME" in aopts:
+        schema.check_valid_value(component, "options", "SCHEME",
+                                 aopts["SCHEME"], path)
+    return str(aopts.get("SCHEME", "upstream")).lower()
+
+
+def _xt3d_off(path, opts, what):
+    """The reference computes DSP's and CND's two-point form whatever the
+    options say; MODFLOW 6 runs XT3D unless XT3D_OFF is given."""
+    if "XT3D_OFF" not in opts:
+        raise _not_ported(
+            f"{path}: {what} without XT3D_OFF (its XT3D form; the "
+            "reference computes the two-point form)")
+    _refuse(opts, ("XT3D_RHS",), path)
+
+
+def _ssm_sources(pkg_files):
+    """SSM6's SOURCES records → [(pname, auxname)] (srctype AUX)."""
+    if "SSM6" not in pkg_files:
+        return []
+    path = pkg_files["SSM6"]
+    ssm_bf = BlockFile(path)
+    if ssm_bf.get("FILEINPUT") is not None:
+        raise _not_ported(f"{path}: FILEINPUT (SPC6 files)")
+    out = []
+    b = ssm_bf.get("SOURCES")
+    for toks in (b.lines if b is not None else []):
+        srctype = toks[1].upper()
+        if srctype == "AUXMIXED":
+            raise _not_ported(f"{path}: SSM srctype AUXMIXED (the "
+                              "reference runs it as AUX)")
+        if srctype != "AUX":
+            raise _not_ported(f"{path}: SSM srctype {srctype}")
+        out.append((toks[0].upper(), toks[2].upper()))
+    return out
+
+
+def _apt_specs(pkg_files, mtype):
+    """{feature: load_apt's dict} of the model's APT files."""
+    return {kind: dict(adv_ld.load_apt(pkg_files[ftype], component),
+                       ftype=ftype)
+            for ftype, (kind, component) in _APT_FILES[mtype].items()
+            if ftype in pkg_files}
+
+
+def _load_gwt_model(ws, mfname, mname, device):
+    """One GWT model's name file and packages (IC, ADV, DSP, MST, SSM, CNC,
+    SRC, OC, and the APT files LKT, SFT, MWT, UZT) → a bundle dict (the
+    reference's _load_gwt_model, loader.py:1010-1116).  SSM's sources and
+    the APT rows are resolved against the flow model in
+    ``load_simulation``."""
+    from ...models.gwt import builder as gwt_builder
+
+    _, mdir, pkg_files = _transport_files(ws, mfname, "GWT6")
     grid = _load_grid({k: [v] for k, v in pkg_files.items()})
     shp = grid.shape
 
     strt = read_grid_array(BlockFile(pkg_files["IC6"]), "GRIDDATA", "STRT",
                            shp, mdir, default=0.0)
-
-    scheme = "upstream"
-    if "ADV6" in pkg_files:
-        path = pkg_files["ADV6"]
-        aopts = BlockFile(path).options()
-        schema.check_options("gwt-adv", aopts, path)
-        # the reference reads SCHEME alone
-        _refuse(aopts, ("ATS_PERCEL",), path)
-        if "SCHEME" in aopts:
-            schema.check_valid_value("gwt-adv", "options", "SCHEME",
-                                     aopts["SCHEME"], path)
-        scheme = str(aopts.get("SCHEME", "upstream")).lower()
+    scheme = _adv_scheme(pkg_files, "gwt-adv")
 
     dsp = None
     if "DSP6" in pkg_files:
         path = pkg_files["DSP6"]
         dsp_bf = BlockFile(path)
-        dopts = dsp_bf.options()
-        # the reference computes the two-point form whatever the options
-        # say; MODFLOW 6 runs XT3D unless XT3D_OFF is given
-        if "XT3D_OFF" not in dopts:
-            raise _not_ported(
-                f"{path}: DSP6 without XT3D_OFF (its XT3D dispersion; the "
-                "reference computes the two-point form)")
-        _refuse(dopts, ("XT3D_RHS",), path)
+        _xt3d_off(path, dsp_bf.options(), "DSP6")
         dsp = {}
         for key in ("ALH", "ALV", "ATH1", "ATH2", "ATV", "DIFFC"):
             arr = read_grid_array(dsp_bf, "GRIDDATA", key, shp, mdir)
@@ -1197,23 +1276,6 @@ def _load_gwt_model(ws, mfname, mname, device):
     if "SRC6" in pkg_files:
         src = _first_period_entries(pkg_files["SRC6"], grid, "SRC6")
 
-    # SSM: SOURCES records (pname, srctype, auxname)
-    ssm_sources = []
-    if "SSM6" in pkg_files:
-        path = pkg_files["SSM6"]
-        ssm_bf = BlockFile(path)
-        if ssm_bf.get("FILEINPUT") is not None:
-            raise _not_ported(f"{path}: FILEINPUT (SPC6 files)")
-        b = ssm_bf.get("SOURCES")
-        for toks in (b.lines if b is not None else []):
-            srctype = toks[1].upper()
-            if srctype == "AUXMIXED":
-                raise _not_ported(f"{path}: SSM srctype AUXMIXED (the "
-                                  "reference runs it as AUX)")
-            if srctype != "AUX":
-                raise _not_ported(f"{path}: SSM srctype {srctype}")
-            ssm_sources.append((toks[0].upper(), toks[2].upper()))
-
     conc_path = oc = None
     if "OC6" in pkg_files:
         conc_path, _, oc = load_oc(pkg_files["OC6"], mdir,
@@ -1223,8 +1285,137 @@ def _load_gwt_model(ws, mfname, mname, device):
         mname, grid, porosity=porosity, strt=strt.reshape(-1), scheme=scheme,
         decay=decay, sorption=sorption, cnc=cnc, src=src, dsp=dsp,
         device=device)
-    return dict(name=mname, model=model, grid=grid, ssm_sources=ssm_sources,
-                conc_path=conc_path, oc=oc)
+    return dict(name=mname, model=model, grid=grid,
+                ssm_sources=_ssm_sources(pkg_files),
+                apt=_apt_specs(pkg_files, "GWT6"), conc_path=conc_path,
+                oc=oc)
+
+
+def _load_gwe_model(ws, mfname, mname, device):
+    """One GWE model's name file and packages (IC, ADV, CND, EST, SSM, CTP,
+    ESL, OC, and the APT files LKE, SFE, MWE, UZE) → a bundle dict (the
+    reference's _load_gwe_model, loader.py:1118-1235).  Beyond it, these
+    raise by name where it reads past them or runs them another way: GWT
+    package types in a GWE name file, a nonzero LATENT_HEAT_VAPORIZATION
+    (stored and never used there), CND6 without XT3D_OFF, later PERIOD
+    blocks of CTP6 and ESL6 (period 1 alone there)."""
+    from ...models.gwe import builder as gwe_builder
+    from ...models.gwe import est as est_mod
+
+    mnam, mdir, pkg_files = _transport_files(ws, mfname, "GWE6")
+    schema.check_options("gwe-nam", mnam.options(), mfname)
+    grid = _load_grid({k: [v] for k, v in pkg_files.items()})
+    shp = grid.shape
+
+    strt = read_grid_array(BlockFile(pkg_files["IC6"]), "GRIDDATA", "STRT",
+                           shp, mdir, default=0.0)
+    scheme = _adv_scheme(pkg_files, "gwe-adv")
+
+    kw, decay = dict(porosity=0.3), None
+    if "EST6" in pkg_files:
+        path = pkg_files["EST6"]
+        est_bf = BlockFile(path)
+        eopts = est_bf.options()
+        schema.check_options("gwe-est", eopts, path)
+        schema.check_griddata("gwe-est", est_bf, path)
+        if float(eopts.get("LATENT_HEAT_VAPORIZATION", 0.0)):
+            raise _not_ported(f"{path}: a nonzero LATENT_HEAT_VAPORIZATION "
+                              "(the reference stores it and never uses it)")
+
+        def grid_array(key, default):
+            return read_grid_array(est_bf, "GRIDDATA", key, shp, mdir,
+                                   default=default).reshape(-1)
+
+        kw.update(porosity=grid_array("POROSITY", 0.3),
+                  rhow=float(eopts.get("DENSITY_WATER", 1000.0)),
+                  cpw=float(eopts.get("HEAT_CAPACITY_WATER", 4184.0)),
+                  rhos=grid_array("DENSITY_SOLID", 2650.0),
+                  cps=grid_array("HEAT_CAPACITY_SOLID", 800.0))
+        dw = "ZERO_ORDER_DECAY_WATER" in eopts
+        ds = "ZERO_ORDER_DECAY_SOLID" in eopts
+        if dw or ds:
+            decay = (est_mod.DECAY_BOTH if dw and ds
+                     else est_mod.DECAY_WATER if dw else est_mod.DECAY_SOLID,
+                     grid_array("DECAY_WATER", 0.0),
+                     grid_array("DECAY_SOLID", 0.0))
+
+    cnd = None
+    if "CND6" in pkg_files:
+        path = pkg_files["CND6"]
+        cnd_bf = BlockFile(path)
+        copts = cnd_bf.options()
+        schema.check_options("gwe-cnd", copts, path)
+        _xt3d_off(path, copts, "CND6")
+        cnd = {}
+        for key in ("ALH", "ALV", "ATH1", "ATH2", "ATV", "KTW", "KTS"):
+            arr = read_grid_array(cnd_bf, "GRIDDATA", key, shp, mdir)
+            if arr is not None:
+                cnd[key.lower()] = arr.reshape(-1)
+
+    ctp = esl = None
+    if "CTP6" in pkg_files:
+        ctp = _first_period_entries(pkg_files["CTP6"], grid, "CTP6")
+    if "ESL6" in pkg_files:
+        esl = _first_period_entries(pkg_files["ESL6"], grid, "ESL6")
+
+    temp_path = oc = None
+    if "OC6" in pkg_files:
+        temp_path, _, oc = load_oc(pkg_files["OC6"], mdir,
+                                   component="gwe-oc")
+
+    model = gwe_builder.build_gwe(
+        mname, grid, strt=strt.reshape(-1), scheme=scheme, decay=decay,
+        cnd=cnd, ctp=ctp, esl=esl, device=device, **kw)
+    return dict(name=mname, model=model, grid=grid,
+                ssm_sources=_ssm_sources(pkg_files),
+                apt=_apt_specs(pkg_files, "GWE6"), conc_path=temp_path,
+                oc=oc)
+
+
+def _apt_model(gwt, model, bundle, apt, device):
+    """The transport model with the APT rows of ``apt`` (the reference's
+    loader.py:1537-1566): an ``AugmentedGwtModel`` over the augmented flow
+    model, with the features' starting concentrations, and the sources'
+    concentrations per feature package.  An APT file beside a flow model
+    without its feature, a UZT file without UZF (or, as in the reference,
+    without MAW, LAK or SFR beside it), and PACKAGEDATA that does not list
+    every feature raise."""
+    from ...models.gwt.apt import AugmentedGwtModel
+
+    first = next(iter(apt.values()))["ftype"]
+    if not isinstance(model, AugmentedGwfModel):
+        raise ValueError(
+            f"{first}: APT transport packages (LKT/SFT/MWT/UZT and the GWE "
+            "analogs) require the matching advanced packages in the GWF "
+            "model")
+    uzf = None
+    if "uzf" in apt:
+        if bundle["uzf_entries"] is None:
+            raise ValueError(f"{apt['uzf']['ftype']} requires a GWF UZF "
+                             "package")
+        uzf = _build_uzf(bundle, device)
+    for kind, spec in apt.items():
+        if kind != "uzf" and getattr(model, kind) is None:
+            raise ValueError(f"{spec['ftype']}: the flow model has no "
+                             f"{kind.upper()}6 package")
+    aug = AugmentedGwtModel(gwt, model, uzf=uzf)
+    strt = np.zeros(aug.n_extra)
+    ext = {}
+    for kind, spec in apt.items():
+        if kind == "uzf":
+            off, count = aug._uzf_off, int(uzf.node.shape[0])
+        else:
+            off = getattr(model, f"_{kind}_offset") - model.n_grid
+            count = getattr(getattr(model, kind), dict(
+                maw="nwells", lak="nlakes", sfr="nreaches")[kind])
+        if len(spec["strt"]) != count:
+            raise ValueError(f"{spec['ftype']}: PACKAGEDATA lists "
+                             f"{len(spec['strt'])} of {count} features")
+        strt[off:off + count] = spec["strt"]
+        ext[kind] = torch.as_tensor(spec["ext_conc"], dtype=torch.float64,
+                                    device=device)
+    aug.strt_extra = torch.as_tensor(strt, device=device)
+    return aug, ext
 
 
 def _ssm_spec(gwt_bundle, flow_bundle):
@@ -1280,26 +1471,32 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     for i, toks in enumerate(models_blk.lines):
         mtype = toks[0].upper()
         mname = toks[2].upper() if len(toks) > 2 else f"MODEL{i + 1}"
-        if mtype not in ("GWF6", "GWT6"):
+        if mtype not in ("GWF6", "GWT6", "GWE6"):
             raise _not_ported(f"mfsim.nam: model type {mtype}")
-        (entries if mtype == "GWF6" else gwt_entries).append((toks[1], mname))
+        if mtype == "GWF6":
+            entries.append((toks[1], mname))
+        else:
+            gwt_entries.append((mtype, toks[1], mname))
     if not entries:
         raise _not_ported("mfsim.nam: a model without a GWF6 model (flows "
                           "from FMI6 files)")
+    ttypes = sorted({t for t, _, _ in gwt_entries})
     if len(gwt_entries) > 1:
-        raise _not_ported("mfsim.nam: several GWT6 models (the reference's "
-                          "loader refuses them too)")
+        raise _not_ported(f"mfsim.nam: several {'/'.join(ttypes)} models "
+                          "(the reference's loader refuses them too)")
     if gwt_entries and len(entries) > 1:
-        raise _not_ported("mfsim.nam: GWT6 beside several GWF6 models (a "
-                          "GWF6-GWT6 exchange with a merged flow model; the "
-                          "reference's loader refuses it too)")
+        raise _not_ported(f"mfsim.nam: {ttypes[0]} beside several GWF6 "
+                          f"models (a GWF6-{ttypes[0]} exchange with a "
+                          "merged flow model; the reference's loader "
+                          "refuses it too)")
     names = [mname for _, mname in entries]
-    gwt_names = [mname for _, mname in gwt_entries]
+    gwt_names = [mname for _, _, mname in gwt_entries]
     exchange_entries = []
     exg_blk = sim.get("EXCHANGES")
     for toks in (exg_blk.lines if exg_blk is not None else []):
         etype, m1, m2 = toks[0].upper(), toks[2].upper(), toks[3].upper()
-        if etype == "GWF6-GWT6" and m1 in names and m2 in gwt_names:
+        if etype in ("GWF6-GWT6", "GWF6-GWE6") and m1 in names \
+                and m2 in gwt_names:
             continue        # the reference never opens its file
         if etype != "GWF6-GWF6":
             raise _not_ported(f"mfsim.nam: exchange {etype}")
@@ -1350,20 +1547,37 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
                                        linear_acceleration="bicgstab")
     transient = _transient_flags(tdis, bundle["storage"],
                                  bundle["sto_periods"])
-    gwt_kwargs = {}
+    gwt_kwargs, apt_ext_conc = {}, {}
     if gwt_entries:
-        if bundle["uzf_entries"] is not None:
-            raise _not_ported("GWT beside UZF (the unsaturated zone's "
-                              "transport is UZT)")
-        gwt_bundle = _load_gwt_model(ws, *gwt_entries[0], device)
+        ttype, mfname, mname = gwt_entries[0]
+        load_model = _load_gwe_model if ttype == "GWE6" else _load_gwt_model
+        gwt_bundle = load_model(ws, mfname, mname, device)
+        apt = gwt_bundle["apt"]
+        if bundle["uzf_entries"] is not None and "uzf" not in apt:
+            raise _not_ported(f"{ttype} beside UZF without UZT (the "
+                              "reference's FMI drops the UZF flows)")
         if gwt_bundle["grid"].nodes != bundle["grid"].nodes:
-            raise ValueError("the GWT6 model's grid differs from the GWF6 "
-                             "model's")
+            raise ValueError(f"the {ttype} model's grid differs from the "
+                             "GWF6 model's")
+        if ttype == "GWE6" and (bundle["base_model"].buy is not None
+                                or bundle["base_model"].vsc is not None):
+            raise _not_ported("BUY6 or VSC6 beside a GWE6 model (the "
+                              "reference reads the temperature as a "
+                              "concentration)")
+        if apt and any(k <= tdis.nper for k in bundle["adv_periods"]):
+            raise _not_ported(
+                f"later PERIOD blocks of MAW6, LAK6, SFR6, MVR6 or UZF6 "
+                f"beside {ttype} APT files (the reference's transport keeps "
+                "the first period's features)")
         gwt = gwt_bundle["model"]
         gwt.ssm_spec = _ssm_spec(gwt_bundle, bundle)
+        if apt:
+            gwt, apt_ext_conc = _apt_model(gwt, model, bundle, apt, device)
         gwt_kwargs = dict(gwt=gwt, gwt_settings=by_model.get(gwt_names[0]),
                           conc_path=gwt_bundle["conc_path"],
-                          gwt_oc=gwt_bundle["oc"])
+                          gwt_oc=gwt_bundle["oc"],
+                          conc_text="TEMPERATURE" if ttype == "GWE6"
+                          else "CONCENTRATION")
     simulation = Simulation(
         tdis, model, settings, transient=transient,
         hds_path=hds_path or bundle["hds_path"],
@@ -1371,6 +1585,7 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
         lst_path=lst_path, oc=bundle["oc"], obs=bundle["obs"],
         nc_path=bundle["nc_out"], **gwt_kwargs)
     simulation.sgp_mxiter = mxiter
+    simulation.apt_ext_conc = apt_ext_conc
     # reference failure semantics: abort on nonconvergence unless the
     # simulation CONTINUE option is set (sim-nam continue keyword)
     simulation.fail_fast = "CONTINUE" not in sopts

@@ -7,8 +7,10 @@ its small MAW, LAK and SFR models with repeated sums (two card runs
 bitwise equal), its small coupling twins (UZF with seepage and
 groundwater ET, a mover chain, a two-model exchange mover), its
 utilities deck (TS6, TAS6, OBS6, NetCDF) stepping adaptively with
-retries, and its small transport twins (GWT with each scheme, sorption,
-IST, SRC/CNC, ATS_PERCEL, two merged models).
+retries, its small transport twins (GWT with each scheme, sorption,
+IST, SRC/CNC, ATS_PERCEL, two merged models), and its small APT and GWE
+twins (LKT, SFT, MWT, UZT, MVT and their GWE analogs, GWE with each
+package, two merged GWE models).
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -513,3 +515,17 @@ def test_small_transport_twins_on_card_match_cpu(cuda, twin):
     transport solve launches no stencil7 kernel."""
     from chip_smoke import check_small_transport
     check_small_transport(cuda, names=[twin])
+
+
+@pytest.mark.parametrize("twin", ["lkt", "sft with a diversion", "mwt",
+                                  "uzt", "lke", "sfe with a diversion",
+                                  "mwe", "uze", "mvt from a wel provider",
+                                  "mvt from a feature provider",
+                                  "gwe with each package",
+                                  "merge_gwe_models"])
+def test_small_apt_and_gwe_twins_on_card_match_cpu(cuda, twin):
+    """chip_smoke.py's small APT and GWE twins through Simulation on the
+    card against the CPU: equal flow and transport outer counts, values
+    within 10 × outer_dvclose."""
+    from chip_smoke import check_small_apt
+    check_small_apt(cuda, names=[twin])

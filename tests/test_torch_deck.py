@@ -732,9 +732,13 @@ UNSUPPORTED = {
         "  PRECONDITIONER_DROP_TOLERANCE 1e-3\n  INNER_MAXIMUM")),
     "ATS6": ("sim.tdis", _add_option("ATS6 FILEIN sim.ats")),
     "HPC6": ("mfsim.nam", _add_option("HPC6 FILEIN sim.hpc")),
-    # a GWT6 model loads now (test_torch_gwt_decks.py); these stay refused
+    # a GWT6 model loads now (test_torch_gwt_decks.py), and a GWE6 one
+    # (test_torch_gwe.py); these stay refused: MST6 in a GWE6 model, ...
     "GWE6": _gwt("", model="GWE6"),
-    "LKT6": _gwt("LKT6 t.lkt"),
+    # an LKT6 file loads now (test_torch_apt.py); its TS6 option does not
+    "LKT6": _gwt("LKT6 t.lkt", {"t.lkt": "BEGIN OPTIONS\n  TS6 FILEIN t.ts\n"
+                                "END OPTIONS\nBEGIN PACKAGEDATA\n  1 0.0\n"
+                                "END PACKAGEDATA\n"}),
     "IST6": _gwt("IST6 t.ist"),
     "AUXMIXED": _gwt("SSM6 t.ssm", {"t.ssm": "BEGIN SOURCES\n  WEL-1 "
                                     "AUXMIXED CONCENTRATION\nEND SOURCES\n"}),
@@ -865,7 +869,7 @@ def test_schema_component_is_the_reference(component):
 
 
 def test_schema_holds_only_the_loaded_components():
-    assert len(schema.load_schema()) == 32
+    assert len(schema.load_schema()) == 50
 
 
 # ------------------------------------------------------------- deck runs

@@ -883,21 +883,37 @@ def test_a_gwt_model_never_reaches_the_flow_options():
         assert not build_gwt("t", g, device="cpu", **kw).is_linear
 
 
-def test_gwt_beside_apt_flows_is_refused():
+@pytest.mark.parametrize("case", ["plain GWT beside MAW rows",
+                                  "GWT beside UZF without UZT rows",
+                                  "GWT with APT rows beside MAW rows"])
+def test_gwt_beside_apt_flows_is_refused(case):
     """MAW, LAK, SFR or MVR rows and UZF columns carry their own transport
-    (APT: MWT, LKT, SFT, MVT, UZT): a GWT model beside them raises by
-    name, at construction or at the run's start."""
+    (APT: MWT, LKT, SFT, MVT, UZT): a plain GWT model beside feature rows
+    raises by name at construction, and beside UZF columns without UZT
+    rows at the run's start (the reference's FMI drops the UZF flows);
+    with APT rows (``AugmentedGwtModel``, tests/test_torch_apt.py) the
+    same model runs."""
     from modflow6_torch.models.gwf.advanced import (AugmentedGwfModel,
                                                     build_maw)
     from modflow6_torch.models.gwf.uzf import make_uzf
+    from modflow6_torch.models.gwt.apt import AugmentedGwtModel
     g = DisGrid.create(1, 1, 4, 10.0, 10.0, 10.0, np.zeros((1, 1, 4)))
     base = build_gwf("f", g, k=1.0, strt=5.0, chd=[(0, 5.0)], device="cpu")
     aug = AugmentedGwfModel(base, maw=build_maw(
         [dict(radius=0.1, strt=5.0, rate=0.0, connections=[(2, 1.0)])], g))
     tdis = Tdis([StressPeriod(1.0, 1, 1.0)])
-    with pytest.raises(NotImplementedError, match="MAW"):
-        Simulation(tdis, aug, ImsSettings(**FLOW),
-                   gwt=build_gwt("t", g, device="cpu"))
+    if case == "plain GWT beside MAW rows":
+        with pytest.raises(NotImplementedError, match="MAW"):
+            Simulation(tdis, aug, ImsSettings(**FLOW),
+                       gwt=build_gwt("t", g, device="cpu"))
+        return
+    if case == "GWT with APT rows beside MAW rows":
+        sim = Simulation(tdis, aug, ImsSettings(**FLOW), gwt=AugmentedGwtModel(
+            build_gwt("t", g, device="cpu", cnc=[(0, 1.0)]), aug))
+        recs = sim.run()
+        assert recs[0].converged and recs[0].transport_converged
+        assert sim.conc.shape == (5,)
+        return
     sim = Simulation(tdis, base, ImsSettings(**FLOW),
                      gwt=build_gwt("t", g, device="cpu"))
     sim.uzf = make_uzf(dict(

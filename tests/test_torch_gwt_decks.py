@@ -407,7 +407,9 @@ def _package(line, fname=None, text=""):
     return apply
 
 
-# key → (edit of the small deck, what the reference does with it)
+_APT_TEXT = "BEGIN PACKAGEDATA\n  1 0.0\nEND PACKAGEDATA\n"
+# key → (edit of the small deck, what the reference does with it[, the
+# port's error when it is not NotImplementedError])
 REFUSED = {
     "PERIOD 2 of CNC6": (_edit("trans.cnc", lambda t: t + (
         "BEGIN PERIOD 2\n  1 1 5 0.9\nEND PERIOD\n")), "loads"),
@@ -432,10 +434,18 @@ REFUSED = {
     "DECAY_SORBED": (_edit("trans.mst", lambda t: t.replace(
         "END GRIDDATA", "  DECAY_SORBED\n    CONSTANT 0.5\nEND GRIDDATA")),
         "loads"),
-    "LKT6": (_package("LKT6 trans.lkt"), "raises"),
-    "SFT6": (_package("SFT6 trans.sft"), "raises"),
-    "MWT6": (_package("MWT6 trans.mwt"), "raises"),
-    "UZT6": (_package("UZT6 trans.uzt"), "raises"),
+    # an APT file beside a flow model without its feature: both refuse
+    # (the port's ValueError names the file type)
+    "LKT6": (_package("LKT6 trans.lkt", "trans.lkt", _APT_TEXT), "raises",
+             ValueError),
+    "SFT6": (_package("SFT6 trans.sft", "trans.sft", _APT_TEXT), "raises",
+             ValueError),
+    "MWT6": (_package("MWT6 trans.mwt", "trans.mwt", _APT_TEXT), "raises",
+             ValueError),
+    "UZT6": (_package("UZT6 trans.uzt", "trans.uzt", _APT_TEXT), "raises",
+             ValueError),
+    # a GWE6 model loads (test_torch_gwe.py); this one's GWT packages,
+    # which the reference's GWE loader reads past, raise
     "GWE6": (_edit("mfsim.nam", lambda t: t.replace(
         "  GWT6 trans.nam TRANS", "  GWE6 trans.nam TRANS")), "loads"),
     "several GWT6 models": (_edit("mfsim.nam", lambda t: t.replace(
@@ -454,13 +464,14 @@ def test_gwt_refusals(tmp_path, key):
     refuses too, raises here by name."""
     ws = str(tmp_path)
     small_gwt_deck(ws)
-    edit, ref_does = REFUSED[key]
+    edit, ref_does, *error = REFUSED[key]
     edit(ws)
     if key == "GWT6 beside several GWF6 models":
         write(ws, "ff.exg", "BEGIN DIMENSIONS\n  NEXG 1\nEND DIMENSIONS\n"
               "BEGIN EXCHANGEDATA\n  1 1 10 1 1 1 1 0.5 0.5 1.0\n"
               "END EXCHANGEDATA\n")
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(error[0] if error else NotImplementedError,
+                       match=key):
         load(ws)
     if ref_does == "loads":
         assert ref_load(ws).gwt is not None
