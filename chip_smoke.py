@@ -70,7 +70,18 @@ recharge at 25 °C) over the plume's steps twice (bitwise equal; its flow
 through the stencil kernel), the same as a GWF6 + GWE6 deck through the
 command-line entry, and the mover model with LKE/SFE/MWE rows once; with
 small APT and GWE twins on the card against the CPU in the ``small``
-phase.  The value checks of these runs hold the grid rows and the wells',
+phase; and surface water (``swf``): an overland raster of 1,048,576 cells
+(OLF on DIS2D) through ``SwfSimulation`` and as an OLF6 deck through the
+command-line entry (its STAGE file bitwise equal to the in-memory run), a
+16,383-reach channel network with n-point sections over the bench aquifer
+through ``CoupledSwfGwf`` (the aquifer's solves through the stencil
+kernel), and the network alone in memory and as a CHF6 deck (bitwise);
+and particles (``prt``): 1,048,576 particle slots on the bench model
+through ``Simulation`` with a ``PrtDriver`` twice (bitwise) and as a GWF6 +
+PRT6 deck (its track file bitwise equal), and 524,288 slots on the brick
+DISV grid by the ternary method (its first step twice, bitwise); with small
+SWF and PRT twins on the card against the CPU in the ``small`` phase.  The
+value checks of the transport runs hold the grid rows and the wells',
 lakes' and UZT columns' rows whose water balance closes to the sources'
 range; a reach's flow has no storage where its transport has its volume,
 so a reach that dries concentrates its mass (R19 in ROADMAP Queue C): the
@@ -92,7 +103,7 @@ kernel-vs-plain checks with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
 general-path runs, the property-package runs, the advanced-package runs,
 the coupling runs, the utilities runs, the transport runs, the apt runs,
-the gwe runs, one JSON line
+the gwe runs, the swf runs, the prt runs, one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -100,6 +111,7 @@ the gwe runs, one JSON line
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -1366,21 +1378,21 @@ def run_brick_deck(device):
         t0 = time.perf_counter()
         write_brick_deck(ws, grid, args)
         write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        sim = load_simulation(ws)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        same_grid = (np.array_equal(sim.model.grid.javert, grid.javert)
-                     and np.array_equal(sim.model.grid.vertices,
-                                        grid.vertices))
-        del sim
         lst = os.path.join(ws, "cli.lst")
         out = io.StringIO()
-        with counted_run() as counts, contextlib.redirect_stdout(out):
+        # the command-line entry's own load, timed and kept for the grid
+        # check
+        with captured_loads(device) as loads, counted_run() as counts, \
+                contextlib.redirect_stdout(out):
             t0 = time.perf_counter()
             code = cli_main([ws, "--lst", lst])
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
+        sim, load_s = loads[0]
+        same_grid = (np.array_equal(sim.model.grid.javert, grid.javert)
+                     and np.array_equal(sim.model.grid.vertices,
+                                        grid.vertices))
+        del sim, loads
         cli_counts = listing_counts(lst)
         saved = np.stack([r["data"] for r in read_head_file(
             os.path.join(ws, "m.hds"))]).reshape(-1)
@@ -1393,7 +1405,7 @@ def run_brick_deck(device):
     err = float(np.abs(saved - recs[-1].head).max())
     twin_counts = [(r.outer, r.inner) for r in recs]
     print(f"brick deck cells={grid.nodes} write_s={write_s!r} "
-          f"load_s={load_s!r} (one load_simulation before the run) "
+          f"load_s={load_s!r} (the command-line entry's load) "
           f"cli exit={code} wall_s={cli_s!r} counts={cli_counts} "
           f"in_memory_counts={twin_counts} "
           f"converged={all(r.converged for r in recs)} "
@@ -4878,11 +4890,13 @@ def print_steps(label, recs, steps):
               f"peak_bytes={s['peak_bytes']}")
 
 
-def balanced_features(gwt, flows, delt):
+def balanced_features(gwt, flows, delt, uzf_res=None):
     """(bool[feature rows], the largest relative imbalance): the feature
     rows whose water balance in the transport's terms closes (|in − out −
     Δstorage| within 1e-6 of their sum, and their water above 1e-9 of the
-    largest feature's).  Only there is a feature's concentration bound to
+    largest feature's).  A UZT row's balance counts the column's
+    evapotranspiration (``uzf_res.uzet`` × area, the step's march) as an
+    outflow that takes no mass.  Only there is a feature's concentration bound to
     its sources' range: a lake's evaporation takes water and no mass (LKT's
     evapoconcentration), and a reach's flow equation has no storage where
     the transport's has the reach's volume, so a reach that dries within a
@@ -4901,6 +4915,9 @@ def balanced_features(gwt, flows, delt):
     np.add.at(inflow, conn, np.maximum(-f["q_conn"], 0.0))
     np.add.at(inflow, gwt.pair_dst.cpu().numpy(), f["pair_q"])
     np.add.at(inflow, gwt.mvr_cell_dst.cpu().numpy(), f["mvr_cell_q"])
+    if gwt.uzf is not None and uzf_res is not None:
+        sl = slice(gwt._uzf_off, gwt._uzf_off + gwt.uzf.node.shape[0])
+        outflow[sl] += (uzf_res.uzet * gwt.uzf.area).cpu().numpy()
     size = inflow + outflow
     imbalance = np.abs(inflow - outflow) / np.where(size > 0, size, 1.0)
     return ((imbalance <= 1e-6) & (size > 1e-9 * size.max(initial=0.0)),
@@ -4918,12 +4935,14 @@ def run_coupled(label, sim, device, bounds, rclose, time_gather=False):
     width.  Returns (records, stencil7 launches of the flow, of the
     transport)."""
     steps, last = instrument_transport(sim, device)
-    fields = []
+    fields, marches = [], []
     solve = sim._solve_transport
 
     def keep(*args, **kwargs):
         out = solve(*args, **kwargs)
         fields.append(out.fields)
+        march = kwargs.get("uzf_step")
+        marches.append(None if march is None else march[0])
         return out
 
     sim._solve_transport = keep
@@ -4935,12 +4954,13 @@ def run_coupled(label, sim, device, bounds, rclose, time_gather=False):
     resid = final_residual(sim, last)
     gwt = sim.gwt
     n = gwt.grid.nodes
-    checked, others, worst = [], [], 0.0
-    for c, f, r, p in zip(sim.conc_records, fields, recs, [None] + recs[:-1]):
+    checked, others, worst, rows_checked = [], [], 0.0, 0
+    for c, f, u, r, p in zip(sim.conc_records, fields, marches, recs,
+                             [None] + recs[:-1]):
         checked.append(c[:n])
         if isinstance(gwt, AugmentedGwtModel):
             ok, imb = balanced_features(gwt, f, r.totim - (p.totim if p
-                                                            else 0.0))
+                                                            else 0.0), u)
             # the reaches inherit what a drying reach upstream concentrated
             sfr = getattr(gwt.gwf, "sfr", None)
             if sfr is not None:
@@ -4948,6 +4968,7 @@ def run_coupled(label, sim, device, bounds, rclose, time_gather=False):
                 ok[first:first + sfr.nreaches] = False
             checked.append(c[n:][ok])
             others.append(c[n:][~ok])
+            rows_checked += int(ok.sum())
             worst = max(worst, imb)
     lo = min(float(c.min(initial=np.inf)) for c in checked)
     hi = max(float(c.max(initial=-np.inf)) for c in checked)
@@ -4959,7 +4980,8 @@ def run_coupled(label, sim, device, bounds, rclose, time_gather=False):
     print(f"{label}: rows={gwt.nodes} feature_rows="
           f"{getattr(gwt, 'n_extra', 0)} Ktot={nbr.shape[1]} table_bytes="
           f"{nbr.numel() * nbr.element_size()} run_s={seconds!r} "
-          f"checked min={lo!r} max={hi!r} bounds={bounds}; unbalanced "
+          f"checked min={lo!r} max={hi!r} bounds={bounds}; balanced "
+          f"feature values checked (all steps)={rows_checked}, unbalanced "
           f"feature values (all steps)={other.size}, out of bounds={out}, "
           f"range=[{float(other.min(initial=0.0))!r}, "
           f"{float(other.max(initial=0.0))!r}], largest relative water "
@@ -5239,6 +5261,854 @@ def run_gwe(device, shape=BENCH_SHAPE):
     return launches
 
 
+# ---------------------------------------------- the swf and prt phases
+
+# (s1)/(s2): overland flow on a raster of 10-m cells: a plane sloping 1e-3
+# to the south with a microtopography of ±5 cm, Manning's n 0.03, rain of
+# 1e-5 m/s on every cell, a ZDG outflow along the southern row, one
+# transient step of 300 s from 1 cm of water, in seconds; upstream depth
+# weighting (DFW6 without CENTRAL_IN_SPACE), which holds the puddles of
+# the microtopography that central weighting drains below the land
+OLF_SLOPE, OLF_N, OLF_RAIN, OLF_MICRO, OLF_DEPTH = 1e-3, 0.03, 1e-5, 0.05, 0.01
+OLF_PERIODS = ((300.0, 1, 1.0),)
+# the n-point section of every sixteenth reach of (s3)/(s4): a trapezoid,
+# its stations fractions of the reach's width, rougher on the banks
+CHF_SECTION = ([0.0, 0.25, 0.75, 1.0], [1.0, 0.0, 0.0, 1.0],
+               [1.3, 1.0, 1.3])
+# (s3)/(s4): a binary tree of 2**14 - 1 reaches of 100 m, in days (Manning
+# in m³/s converted by DFW's TIME_CONVERSION), 0.1 m³/s into each
+# headwater reach, two steps of one day
+CHF_DEPTH, CHF_LENGTH, CHF_N, CHF_SLOPE = 14, 100.0, 0.035, 1e-2
+CHF_TCONV = 1.0 / 86400.0
+CHF_UNITCONV = 1.0 ** (1.0 / 3.0) / CHF_TCONV     # the loader's arithmetic
+CHF_FLW, CHF_COND = 8640.0, 0.04                  # m³/d a headwater; m²/d
+CHF_PERIODS = ((2.0, 2, 1.0),)
+# (p1)-(p3): particle tracking over three steps of 5 d, porosity 0.3,
+# releases at 0 and 5 d
+PRT_PERIODS = ((15.0, 3, 1.0),)
+PRT_PERIODS_FIRST = ((5.0, 1, 1.0),)
+PRT_TIMES = (0.0, 5.0)
+PRT_POROSITY = 0.3
+
+
+def olf_land(nrow, ncol):
+    """The raster's land surface, south (the last row) lowest: the plane
+    and a microtopography of eight waves with random directions,
+    wavelengths of 50–400 m and phases from a seed, scaled to ±5 cm."""
+    rng = np.random.default_rng(31)
+    y, x = np.meshgrid((np.arange(nrow) + 0.5) * 10.0,
+                       (np.arange(ncol) + 0.5) * 10.0, indexing="ij")
+    micro = np.zeros((nrow, ncol))
+    for _ in range(8):
+        ang, lam, phase = rng.uniform(0.0, np.pi), rng.uniform(50.0, 400.0), \
+            rng.uniform(0.0, 2.0 * np.pi)
+        micro += np.sin(2.0 * np.pi * (x * np.cos(ang) + y * np.sin(ang))
+                        / lam + phase)
+    plane = (nrow - 1 - np.arange(nrow))[:, None] * 10.0 * OLF_SLOPE
+    return plane + OLF_MICRO * micro / np.abs(micro).max()
+
+
+def olf_model(device, nrow, ncol):
+    """(s1)'s OLF model on a DIS2D raster."""
+    from modflow6_torch.models.swf.model import build_olf
+    land = olf_land(nrow, ncol)
+    grid = DisGrid.create(1, nrow, ncol, 10.0, 10.0, float(land.max()) + 1.0,
+                          land[None])
+    n = nrow * ncol
+    south = (nrow - 1) * ncol + np.arange(ncol)
+    return build_olf(
+        "olf", grid, manningsn=OLF_N, strt=land.reshape(-1) + OLF_DEPTH,
+        icentral=0,
+        pcp=np.stack([np.arange(n), np.full(n, OLF_RAIN)], 1),
+        zdg=np.stack([south, np.full(ncol, 10.0), np.full(ncol, OLF_SLOPE),
+                      np.full(ncol, OLF_N)], 1), device=device)
+
+
+def swf_volume(model, stage):
+    """The water stored on the cells: area × the smoothed depth."""
+    from modflow6_torch.models.swf.model import _squadratic
+    d = stage - model.bot
+    return model.area * d * _squadratic(d)
+
+
+def run_olf(device, nrow, ncol, label, periods=OLF_PERIODS):
+    """(s1) once: the raster through ``SwfSimulation`` over ``periods``;
+    the volume change of each step against (PCP + ZDG)·Δt.  Returns
+    (records, seconds)."""
+    from modflow6_torch.models.swf.simulation import SwfSimulation
+    model = olf_model(device, nrow, ncol)
+    sim = SwfSimulation(Tdis(tuple(StressPeriod(*p) for p in periods)),
+                        model, has_sto=True, sto_periods={1: True})
+    steps = []
+    solve = sim.solution.solve_timestep
+
+    def counted(stage, delt, **kw):
+        out = solve(stage, delt, **kw)
+        ib = out[2]["ibound"]
+        flows = model.boundary_budget(out[0], ib)
+        steps.append((stage, out[0], delt, flows))
+        return out
+
+    sim.solution.solve_timestep = counted
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        recs = sim.run()
+        sync(device)
+        seconds = time.perf_counter() - t0
+    worst, low = 0.0, np.inf
+    for old, new, delt, flows in steps:
+        dv = float((swf_volume(model, new) - swf_volume(model, old)).sum())
+        q = float(sum(v.sum() for v in flows.values())) * delt
+        worst = max(worst, abs(dv - q) / abs(q))
+        low = min(low, float((new - model.bot).min()))
+    print(f"{label}: cells={model.nodes} steps={len(recs)} "
+          f"outers={[r.outer for r in recs]} inners={[r.inner for r in recs]}"
+          f" converged={all(r.converged for r in recs)} run_s={seconds!r} "
+          f"largest |dV - (PCP + ZDG)dt| / |(PCP + ZDG)dt|={worst!r} "
+          f"lowest depth={low!r} stencil7_launches={counts['launches']} "
+          f"peak_bytes={peak_bytes(device)}")
+    if not all(r.converged for r in recs):
+        raise AssertionError(f"{label}: a step did not converge")
+    if not worst <= 1e-6:
+        raise AssertionError(f"{label}: the volume change misses the rain "
+                             f"less the outflow by {worst}")
+    if low < -1e-6:
+        raise AssertionError(f"{label}: a stage {low} below the land")
+    return recs, seconds
+
+
+def write_olf_deck(ws, nrow, ncol):
+    """(s1) as an OLF6 deck: DIS2D6 and IC6 arrays as binary files, DFW6
+    (upstream weighting), STO6, a PCP6 list of a row per cell, ZDG6 along
+    the southern row, OC6 saving every step's STAGE."""
+    land = olf_land(nrow, ncol)
+    for name, arr in (("land.bin", land), ("strt.bin",
+                                           land + OLF_DEPTH)):
+        with open(os.path.join(ws, name), "wb") as f:
+            f.write(struct.pack("<iidd16siii", 1, 1, 1.0, 1.0,
+                                b"ARRAY".rjust(16), ncol, nrow, 1))
+            np.asarray(arr, "<f8").tofile(f)
+    _write(ws, "mfsim.nam", "BEGIN TIMING\n  TDIS6 sim.tdis\nEND TIMING\n"
+           "BEGIN MODELS\n  OLF6 olf.nam OLF\nEND MODELS\n"
+           "BEGIN SOLUTIONGROUP 1\n  IMS6 sim.ims OLF\nEND SOLUTIONGROUP\n")
+    _write(ws, "sim.tdis", f"BEGIN DIMENSIONS\n  NPER 1\nEND DIMENSIONS\n"
+           f"BEGIN PERIODDATA\n  {OLF_PERIODS[0][0]!r} {OLF_PERIODS[0][1]} "
+           "1.0\nEND PERIODDATA\n")
+    _write(ws, "sim.ims", SWF_IMS)
+    _write(ws, "olf.nam", "BEGIN PACKAGES\n  DIS2D6 olf.dis2d\n"
+           "  DFW6 olf.dfw\n  IC6 olf.ic\n  STO6 olf.sto\n  PCP6 olf.pcp\n"
+           "  ZDG6 olf.zdg\n  OC6 olf.oc\nEND PACKAGES\n")
+    _write(ws, "olf.dis2d", f"BEGIN DIMENSIONS\n  NROW {nrow}\n  NCOL {ncol}"
+           "\nEND DIMENSIONS\nBEGIN GRIDDATA\n  DELR\n    CONSTANT 10.0\n"
+           "  DELC\n    CONSTANT 10.0\n  BOTTOM\n"
+           "    OPEN/CLOSE land.bin (BINARY)\nEND GRIDDATA\n")
+    _write(ws, "olf.dfw", "BEGIN GRIDDATA\n  MANNINGSN\n    CONSTANT "
+           f"{OLF_N!r}\nEND GRIDDATA\n")
+    _write(ws, "olf.ic", "BEGIN GRIDDATA\n  STRT\n"
+           "    OPEN/CLOSE strt.bin (BINARY)\nEND GRIDDATA\n")
+    _write(ws, "olf.sto", "BEGIN PERIOD 1\n  TRANSIENT\nEND PERIOD\n")
+    # the records inline: the SWF stress packages read no OPEN/CLOSE
+    ii, jj = np.divmod(np.arange(nrow * ncol), ncol)
+    _write(ws, "olf.pcp", f"BEGIN DIMENSIONS\n  MAXBOUND {nrow * ncol}\n"
+           "END DIMENSIONS\nBEGIN PERIOD 1\n" + "".join(
+               f"  {i + 1} {j + 1} {OLF_RAIN!r}\n"
+               for i, j in zip(ii.tolist(), jj.tolist())) + "END PERIOD\n")
+    _write(ws, "olf.zdg", f"BEGIN DIMENSIONS\n  MAXBOUND {ncol}\n"
+           "END DIMENSIONS\nBEGIN PERIOD 1\n" + "".join(
+               f"  {nrow} {j + 1} 0 10.0 {OLF_SLOPE!r} {OLF_N!r}\n"
+               for j in range(ncol)) + "END PERIOD\n")
+    _write(ws, "olf.oc", "BEGIN OPTIONS\n  STAGE FILEOUT olf.stage\n"
+           "END OPTIONS\nBEGIN PERIOD 1\n  SAVE STAGE ALL\nEND PERIOD\n")
+
+
+# SwfSimulation's settings as an IMS6 file (the loader adds the DBD
+# under-relaxation a CHF/OLF deck gets when its IMS names none)
+SWF_IMS = """BEGIN NONLINEAR
+  OUTER_DVCLOSE 1e-08
+  OUTER_MAXIMUM 300
+END NONLINEAR
+BEGIN LINEAR
+  INNER_MAXIMUM 500
+  INNER_DVCLOSE 1e-10
+  INNER_RCLOSE 1e-09
+  LINEAR_ACCELERATION BICGSTAB
+END LINEAR
+"""
+
+
+def run_swf_deck_cli(label, device, ws, records, stage_file):
+    """A CHF6/OLF6 deck through the command-line entry: its STAGE records
+    bitwise the in-memory run's, its settings ``SwfSimulation``'s."""
+    from modflow6_torch.models.swf.simulation import default_settings
+    out = io.StringIO()
+    with captured_loads(device) as loads, counted_run() as counts, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        code = cli_main([ws] + ([] if torch.device(device).type == "cuda"
+                                else ["--device", "cpu"]))
+        sync(device)
+        cli_s = time.perf_counter() - t0
+    sim, load_s = loads[0]
+    saved = read_head_file(os.path.join(ws, stage_file))
+    bitwise = len(saved) == len(records) and all(
+        np.array_equal(r["data"].reshape(-1), rec.stage)
+        for r, rec in zip(saved, records))
+    texts = {r["text"].strip() for r in saved}
+    same_settings = sim.settings == default_settings()
+    print(f"{label} deck cli exit={code} wall_s={cli_s!r} load_s={load_s!r} "
+          f"records={len(saved)} texts={sorted(texts)} "
+          f"settings_equal={same_settings} bitwise_equal_in_memory={bitwise} "
+          f"stencil7_launches={counts['launches']} "
+          f"stdout={out.getvalue().strip()!r}")
+    if code != 0 or "Normal termination" not in out.getvalue() \
+            or not (bitwise and same_settings) or texts != {"STAGE"}:
+        raise AssertionError(f"{label}: the deck differs from its in-memory "
+                             "run")
+    return load_s
+
+
+def chf_tree(n_levels):
+    """The reach network: reach 0 the outlet, reaches 2r+1 and 2r+2 the
+    tributaries of reach r; returns (level per reach, the connected
+    pairs (a < b): each reach with its tributaries, and the two
+    tributaries of a junction with each other, as DISV1D6's shared end
+    vertices connect them)."""
+    n = 2 ** n_levels - 1
+    level = np.floor(np.log2(np.arange(n) + 1.0)).astype(np.int64)
+    parent = np.arange(1, n)
+    up = (parent - 1) // 2
+    pairs = [np.stack([up, parent], 1)]
+    first = np.arange(1, n, 2)
+    pairs.append(np.stack([first, first + 1], 1))
+    return level, np.unique(np.concatenate(pairs), axis=0)
+
+
+def chf_geometry(n_levels):
+    """(level, pairs, width, bed, starting stage) of the network: the
+    discharge doubles at each junction downstream and the width grows as
+    its square root (2 m at the headwaters), the beds 1 m a level higher
+    upstream (a slope of 1e-2: on a gentler one the depth's growth
+    downstream outruns the bed's fall and reverses the stage's slope) above
+    the aquifer's top (50 m), the start at each reach's normal depth for
+    its rectangular section."""
+    level, pairs = chf_tree(n_levels)
+    up = n_levels - 1 - level
+    width = 2.0 * 2.0 ** (up / 2.0)
+    # the first tributary of each junction 5 cm above the second: two
+    # reaches that meet at one vertex connect (DISV1D), and equal stages
+    # across such a connection make its conductance singular (dh/ds → 0)
+    bot = 50.5 + CHF_SLOPE * CHF_LENGTH * level \
+        + 0.05 * (np.arange(level.size) % 2)
+    q = CHF_FLW * 2.0 ** up / 86400.0
+    depth = (q * CHF_N / (width * np.sqrt(CHF_SLOPE))) ** 0.6
+    return level, pairs, width, bot, bot + depth
+
+
+def chf_network(device, n_levels=CHF_DEPTH):
+    """(s3)/(s4)'s channel network (``chf_geometry``): the trapezoid section
+    on every sixteenth reach, FLW on the headwaters, a ZDG outlet; in
+    days."""
+    from modflow6_torch.models.swf.model import Disv1dGrid, build_chf
+    level, pairs, width, bot, strt = chf_geometry(n_levels)
+    n = level.size
+    grid = Disv1dGrid(n, np.full(n, CHF_LENGTH), width, bot, pairs)
+    heads = np.flatnonzero(level == n_levels - 1)
+    return build_chf(
+        "chf", grid, manningsn=CHF_N, strt=strt, unitconv=CHF_UNITCONV,
+        icentral=0, flw=[(int(r), CHF_FLW) for r in heads],
+        zdg=[(0, float(width[0]), CHF_SLOPE, CHF_N)],
+        cxs_sections=[CHF_SECTION],
+        idcxs=(np.arange(n) % 16 == 0).astype(np.int64), device=device)
+
+
+def chf_links(n_levels, shape):
+    """The aquifer's top cell under each reach's midpoint: each level in a
+    band of rows down the domain, its reaches in as many lines across the
+    band as a line of cells cannot hold them, so no two reaches share a
+    cell."""
+    _, nrow, ncol = shape
+    level, _ = chf_tree(n_levels)
+    i = np.arange(level.size) + 1 - 2 ** level
+    across = np.minimum(2 ** level, ncol)
+    lines = 2 ** level // across
+    x = (i % across + 0.5) / across * ncol * 10.0
+    y = (level + (i // across + 0.5) / lines) / n_levels * nrow * 10.0
+    row = np.minimum((y // 10.0).astype(np.int64), nrow - 1)
+    col = np.minimum((x // 10.0).astype(np.int64), ncol - 1)
+    return row * ncol + col
+
+
+def run_chf_coupled(device, shape, n_levels=CHF_DEPTH):
+    """(s3): the network over the bench aquifer through ``CoupledSwfGwf``,
+    two steps of a day; the water balance of the channels (FLW in, ZDG
+    out, leakage to the aquifer, storage) at every step.  Returns the
+    stencil7 launches."""
+    from modflow6_torch.models.swf.exchange import (CoupledSwfGwf,
+                                                    SwfGwfExchange)
+    chf = chf_network(device, n_levels)
+    gwf = flagship(*shape, device)
+    links = chf_links(n_levels, shape)
+    cpl = CoupledSwfGwf(chf, gwf, SwfGwfExchange(
+        np.arange(chf.nodes), links, np.full(chf.nodes, CHF_COND)),
+        gwf_settings=ImsSettings(**BENCH),
+        dvclose=CLOSURE_FACTOR * BENCH["outer_dvclose"])
+    solve = cpl.gwf_sol.solve_timestep
+    gwf_counts = []
+
+    def counted(*args, **kwargs):
+        out = solve(*args, **kwargs)
+        gwf_counts.append((out[1].outer_iterations, out[1].inner_iterations))
+        return out
+
+    cpl.gwf_sol.solve_timestep = counted
+    stage, head = chf.strt, gwf.strt
+    worst, passes, t_all = 0.0, [], 0.0
+    q_in = CHF_FLW * float(chf.flw[1].numel())
+    with counted_run() as counts:
+        for k, (_, nstp, _) in enumerate(CHF_PERIODS):
+            for kstp in range(1, nstp + 1):
+                delt = CHF_PERIODS[0][0] / nstp
+                t0 = time.perf_counter()
+                new, head, info = cpl.step(stage, head, delt, kstp=kstp)
+                sync(device)
+                t_all += time.perf_counter() - t0
+                q_out = -float(chf._zdg_q(new).sum())
+                q_leak = float(info["q"].sum())
+                dv = float((swf_volume(chf, new)
+                            - swf_volume(chf, stage)).sum()) / delt
+                worst = max(worst, abs(q_in - q_out - q_leak - dv) / q_in)
+                passes.append(info["exg_iters"])
+                print(f"swf (s3) step {kstp}: converged={info['converged']}"
+                      f" picard_passes={info['exg_iters']} "
+                      f"swf_counts={[c[:2] for c in info['counts']]} "
+                      f"dmax={info['dmax']} "
+                      f"q_in={q_in!r} q_out={q_out!r} q_leak={q_leak!r} "
+                      f"dV/dt={dv!r}")
+                if not info["converged"]:
+                    raise AssertionError("swf (s3): a step did not converge")
+                stage = new
+    print(f"swf (s3) coupled: reaches={chf.nodes} aquifer={gwf.nodes} "
+          f"links={links.size} distinct aquifer cells="
+          f"{np.unique(links).size} run_s={t_all!r} passes={passes} "
+          f"gwf_counts={gwf_counts} largest |in - out - leak - dV/dt|/in="
+          f"{worst!r} stencil7_launches={counts['launches']} "
+          f"peak_bytes={peak_bytes(device)}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"swf (s3): the channels' balance misses by "
+                             f"{worst}")
+    if not counts["launches"] or counts["plain_on_cuda"]:
+        raise AssertionError("swf (s3): the aquifer's solves launched no "
+                             "stencil7 kernel")
+    return counts["launches"]
+
+
+def write_chf_deck(ws, n_levels=CHF_DEPTH):
+    """(s4): the network alone as a CHF6 deck: DISV1D6 with a two-vertex
+    polyline of 100 m per reach from its upstream vertex to its outlet's
+    (the outlet's to vertex 1), DFW6 with TIME_CONVERSION and IDCXS, CXS6,
+    FLW6 on the headwaters, ZDG6 at the outlet, STO6 and OC6."""
+    level, _, width, bot, strt = chf_geometry(n_levels)
+    n = level.size
+    xy = np.zeros((n + 1, 2))
+    xy[1] = (0.0, 100.0)
+    for r in range(1, n):
+        xy[r + 1] = xy[(r - 1) // 2 + 1] + ((60.0, 80.0) if r % 2
+                                            else (-60.0, 80.0))
+    verts = "".join(f"  {i + 1} {x!r} {y!r}\n"
+                    for i, (x, y) in enumerate(xy.tolist()))
+    cells = "".join(f"  {r + 1} 0.5 2 {r + 2} "
+                    f"{1 if r == 0 else (r - 1) // 2 + 2}\n"
+                    for r in range(n))
+    _write(ws, "mfsim.nam", "BEGIN TIMING\n  TDIS6 sim.tdis\nEND TIMING\n"
+           "BEGIN MODELS\n  CHF6 chf.nam CHF\nEND MODELS\n"
+           "BEGIN SOLUTIONGROUP 1\n  IMS6 sim.ims CHF\nEND SOLUTIONGROUP\n")
+    p = CHF_PERIODS[0]
+    _write(ws, "sim.tdis", "BEGIN DIMENSIONS\n  NPER 1\nEND DIMENSIONS\n"
+           f"BEGIN PERIODDATA\n  {p[0]!r} {p[1]} {p[2]!r}\nEND PERIODDATA\n")
+    _write(ws, "sim.ims", SWF_IMS)
+    _write(ws, "chf.nam", "BEGIN PACKAGES\n" + "".join(
+        f"  {t}6 chf.{t.lower()}\n" for t in (
+            "DISV1D", "DFW", "CXS", "IC", "STO", "FLW", "ZDG", "OC"))
+        + "END PACKAGES\n")
+
+    def arr(v):
+        return "    INTERNAL\n      " + " ".join(repr(float(x)) for x in v)
+
+    _write(ws, "chf.disv1d", f"BEGIN DIMENSIONS\n  NODES {n}\n  NVERT "
+           f"{n + 1}\nEND DIMENSIONS\nBEGIN GRIDDATA\n  WIDTH\n{arr(width)}"
+           f"\n  BOTTOM\n{arr(bot)}\nEND GRIDDATA\nBEGIN VERTICES\n{verts}"
+           f"END VERTICES\nBEGIN CELL1D\n{cells}END CELL1D\n")
+    idcxs = " ".join("1" if r % 16 == 0 else "0" for r in range(n))
+    _write(ws, "chf.dfw", f"BEGIN OPTIONS\n  TIME_CONVERSION {CHF_TCONV!r}\n"
+           f"END OPTIONS\nBEGIN GRIDDATA\n  MANNINGSN\n    CONSTANT "
+           f"{CHF_N!r}\n  IDCXS\n    INTERNAL\n      {idcxs}\nEND GRIDDATA\n")
+    st, ht, rf = CHF_SECTION
+    rows = "".join(f"  {a!r} {b!r} {c!r}\n"
+                   for a, b, c in zip(st, ht, list(rf) + [rf[-1]]))
+    _write(ws, "chf.cxs", f"BEGIN DIMENSIONS\n  NSECTIONS 1\n  NPOINTS "
+           f"{len(st)}\nEND DIMENSIONS\nBEGIN PACKAGEDATA\n  1 {len(st)}\n"
+           f"END PACKAGEDATA\nBEGIN CROSSSECTIONDATA\n{rows}"
+           "END CROSSSECTIONDATA\n")
+    _write(ws, "chf.ic", f"BEGIN GRIDDATA\n  STRT\n{arr(strt)}\n"
+           "END GRIDDATA\n")
+    _write(ws, "chf.sto", "BEGIN PERIOD 1\n  TRANSIENT\nEND PERIOD\n")
+    heads = np.flatnonzero(level == n_levels - 1)
+    _write(ws, "chf.flw", f"BEGIN DIMENSIONS\n  MAXBOUND {heads.size}\n"
+           "END DIMENSIONS\nBEGIN PERIOD 1\n" + "".join(
+               f"  {r + 1} {CHF_FLW!r}\n" for r in heads.tolist())
+           + "END PERIOD\n")
+    _write(ws, "chf.zdg", "BEGIN DIMENSIONS\n  MAXBOUND 1\nEND DIMENSIONS\n"
+           f"BEGIN PERIOD 1\n  1 0 {float(width[0])!r} {CHF_SLOPE!r} "
+           f"{CHF_N!r}\n"
+           "END PERIOD\n")
+    _write(ws, "chf.oc", "BEGIN OPTIONS\n  STAGE FILEOUT chf.stage\n"
+           "END OPTIONS\nBEGIN PERIOD 1\n  SAVE STAGE ALL\nEND PERIOD\n")
+
+
+def run_swf(device, shape=BENCH_SHAPE, n_levels=CHF_DEPTH):
+    """The swf phase: (s1) the overland raster; (s2) its OLF6 deck through
+    the command-line entry, STAGE bitwise with (s1)'s (the repeat of
+    (s1)); (s3) the
+    channel network over the bench aquifer; (s4) the network alone in
+    memory and as a CHF6 deck through the command-line entry, STAGE
+    bitwise.  Returns the stencil7 launches (the aquifer's solves)."""
+    from modflow6_torch.models.swf.simulation import SwfSimulation
+    _, nrow, ncol = shape
+    t_phase = time.perf_counter()
+    reset_peak(device)
+    # the deck's run (s2), bitwise equal to (s1), is (s1)'s repeat
+    recs, _ = run_olf(device, nrow, ncol, "swf (s1) olf")
+    with tempfile.TemporaryDirectory() as ws:
+        t0 = time.perf_counter()
+        write_olf_deck(ws, nrow, ncol)
+        print(f"swf (s2) olf deck written in {time.perf_counter() - t0!r} s")
+        run_swf_deck_cli("swf (s2) olf", device, ws, recs, "olf.stage")
+    del recs
+    launches = run_chf_coupled(device, shape, n_levels)
+    chf = chf_network(device, n_levels)
+    sim = SwfSimulation(Tdis(tuple(StressPeriod(*p) for p in CHF_PERIODS)),
+                        chf, has_sto=True, sto_periods={1: True})
+    t0 = time.perf_counter()
+    recs = sim.run()
+    sync(device)
+    print(f"swf (s4) network alone in memory: reaches={chf.nodes} "
+          f"cxs_reaches={int(chf.has_xs.sum())} run_s="
+          f"{time.perf_counter() - t0!r} outers={[r.outer for r in recs]} "
+          f"inners={[r.inner for r in recs]} "
+          f"converged={all(r.converged for r in recs)}")
+    if not all(r.converged for r in recs):
+        raise AssertionError("swf (s4): a step did not converge")
+    with tempfile.TemporaryDirectory() as ws:
+        write_chf_deck(ws, n_levels)
+        run_swf_deck_cli("swf (s4) chf", device, ws, recs, "chf.stage")
+    print(f"swf phase: {time.perf_counter() - t_phase!r} s, stencil7 "
+          f"launches={launches}")
+    return launches
+
+
+def file_digest(path):
+    """SHA-256 of a file (the track files run to hundreds of megabytes)."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def file_prefix_equal(longer, shorter):
+    """Whether the file ``shorter`` is the first bytes of ``longer``."""
+    size = os.path.getsize(shorter)
+    with open(longer, "rb") as a, open(shorter, "rb") as b:
+        while size:
+            n = min(size, 1 << 24)
+            if a.read(n) != b.read(n):
+                return False
+            size -= n
+    return True
+
+
+def prt_points(grid, every):
+    """Release points at the centres of every ``every``-th cell of the top
+    layer, halfway up the layer."""
+    if hasattr(grid, "ncpl"):
+        cells = np.arange(0, grid.ncpl, every)
+        x, y = grid.xc[cells], grid.yc[cells]
+        z = 0.5 * (grid.top_surf[cells] + grid.botm[0, cells])
+    else:
+        cells = np.arange(0, grid.nrow * grid.ncol, every)
+        i, j = np.divmod(cells, grid.ncol)
+        x = (j + 0.5) * grid.delr[0]
+        y = (grid.nrow - i - 0.5) * grid.delc[0]
+        z = 0.5 * (grid.top_surf.reshape(-1)[cells]
+                   + grid.botm[0].reshape(-1)[cells])
+    return np.asarray(x, float), np.asarray(y, float), np.asarray(z, float)
+
+
+def run_prt_memory(device, model, points, track_path, label,
+                   periods=PRT_PERIODS):
+    """``model`` over ``periods`` through ``Simulation`` with a PrtDriver
+    (releases at PRT_TIMES, a TRACK file).  Returns (records, driver,
+    seconds, launches)."""
+    from modflow6_torch.models.prt.model import PrtModel, ReleasePoints
+    from modflow6_torch.models.prt.simulation import PrtDriver
+    from modflow6_torch.models.prt.trackfile import ReleaseSchedule
+    drv = PrtDriver(PrtModel("prt", model.grid, torch.full(
+        (model.nodes,), PRT_POROSITY, dtype=torch.float64, device=device),
+        ReleasePoints(*points)), model, ReleaseSchedule(times=PRT_TIMES),
+        track_path=track_path)
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in periods)),
+                     model, ImsSettings(**BENCH))
+    sim.prt_drivers.append(drv)
+    track_s = []
+    on_step = drv.on_step
+
+    def timed(*args):
+        sync(device)
+        t = time.perf_counter()
+        on_step(*args)
+        sync(device)
+        track_s.append(time.perf_counter() - t)
+
+    drv.on_step = timed
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        recs = sim.run()
+        sim.finish()
+        sync(device)
+        seconds = time.perf_counter() - t0
+    status = np.bincount(drv.status, minlength=6).tolist()
+    print(f"{label}: cells={model.nodes} particles={drv.status.size} "
+          f"flow inners={[r.inner for r in recs]} "
+          f"converged={all(r.converged for r in recs)} run_s={seconds!r} "
+          f"tracking_s={track_s} statuses(active, boundary, weak, timeout, "
+          f"stoptime, stopzone)={status} largest transitions in a step="
+          f"{int(drv.transitions.max())} stencil7_launches="
+          f"{counts['launches']} peak_bytes={peak_bytes(device)}")
+    if not all(r.converged for r in recs) or counts["plain_on_cuda"]:
+        raise AssertionError(f"{label}: a flow step did not converge")
+    return recs, drv, seconds, counts["launches"]
+
+
+def check_particles(label, drv, grid, totim):
+    """Every particle inside its cell's bounds (x, y in the cell's box, z
+    between its bottom and top); travel times within the time since the
+    release."""
+    x, y, z = (v.cpu().numpy() for v in (drv.x, drv.y, drv.z))
+    lay, row, col = (v.cpu().numpy() for v in (drv.lay, drv.row, drv.col))
+    tol = 1e-9
+    if hasattr(grid, "ncpl"):
+        cell = row
+        ring = grid.javert[grid.iavert[cell][:, None] + np.arange(
+            int(np.diff(grid.iavert).max()))]
+        vx, vy = grid.vertices[ring, 0], grid.vertices[ring, 1]
+        inside = ((x >= vx.min(1) - tol) & (x <= vx.max(1) + tol)
+                  & (y >= vy.min(1) - tol) & (y <= vy.max(1) + tol))
+        top = np.concatenate([grid.top_surf[None], grid.botm[:-1]])[lay, cell]
+        bot = grid.botm[lay, cell]
+    else:
+        xe = np.concatenate([[0.0], np.cumsum(grid.delr)])
+        ye = grid.delc.sum() - np.concatenate([[0.0], np.cumsum(grid.delc)])
+        inside = ((x >= xe[col] - tol) & (x <= xe[col + 1] + tol)
+                  & (y >= ye[row + 1] - tol) & (y <= ye[row] + tol))
+        node = (lay * grid.nrow + row) * grid.ncol + col
+        top, bot = grid.top[node], grid.bot[node]
+    inside &= (z >= bot - tol) & (z <= top + tol)
+    rel = drv.released
+    late = drv.ttrack > totim - drv.trelease + 1e-9
+    print(f"{label}: particles inside their cells={int(inside.sum())} of "
+          f"{inside.size}; released={int(rel.sum())}; travel times beyond "
+          f"the time since release={int((late & rel).sum())}; largest "
+          f"travel time={float(drv.ttrack.max())!r}")
+    if not inside.all() or (late & rel).any() or not rel.all():
+        raise AssertionError(f"{label}: a particle outside its cell, or a "
+                             "travel time beyond its time")
+
+
+def same_drivers(a, b):
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("x", "y", "z", "lay", "row", "col")) and all(
+        np.array_equal(getattr(a, k), getattr(b, k))
+        for k in ("status", "ttrack", "transitions"))
+
+
+def write_prt_deck(ws, shape, points):
+    """(p2): the bench model as a deck (``write_flagship_deck`` with its
+    recharge as an RCH6 list, as ``flagship`` holds it) with a PRT6 model:
+    DIS6, MIP6, a PRP6 with a PACKAGEDATA row per release point and
+    RELEASETIMES, TRACK FILEOUT; a GWF6-PRT6 exchange."""
+    nlay, nrow, ncol = shape
+    write_flagship_deck(ws, nlay, nrow, ncol, rcha=None,
+                        tdis=list(PRT_PERIODS), oc_last=False,
+                        extra_packages=["RCH6 m.rch"])
+    ii, jj = np.divmod(np.arange(nrow * ncol), ncol)
+    with open(os.path.join(ws, "rch.txt"), "w") as f:
+        f.write("".join(f"1 {i + 1} {j + 1} 0.0001\n"
+                        for i, j in zip(ii.tolist(), jj.tolist())))
+    _write(ws, "m.rch", f"BEGIN DIMENSIONS\n  MAXBOUND {nrow * ncol}\n"
+           "END DIMENSIONS\nBEGIN PERIOD 1\n  OPEN/CLOSE rch.txt\n"
+           "END PERIOD\n")
+    _write(ws, "mfsim.nam", "BEGIN TIMING\n  TDIS6 sim.tdis\nEND TIMING\n"
+           "BEGIN MODELS\n  GWF6 m.nam FLAGSHIP\n  PRT6 prt.nam PRT\n"
+           "END MODELS\nBEGIN EXCHANGES\n  GWF6-PRT6 fp.exg FLAGSHIP PRT\n"
+           "END EXCHANGES\nBEGIN SOLUTIONGROUP 1\n  IMS6 sim.ims FLAGSHIP\n"
+           "END SOLUTIONGROUP\n")
+    shutil.copy(os.path.join(ws, "m.dis"), os.path.join(ws, "prt.dis"))
+    _write(ws, "prt.nam", "BEGIN PACKAGES\n  DIS6 prt.dis\n  MIP6 prt.mip\n"
+           "  PRP6 prt.prp\nEND PACKAGES\n")
+    _write(ws, "prt.mip", f"BEGIN GRIDDATA\n  POROSITY\n    CONSTANT "
+           f"{PRT_POROSITY!r}\nEND GRIDDATA\n")
+    x, y, z = points
+    col = (x // 10.0).astype(np.int64)
+    row = nrow - 1 - (y // 10.0).astype(np.int64)
+    # the rows inline: PRP6's PACKAGEDATA reads no OPEN/CLOSE
+    rows = "".join(
+        f"  {k + 1} 1 {r + 1} {c + 1} {a!r} {b!r} {d!r}\n"
+        for k, (r, c, a, b, d) in enumerate(zip(
+            row.tolist(), col.tolist(), x.tolist(), y.tolist(),
+            z.tolist())))
+    times = "".join(f"  {t!r}\n" for t in PRT_TIMES)
+    _write(ws, "prt.prp", "BEGIN OPTIONS\n  TRACK FILEOUT prt.trk\n"
+           f"END OPTIONS\nBEGIN DIMENSIONS\n  NRELEASEPTS {x.size}\n"
+           f"  NRELEASETIMES {len(PRT_TIMES)}\nEND DIMENSIONS\n"
+           f"BEGIN PACKAGEDATA\n{rows}END PACKAGEDATA\n"
+           f"BEGIN RELEASETIMES\n{times}END RELEASETIMES\n")
+
+
+def run_prt(device, shape=BENCH_SHAPE):
+    """The prt phase: (p1) a particle swarm on the bench model, and its
+    first step again, bitwise; (p2) its GWF6 + PRT6 deck through the
+    command-line entry, the track file bitwise; (p3) the ternary method on
+    the brick DISV grid, and its first step again, bitwise.  Returns the
+    stencil7 launches."""
+    nlay, nrow, ncol = shape
+    t_phase = time.perf_counter()
+    launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        grid = flagship_grid(*shape)
+        points = prt_points(grid, 2)
+        # the repeat runs the first step (the time budget): its heads and
+        # its track records bitwise those of the first run's first step
+        runs = []
+        for i, periods in enumerate((PRT_PERIODS, PRT_PERIODS_FIRST)):
+            reset_peak(device)
+            model = flagship(*shape, device)
+            path = os.path.join(root, f"p1_{i}.trk")
+            recs, drv, _, n = run_prt_memory(
+                device, model, points, path, f"prt (p1) bench run {i + 1}",
+                periods)
+            launches += n
+            runs.append((recs, drv, path))
+            del model
+        (r0, d0, p0), (r1, _, p1) = runs
+        same = (np.array_equal(r0[0].head, r1[0].head)
+                and file_prefix_equal(p0, p1))
+        t0_ = file_digest(p0)
+        print(f"prt (p1) the first step twice bitwise equal={same} "
+              f"track_bytes={os.path.getsize(p0)}")
+        if not same or not n:
+            raise AssertionError("prt (p1): the two runs differ, or no "
+                                 "stencil7 launch")
+        check_particles("prt (p1)", d0, grid, sum(p[0] for p in PRT_PERIODS))
+        del runs, r1
+        ws = os.path.join(root, "deck")
+        os.makedirs(ws)
+        t0 = time.perf_counter()
+        write_prt_deck(ws, shape, points)
+        write_s = time.perf_counter() - t0
+        out = io.StringIO()
+        with captured_loads(device) as loads, counted_run() as counts, \
+                contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            code = cli_main([ws] + ([] if torch.device(device).type == "cuda"
+                                    else ["--device", "cpu"]))
+            sync(device)
+            cli_s = time.perf_counter() - t0
+        load_s = loads[0][1]
+        del loads
+        bitwise = file_digest(os.path.join(ws, "prt.trk")) == t0_
+        print(f"prt (p2) deck written in {write_s!r} s, cli exit={code} "
+              f"wall_s={cli_s!r} load_s={load_s!r} track_bitwise_equal_(p1)"
+              f"={bitwise} stencil7_launches={counts['launches']} "
+              f"stdout={out.getvalue().strip()!r}")
+        if code != 0 or not bitwise or not counts["launches"]:
+            raise AssertionError("prt (p2): the deck's track file differs "
+                                 "from (p1)'s")
+        launches += counts["launches"]
+    # (p3) the ternary method on the one-layer brick grid of a million cells
+    ncpl = nrow * ncol
+    grid = brick_disv(1, nrow, ncol, 10.0, 50.0, np.zeros((1, ncpl)))
+    args = brick_model_args(1, nrow, ncol,
+                            evt_rows=range(nrow // 4,
+                                           min(nrow, nrow // 4 + 64)))
+    points = prt_points(grid, 4)
+    # the repeat runs the first step (the time budget): its heads and its
+    # track records bitwise those of the first run's first step
+    runs = []
+    with tempfile.TemporaryDirectory() as root:
+        for i, periods in enumerate((PRT_PERIODS, PRT_PERIODS_FIRST)):
+            reset_peak(device)
+            model = build_gwf("brick", grid, device=device, **args)
+            path = os.path.join(root, f"p3_{i}.trk")
+            recs, drv, _, n = run_prt_memory(
+                device, model, points, path, f"prt (p3) brick run {i + 1}",
+                periods)
+            runs.append((recs, drv, path, n))
+            del model
+        (r0, d0, p0, n0), (r1, d1, p1, n1) = runs
+        same = (np.array_equal(r0[0].head, r1[0].head)
+                and file_prefix_equal(p0, p1))
+    print(f"prt (p3) the first step twice bitwise equal={same} "
+          f"stencil7_launches={n0 + n1}")
+    if not same or n0 + n1:
+        raise AssertionError("prt (p3): the two runs differ, or a stencil7 "
+                             "launch on the gather path")
+    check_particles("prt (p3)", d0, grid, sum(p[0] for p in PRT_PERIODS))
+    print(f"prt phase: {time.perf_counter() - t_phase!r} s, stencil7 "
+          f"launches={launches}")
+    return launches
+
+
+def small_swf_prt_models(dev):
+    """[(name, run)] of the small SWF and PRT twins on ``dev``: run() →
+    (values, counts, converged, closure)."""
+    from modflow6_torch.models.discretization.disv2d import Disv2dGrid
+    from modflow6_torch.models.swf.exchange import (CoupledSwfGwf,
+                                                    SwfGwfExchange)
+    from modflow6_torch.models.swf.model import (Disv1dGrid, build_chf,
+                                                 build_olf)
+    from modflow6_torch.models.swf.simulation import default_settings
+    s = default_settings()
+
+    def march(model, steps, delt):
+        sol = NumericalSolution(model, s)
+        stage, counts, ok = model.strt, [], True
+        for k in range(steps):
+            stage, info, _ = sol.solve_timestep(stage, delt, kstp=k + 1)
+            counts.append(info.outer_iterations)
+            ok &= info.converged
+        return stage.cpu(), counts, ok, s.outer_dvclose
+
+    def chf_cxs():
+        n = 12
+        bot = np.arange(n)[::-1] * 0.1
+        return march(build_chf(
+            "c", Disv1dGrid.chain(np.full(n, 100.0), 4.0, bot),
+            manningsn=0.03, strt=bot + 1.4, icentral=0, flw=[(0, 1.5)],
+            zdg=[(n - 1, 4.0, 1e-3, 0.03)], cxs_sections=[CHF_SECTION],
+            idcxs=np.ones(n, np.int64), device=dev), 3, 300.0)
+
+    def olf(kind):
+        nr, nc, d = 4, 6, 10.0
+        land = np.tile(np.arange(nc)[::-1] * 0.01 * d, (nr, 1))
+        if kind == "dis2d":
+            grid = DisGrid.create(1, nr, nc, d, d, float(land.max()) + 1.0,
+                                  land[None])
+        else:
+            g = quad_disv(1, nr, nc, d, 1.0, np.zeros((1, nr * nc)))
+            grid = Disv2dGrid.from_arrays(g.vertices, g.xc, g.yc, g.iavert,
+                                          g.javert, land.reshape(-1))
+        return march(build_olf(
+            "o", grid, manningsn=0.05, strt=land.reshape(-1) + 0.05,
+            pcp=[(i, 1e-4) for i in range(nr * nc)],
+            flw=[(i * nc, 0.05) for i in range(nr)],
+            chd=[(i * nc + nc - 1, land[0, -1] + 0.05) for i in range(nr)],
+            device=dev), 1, 100.0)
+
+    def exchange():
+        n = 10
+        bot = np.arange(n)[::-1] * 0.1 + 5.0
+        chf = build_chf("c", Disv1dGrid.chain(np.full(n, 100.0), 5.0, bot),
+                        manningsn=0.03, strt=bot + 0.3, flw=[(0, 2.0)],
+                        zdg=[(n - 1, 5.0, 1e-3, 0.03)], device=dev)
+        gwf = build_gwf("a", DisGrid.create(1, 3, n, 100.0, 100.0, 5.0,
+                                            -20.0 * np.ones((1, 3, n))),
+                        k=5.0, strt=0.0, device=dev,
+                        chd=[(i * n, 0.0) for i in range(3)]
+                        + [(i * n + n - 1, 0.0) for i in range(3)])
+        cpl = CoupledSwfGwf(chf, gwf, SwfGwfExchange(
+            np.arange(n), n + np.arange(n), np.full(n, 0.02)))
+        stage, head, counts, ok = chf.strt, gwf.strt, [], True
+        for k in range(2):
+            stage, head, info = cpl.step(stage, head, 500.0, kstp=k + 1,
+                                         iss_gwf=True)
+            counts.append(info["exg_iters"])
+            ok &= info["converged"]
+        return torch.cat([stage, head]).cpu(), counts, ok, 1e-7
+
+    def prt(kind):
+        from modflow6_torch.models.prt import tracking_disv
+        from modflow6_torch.models.prt.model import PrtModel, ReleasePoints
+        nrow, ncol = 9, 11
+        if kind == "dis":
+            grid = flagship_grid(2, nrow, ncol)
+        else:
+            grid = brick_disv(2, nrow, ncol, 10.0, 50.0,
+                              flagship_botm(2, nrow * ncol))
+        model = build_gwf("p", grid, device=dev,
+                          **flagship_args(2, nrow, ncol))
+        head, info, aux = NumericalSolution(model, ImsSettings(**TIGHT)) \
+            .solve_timestep(model.strt, 5.0)
+        pts = prt_points(grid, 1)
+        if kind == "dis":
+            prt_m = PrtModel("p", grid, torch.full((grid.nodes,), 0.3,
+                                                   dtype=torch.float64,
+                                                   device=dev),
+                             ReleasePoints(*pts))
+            out = prt_m.make_step(model)(head, aux["ibound"], aux["cond"],
+                                         *prt_m.initial_state(dev), 200.0)
+        else:
+            fan = tracking_disv.build_fan(grid, model.topo,
+                                          np.full(grid.nodes, 0.3),
+                                          device=dev)
+            flux = tracking_disv.fan_fluxes(
+                fan, model.edge_flows(head, aux["ibound"], aux["cond"]))
+            from modflow6_torch.models.gwf import npf
+            sat = npf.compute_saturation(model.npf_opts, model.npf_arrays,
+                                         head, aux["ibound"]).reshape(2, -1)
+            lay, cell, tri = tracking_disv.locate(fan, *pts)
+
+            def t(a, dtype=torch.float64):
+                return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+            out = tracking_disv.make_tracker_disv(fan)(
+                t(pts[0]), t(pts[1]), t(pts[2]), t(lay, torch.int64),
+                t(cell, torch.int64), t(tri, torch.int64), *flux, sat, 200.0)
+        vals = torch.cat([out["x"], out["y"], out["z"], out["time"]]).cpu()
+        return vals, out["status"].cpu().tolist(), info.converged, 1e-9
+
+    return [("chf cxs", chf_cxs), ("olf dis2d", lambda: olf("dis2d")),
+            ("olf disv2d", lambda: olf("disv2d")), ("swf-gwf", exchange),
+            ("prt dis", lambda: prt("dis")), ("prt disv", lambda: prt("disv"))]
+
+
+def check_small_swf_prt(device, names=None):
+    """Small SWF and PRT twins on the card against the CPU: SWF stages
+    within 10 × outer_dvclose, with equal outer counts (Picard passes)
+    where the inner solves close before their cap (the CHF and exchange
+    twins; the OLF twins' BiCGSTAB solves run to their 500-iteration cap,
+    so their counts follow the last bits of the sums and the powers, as
+    the Newton twins' do); PRT equal statuses, positions and times within
+    1e-9 relative."""
+    cpu = dict(small_swf_prt_models("cpu"))
+    for name, run in small_swf_prt_models(device):
+        if names is not None and name not in names:
+            continue
+        v, k, ok, bar = run()
+        v0, k0, ok0, _ = cpu[name]()
+        if name.startswith("prt"):
+            err = float(((v - v0).abs() / v0.abs().clamp(min=1.0)).max())
+        else:
+            err = float((v - v0).abs().max())
+            bar = CLOSURE_FACTOR * bar
+        same = k == k0 or name.startswith("olf")
+        print(f"small swf/prt {name}: card counts or statuses={k} "
+              f"converged={ok}; cpu={k0} converged={ok0}; max diff={err!r} "
+              f"bar={bar!r}")
+        if not (ok and ok0 and same and err <= bar):
+            raise AssertionError(f"small swf/prt {name}: the card disagrees "
+                                 "with the CPU")
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -5326,7 +6196,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
           "unstructured", "properties", "advanced", "coupling", "utilities",
-          "transport", "apt", "gwe")
+          "transport", "apt", "gwe", "swf", "prt")
 
 
 def main():
@@ -5370,9 +6240,11 @@ def main():
         return
 
     launches = {}
+    t_script = time.perf_counter()
     if "kernel" in phases:
         worst, times = check_kernel(device)
     if "small" in phases:
+        t_small = time.perf_counter()
         check_small_model(device)
         check_small_preconditioned(device)
         check_small_deck(device)
@@ -5381,6 +6253,10 @@ def main():
         check_small_coupling(device)
         check_small_transport(device)
         check_small_apt(device)
+        t_swf = time.perf_counter()
+        check_small_swf_prt(device)
+        print(f"small phase in {time.perf_counter() - t_small!r} s (the "
+              f"SWF and PRT twins {time.perf_counter() - t_swf!r} s)")
     if "bench" in phases:
         launches["fused"], _, _, mixed_inners, _ = run_bench(device, "mixed")
         f64_launches, fused_head, kiters, inners, _ = run_bench(device, "f64")
@@ -5425,6 +6301,12 @@ def main():
         apt_launches = run_apt(device)
     if "gwe" in phases:
         launches["gwe"] = run_gwe(device)
+    if "swf" in phases:
+        launches["swf"] = run_swf(device)
+    if "prt" in phases:
+        launches["prt"] = run_prt(device)
+    print(f"chip_smoke: phases {phases} in "
+          f"{time.perf_counter() - t_script!r} s (the build before them)")
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -5452,6 +6334,8 @@ def main():
         "launches_transport_path": launches["transport"],
         "launches_apt_path": apt_launches,
         "launches_gwe_path": launches["gwe"],
+        "launches_swf_path": launches["swf"],
+        "launches_prt_path": launches["prt"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

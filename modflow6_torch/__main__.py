@@ -72,7 +72,8 @@ def main(argv=None):
         # failed steps, as the reference program does
         print(f"Simulation convergence failure occurred {failed} time(s)",
               file=sys.stderr)
-    failed_gwt = sum(not r.transport_converged for r in recs)
+    failed_gwt = sum(not getattr(r, "transport_converged", True)
+                     for r in recs)
     if failed_gwt:
         print(f"Transport convergence failure occurred {failed_gwt} "
               "time(s)", file=sys.stderr)

@@ -223,6 +223,9 @@ class Simulation:
         # option is set (the loader clears this flag then)
         self.fail_fast = False
         self.grb_seconds = 0.0    # host time of the binary grid file
+        # PRT particle tracking over each accepted flow step
+        # (prt.simulation.PrtDriver; the explicit solution's role)
+        self.prt_drivers = []
 
     def _apply_time_varying(self, kper):
         """TVK/TVS period changes (the reference's _apply_time_varying):
@@ -403,6 +406,11 @@ class Simulation:
                 self.solution = NumericalSolution(model, self.solution.s)
         self._sync()
         t1 = time.perf_counter()
+        # ---- explicit PRT models track over the accepted flow step
+        for drv in self.prt_drivers:
+            if not hasattr(drv, "x"):
+                drv.begin(self.tdis)
+            drv.on_step(kper, kstp, delt, totim, head, ibound, cond)
         if self.outer_csv:
             self.outer_csv.write_step(totim, kper, kstp, info)
         if info.inner_traces:
@@ -652,6 +660,8 @@ class Simulation:
 
     def finish(self):
         """Close outputs and write the listing file (Mf6Finalize role)."""
+        for drv in self.prt_drivers:
+            drv.finish()
         if self.obs is not None:
             self.obs.close()
         if self.nc is not None:

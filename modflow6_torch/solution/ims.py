@@ -111,14 +111,11 @@ def fix_system(model, active, diag, off, rhs, x, symmetric):
 def _make_precond(s, model, dtopo, matvec, diag, off):
     """Preconditioner factory shared by the diagnostic and fused paths.
     ``mg`` needs the structured stencil form: a model that is not on the
-    structured path (a general grid, or a DIS grid with rotated
-    anisotropy) gets Chebyshev instead, as in the reference; everything
+    structured path (a general grid, a DIS grid with rotated anisotropy,
+    or an augmented model, whose feature rows have no grid shape) gets
+    Chebyshev instead, as in the reference; everything
     else goes through ops.solvers.precond.make_preconditioner, Chebyshev
     with at least order 4."""
-    if s.preconditioner == "mg" and hasattr(model, "n_extra"):
-        raise NotImplementedError(
-            "the multigrid preconditioner on an augmented model (MAW, LAK "
-            "or SFR rows have no grid shape to coarsen)")
     if s.preconditioner == "mg" and model.use_structured:
         return make_mg_preconditioner(dtopo.grid_shape, diag, off)
     kind = "chebyshev" if s.preconditioner == "mg" else s.preconditioner

@@ -279,8 +279,11 @@ def _arr_lines(a, fmt="{:.8g}"):
     a = np.asarray(a)
     if a.ndim == 1:
         a = a[None, :]
-    return "\n".join("      " + " ".join(fmt.format(v) for v in row)
-                     for row in a)
+    # Python numbers format as numpy's do (np.float64 formats through
+    # float.__format__), without a numpy scalar per value
+    put = fmt.format
+    return "\n".join("      " + " ".join(map(put, row))
+                     for row in a.tolist())
 
 
 def convert(nam_path, outdir, model_name="mf5"):

@@ -40,7 +40,7 @@ import numpy as np
 
 from ...models.discretization import DisGrid, DisvGrid
 from . import schema
-from .reader import BlockFile
+from .reader import BlockFile, TokenTable, table_or_lines
 
 # options of MAW6, LAK6 and SFR6 that change the flows and are not ported
 UNPORTED_OPTIONS = {
@@ -328,8 +328,10 @@ def apply_sfr_period(reaches, lines):
 def record_column(lines, c, path, kind=float):
     """Field ``c`` of every record as a float64 (or, ``kind=int``, int64)
     array; a time-series name where a number belongs raises by name."""
+    vals = (lines.column(c) if isinstance(lines, TokenTable)
+            else [t[c] for t in lines])
     try:
-        return np.fromiter((kind(t[c]) for t in lines),
+        return np.fromiter(map(kind, vals),
                            np.float64 if kind is float else np.int64,
                            len(lines))
     except ValueError:
@@ -362,7 +364,7 @@ def load_uzf(path, grid):
                  iseepflag=int("SIMULATE_GWSEEP" in opts),
                  igwetflag=int("LINEAR_GWET" in opts))
     # iuzno cellid landflag ivertcon surfdep vks thtr thts thti eps
-    lines = bf.get("PACKAGEDATA").lines
+    lines = table_or_lines(bf.get("PACKAGEDATA").raw)
     iuzno = record_column(lines, 0, path, int) - 1
     node, nt = cellid_nodes(lines, 1, grid, path)
     c = 1 + nt
@@ -376,7 +378,8 @@ def load_uzf(path, grid):
     n = iuzno.shape[0]
     for name in ("finf", "pet", "extdp", "extwc"):
         cols[name] = np.zeros(n)
-    periods = _period_blocks(bf)
+    periods = {int(b.index): table_or_lines(b.raw)
+               for b in bf.get_all("PERIOD")}
     apply_uzf_period(cols, periods.get(1, []), path)
     return cols, flags, {k: v for k, v in periods.items() if k > 1}
 
@@ -385,12 +388,16 @@ def apply_uzf_period(cols, lines, path=""):
     """Apply one PERIOD block to the UZF columns (gwf-uzf.f90 uzf_rp):
     ``iuzno finf [pet extdp extwc ...]``; values persist until
     redefined."""
-    if not lines:
+    if not len(lines):
         return
-    width = np.minimum(np.fromiter((len(t) for t in lines), np.int64,
-                                   len(lines)), 5)
-    for w in np.unique(width):
-        sub = [lines[i] for i in np.nonzero(width == w)[0]]
+    if isinstance(lines, TokenTable):
+        groups = [(min(lines.width, 5), lines)]
+    else:
+        width = np.minimum(np.fromiter((len(t) for t in lines), np.int64,
+                                       len(lines)), 5)
+        groups = [(w, [lines[i] for i in np.nonzero(width == w)[0]])
+                  for w in np.unique(width)]
+    for w, sub in groups:
         rows = np.searchsorted(cols["iuzno"], record_column(sub, 0, path, int) - 1)
         for k, name in enumerate(("finf", "pet", "extdp", "extwc")[:w - 1]):
             cols[name][rows] = record_column(sub, k + 1, path)

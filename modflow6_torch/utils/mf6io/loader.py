@@ -121,7 +121,8 @@ from ..timeseries import bind_array_series, load_tas, load_ts6
 from . import advanced_loader as adv_ld
 from . import schema
 from .arrays import read_grid_array
-from .reader import BlockFile
+from .reader import (BlockFile, split_records, tokenize_line,
+                     uniform_table)
 
 # package types of a GWF name file that the slice covers
 _SUPPORTED_PACKAGES = ("DIS6", "DISV6", "DISU6", "IC6", "NPF6", "STO6", "CHD6",
@@ -296,23 +297,114 @@ def load_disv(path) -> DisvGrid:
     base = os.path.dirname(path)
     d = bf.dimensions()
     nlay, ncpl, nvert = d["NLAY"], d["NCPL"], d["NVERT"]
+    verts = vertices_block(bf.get("VERTICES"), nvert)
+    rings = cell2d_block(bf.get("CELL2D"), ncpl)
+    top = read_grid_array(bf, "GRIDDATA", "TOP", (ncpl,), base)
+    botm = read_grid_array(bf, "GRIDDATA", "BOTM", (nlay, ncpl), base)
+    idomain = read_grid_array(bf, "GRIDDATA", "IDOMAIN", (nlay, ncpl),
+                              base, dtype=np.int64, default=1)
+    return DisvGrid.from_arrays(nlay, verts, *rings, top, botm, idomain)
+
+
+def vertices_block(block, nvert):
+    """VERTICES records (iv, x, y) → f64[nvert, 2].  Uniform records with
+    distinct ids are read as columns; other blocks record by record, the
+    later record of an id winning."""
     verts = np.zeros((nvert, 2))
-    for toks in bf.get("VERTICES").lines:
+    table = uniform_table(block.raw)
+    if table is not None and table[1] >= 3:
+        toks, w = table
+        try:
+            iv = np.array(list(map(int, toks[0::w])), np.int64) - 1
+            x = list(map(float, toks[1::w]))
+            y = list(map(float, toks[2::w]))
+        except ValueError:
+            iv = None
+        if iv is not None and np.unique(iv).size == iv.size:
+            verts[iv, 0] = x
+            verts[iv, 1] = y
+            return verts
+    for toks in block.lines:
         verts[int(toks[0]) - 1] = (float(toks[1]), float(toks[2]))
+    return verts
+
+
+def cell2d_block(block, ncpl, first_vertex=4):
+    """CELL2D records (icell, xc, yc, ncvert, vertex ids...) → (xc, yc,
+    iavert, javert) of ``DisvGrid.from_arrays``: each cell's open ring,
+    0-based, without the closing duplicate MF6 may list.  Cells listed
+    once each in any order are read as arrays, grouped by vertex count;
+    other blocks record by record."""
+    got = _cell2d_arrays(block.raw, ncpl, first_vertex)
+    if got is not None:
+        return got
     cell2d = [None] * ncpl
-    for toks in bf.get("CELL2D").lines:
-        ncvert = int(toks[3])
-        ivs = [int(t) - 1 for t in toks[4:4 + ncvert]]
+    for toks in block.lines:
+        ncvert = int(toks[first_vertex - 1])
+        ivs = [int(t) - 1 for t in toks[first_vertex:first_vertex + ncvert]]
         # MF6 lists cell vertices clockwise with an optional closing
         # duplicate; DisvGrid wants an open ring
         if len(ivs) > 1 and ivs[0] == ivs[-1]:
             ivs = ivs[:-1]
         cell2d[int(toks[0]) - 1] = (float(toks[1]), float(toks[2]), ivs)
-    top = read_grid_array(bf, "GRIDDATA", "TOP", (ncpl,), base)
-    botm = read_grid_array(bf, "GRIDDATA", "BOTM", (nlay, ncpl), base)
-    idomain = read_grid_array(bf, "GRIDDATA", "IDOMAIN", (nlay, ncpl),
-                              base, dtype=np.int64, default=1)
-    return DisvGrid.create(nlay, ncpl, verts, cell2d, top, botm, idomain)
+    xc = np.array([c[0] for c in cell2d], np.float64)
+    yc = np.array([c[1] for c in cell2d], np.float64)
+    rings = [np.asarray(c[2], np.int64) for c in cell2d]
+    iavert = np.zeros(ncpl + 1, np.int64)
+    iavert[1:] = np.cumsum([r.size for r in rings])
+    javert = (np.concatenate(rings) if rings else np.zeros(0, np.int64))
+    return xc, yc, iavert, javert
+
+
+def _cell2d_arrays(raw, ncpl, first):
+    table = uniform_table(raw)
+    if table is not None and table[1] >= first:
+        toks, w = table
+        try:
+            ncv = np.array(list(map(int, toks[first - 1::w])), np.int64)
+        except ValueError:
+            return None
+        if (ncv == ncv[0]).all() and first + ncv[0] == w and ncv[0] >= 1:
+            return _uniform_cell2d(toks, w, ncpl, first)
+    split = split_records(raw)
+    if split is None or len(raw) != ncpl:
+        return None
+    toks, counts = split
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    if (counts < first).any():
+        return None
+    tok = np.array(toks, dtype=object)
+    try:
+        icell = np.array(list(map(int, tok[start])), np.int64) - 1
+        xc = np.array(list(map(float, tok[start + 1])), np.float64)
+        yc = np.array(list(map(float, tok[start + 2])), np.float64)
+        ncv = np.array(list(map(int, tok[start + first - 1])), np.int64)
+    except ValueError:
+        return None
+    if (ncv < 1).any() or (counts < first + ncv).any() or not np.array_equal(
+            np.sort(icell), np.arange(ncpl)):
+        return None
+    pos = (np.repeat(start + first - np.cumsum(ncv) + ncv, ncv)
+           + np.arange(int(ncv.sum())))
+    try:
+        ivs = np.array(list(map(int, tok[pos])), np.int64) - 1
+    except ValueError:
+        return None
+    # drop the closing duplicate of a ring that repeats its first vertex
+    first_pos = np.cumsum(ncv) - ncv
+    closed = (ncv > 1) & (ivs[first_pos] == ivs[np.maximum(
+        first_pos + ncv - 1, 0)])
+    keep = np.ones(ivs.size, bool)
+    keep[(first_pos + ncv - 1)[closed]] = False
+    nv = ncv - closed
+    # rings in cell order
+    order = np.argsort(icell, kind="stable")
+    ring_cell = np.repeat(icell, nv)
+    ivs = ivs[keep]
+    javert = ivs[np.argsort(ring_cell, kind="stable")]
+    iavert = np.zeros(ncpl + 1, np.int64)
+    iavert[1:] = np.cumsum(nv[order])
+    return xc[order], yc[order], iavert, javert
 
 
 def load_disu(path) -> DisuGrid:
@@ -372,10 +464,11 @@ def load_oc(path, mdir, component="gwf-oc"):
             if verb in ("SAVE", "PRINT"):
                 actions[(verb, what)] = parse_spec(toks[2:])
         oc.set_period(b.index, actions)
-    # a transport model's CONCENTRATION or TEMPERATURE file takes the
-    # place of HEAD's (tsp-oc)
+    # a transport model's CONCENTRATION or TEMPERATURE file, or an SWF
+    # model's STAGE file, takes the place of HEAD's (tsp-oc, swf-oc)
     return (_fileout("HEAD") or _fileout("CONCENTRATION")
-            or _fileout("TEMPERATURE"), _fileout("BUDGET"), oc)
+            or _fileout("TEMPERATURE") or _fileout("STAGE"),
+            _fileout("BUDGET"), oc)
 
 
 def _cellid_to_node(toks, grid, start=0):
@@ -391,6 +484,98 @@ def _cellid_to_node(toks, grid, start=0):
         k, c = int(toks[start]) - 1, int(toks[start + 1]) - 1
         return k * grid.ncpl + c, 2
     return int(toks[start]) - 1, 1
+
+
+def _cellid_width(grid) -> int:
+    return 3 if isinstance(grid, DisGrid) else (
+        2 if isinstance(grid, DisvGrid) else 1)
+
+
+def _list_columns(records, grid, ncols, aux_names, has_bnames):
+    """A list block whose records all have the same number of tokens, read
+    as columns: (entries, names, aux values) as ``list_rows`` gives them,
+    or None for a block that ``list_rows`` must read (records of differing
+    widths, quotes, a time-series name or too few columns).  The values go
+    through Python's ``int`` and ``float``, as there."""
+    table = uniform_table(records)
+    if table is None:
+        return None
+    toks, w = table
+    nt = _cellid_width(grid)
+    naux = len(aux_names)
+    if w < nt + ncols + naux:
+        return None
+    try:
+        cid = [np.array(list(map(int, toks[j::w])), np.int64) - 1
+               for j in range(nt)]
+        vals = [list(map(float, toks[nt + c::w])) for c in range(ncols)]
+        aux = {a: list(map(float, toks[nt + ncols + ia::w]))
+               for ia, a in enumerate(aux_names)}
+    except ValueError:
+        return None
+    if nt == 3:
+        node = (cid[0] * grid.nrow + cid[1]) * grid.ncol + cid[2]
+    elif nt == 2:
+        node = cid[0] * grid.ncpl + cid[1]
+    else:
+        node = cid[0]
+    at = nt + ncols + naux
+    n = len(records)
+    names = ([t.upper() for t in toks[at::w]] if has_bnames and w > at
+             else [None] * n)
+    return list(zip(node.tolist(), *vals)), names, aux
+
+
+def _uniform_cell2d(toks, w, ncpl, first):
+    """``_cell2d_arrays`` for records that all list ``w - first`` vertices
+    and nothing after them: the columns are slices of the token list."""
+    try:
+        icell = np.array(list(map(int, toks[0::w])), np.int64) - 1
+        xc = np.array(list(map(float, toks[1::w])), np.float64)
+        yc = np.array(list(map(float, toks[2::w])), np.float64)
+        ivs = np.stack([np.array(list(map(int, toks[j::w])), np.int64) - 1
+                        for j in range(first, w)], axis=1)
+    except ValueError:
+        return None
+    if icell.size != ncpl or not np.array_equal(np.sort(icell),
+                                                np.arange(ncpl)):
+        return None
+    nv = np.full(ncpl, w - first, np.int64)
+    closed = (w - first > 1) & (ivs[:, 0] == ivs[:, -1])
+    nv -= closed
+    keep = np.ones(ivs.shape, bool)
+    keep[closed, -1] = False
+    order = np.argsort(icell, kind="stable")
+    javert = ivs[order][keep[order]]
+    iavert = np.zeros(ncpl + 1, np.int64)
+    iavert[1:] = np.cumsum(nv[order])
+    return xc[order], yc[order], iavert, javert
+
+
+def list_rows(records, grid, ncols, aux_names, has_bnames):
+    """A list block's records one by one: (entries, names, aux values,
+    series references (row, col, NAME)); a value that is no number is a
+    time-series name, 0.0 until the series binds."""
+    naux = len(aux_names)
+    entries, names, refs = [], [], []
+    auxvals = {a: [] for a in aux_names}
+    for row, toks in enumerate(map(tokenize_line, records)):
+        node, ntok = _cellid_to_node(toks, grid)
+        vals = []
+        for col in range(ncols):
+            t = toks[ntok + col]
+            try:
+                vals.append(float(t))
+            except ValueError:
+                refs.append((row, col, t.upper()))
+                vals.append(0.0)
+        entries.append((node, *vals))
+        for ia, a in enumerate(aux_names):
+            auxvals[a].append(float(toks[ntok + ncols + ia]))
+        at = ntok + ncols + naux
+        names.append(toks[at].upper() if has_bnames and len(toks) > at
+                     else None)
+    return entries, names, auxvals, refs
 
 
 def _load_period_lists(path, grid, ncols, component=None):
@@ -413,31 +598,16 @@ def _load_period_lists(path, grid, ncols, component=None):
     aux = opts.get("AUXILIARY")
     aux_names = [str(a).upper() for a in
                  (aux if isinstance(aux, list) else [aux] if aux else [])]
-    naux = len(aux_names)
     has_bnames = "BOUNDNAMES" in opts
     periods, bnames, ts_refs, aux_periods = {}, {}, [], {}
     for b in bf.get_all("PERIOD"):
-        entries, names = [], []
-        auxvals = {a: [] for a in aux_names}
-        for row, toks in enumerate(bf.expand_open_close(b)):
-            node, ntok = _cellid_to_node(toks, grid)
-            vals = []
-            for col in range(ncols):
-                t = toks[ntok + col]
-                try:
-                    vals.append(float(t))
-                except ValueError:
-                    ts_refs.append((b.index, row, col, t.upper()))
-                    vals.append(0.0)
-            entries.append((node, *vals))
-            for ia, a in enumerate(aux_names):
-                auxvals[a].append(float(toks[ntok + ncols + ia]))
-            at = ntok + ncols + naux
-            names.append(toks[at].upper() if has_bnames and len(toks) > at
-                         else None)
-        periods[b.index] = entries
-        bnames[b.index] = names
-        aux_periods[b.index] = auxvals
+        records = bf.records(b)
+        got = _list_columns(records, grid, ncols, aux_names, has_bnames)
+        if got is None:
+            *got, refs = list_rows(records, grid, ncols, aux_names,
+                                   has_bnames)
+            ts_refs.extend((b.index, *ref) for ref in refs)
+        periods[b.index], bnames[b.index], aux_periods[b.index] = got
     return opts, dims, periods, ts_refs, bnames, aux_periods
 
 
@@ -1443,6 +1613,167 @@ def _ssm_spec(gwt_bundle, flow_bundle):
     return spec or None
 
 
+# PRP6 options the reference's loader reads past that change the tracks
+# (R24–R30 of ROADMAP Queue C)
+_PRP_UNPORTED = {"STOPTRAVELTIME": "R24", "EXTEND_TRACKING": "R25",
+                 "DRAPE": "R26", "STOP_AT_WEAK_SINK": "R27",
+                 "DRY_TRACKING_METHOD": "R28",
+                 "RELEASE_TIME_FREQUENCY": "R29",
+                 "EXIT_SOLVE_TOLERANCE": "R30"}
+# PRT OC6 options that select or write tracks, which the reference's
+# loader never reads (R31)
+_PRT_OC_UNPORTED = ("TRACK", "TRACKCSV", "TRACK_RELEASE", "TRACK_EXIT",
+                    "TRACK_TIMESTEP", "TRACK_TERMINATE", "TRACK_WEAKSINK",
+                    "TRACK_USERTIME")
+
+
+def _prp_points(block, grid):
+    """PRP PACKAGEDATA (irptno cellid xrpt yrpt zrpt ...) → (node, x, y,
+    z) arrays: records of one width as columns, others one by one."""
+    nt = _cellid_width(grid)
+    table = uniform_table(block.raw)
+    if table is not None and table[1] >= 1 + nt + 3:
+        toks, w = table
+        try:
+            cid = [np.array(list(map(int, toks[1 + j::w])), np.int64) - 1
+                   for j in range(nt)]
+            xyz = [np.array(list(map(float, toks[1 + nt + j::w])))
+                   for j in range(3)]
+        except ValueError:
+            xyz = None
+        if xyz is not None:
+            node = (((cid[0] * grid.nrow + cid[1]) * grid.ncol + cid[2])
+                    if nt == 3 else cid[0] * grid.ncpl + cid[1] if nt == 2
+                    else cid[0])
+            return (node, *xyz)
+    cells, xyz = [], []
+    for toks in block.lines:
+        node, n = _cellid_to_node(toks, grid, start=1)
+        cells.append(node)
+        xyz.append([float(toks[1 + n + j]) for j in range(3)])
+    return (np.asarray(cells, np.int64),
+            *np.asarray(xyz, np.float64).reshape(-1, 3).T)
+
+
+def _load_prt_model(ws, mfname, mname, gwf_model, gwf_grid, device):
+    """One PRT model name file (DIS/DISV, MIP, PRP, OC) → PrtDriver over
+    the flow model ``gwf_model`` (the reference's loader.py:1236-1333).
+    The PRT grid must have the flow grid's cells; the particles track on
+    the flow model's grid, as there."""
+    from ...models.prt.model import PrtModel, ReleasePoints
+    from ...models.prt.simulation import PrtDriver
+    from ...models.prt.trackfile import ReleaseSchedule
+
+    mnam = BlockFile(os.path.join(ws, mfname))
+    mdir = os.path.dirname(os.path.join(ws, mfname))
+    schema.check_options("prt-nam", mnam.options(), mfname)
+    pkg_files = {}
+    for toks in mnam.get("PACKAGES").lines:
+        pkg_files.setdefault(toks[0].upper(), []).append(
+            os.path.join(mdir, toks[1]))
+
+    grid = _load_grid(pkg_files)
+    if grid.nodes != gwf_grid.nodes:
+        raise ValueError("PRT grid does not match the GWF grid")
+    shp = grid.shape
+    porosity = np.full(grid.nodes, 0.3)
+    izone = None
+    if "MIP6" in pkg_files:
+        mip = BlockFile(pkg_files["MIP6"][0])
+        schema.check_options("prt-mip", mip.options(), pkg_files["MIP6"][0])
+        porosity = read_grid_array(mip, "GRIDDATA", "POROSITY", shp, mdir,
+                                   default=0.3).reshape(-1)
+        iz = read_grid_array(mip, "GRIDDATA", "IZONE", shp, mdir,
+                             dtype=np.int64)
+        izone = iz.reshape(-1) if iz is not None else None
+    if "OC6" in pkg_files:
+        oc_path = pkg_files["OC6"][0]
+        oc_opts = BlockFile(oc_path).options()
+        schema.check_options("prt-oc", oc_opts, oc_path)
+        _refuse(oc_opts, _PRT_OC_UNPORTED,
+                f"{oc_path} (R31: the reference's loader reads no PRT OC6)")
+
+    prp_path = pkg_files.get("PRP6", [None])[0]
+    if prp_path is None:
+        raise _not_ported("a PRT model without a PRP6 package")
+    prp = BlockFile(prp_path)
+    popts = prp.options()
+    schema.check_options("prt-prp", popts, prp_path)
+    for key, rn in _PRP_UNPORTED.items():
+        _refuse(popts, (key,), f"{prp_path} ({rn}: the reference's loader "
+                "reads it past)")
+
+    def _fileout(key):
+        v = popts.get(key)
+        if isinstance(v, list) and v[0].upper() == "FILEOUT":
+            return os.path.join(mdir, v[1])
+        return None
+
+    cells, xs, ys, zs = _prp_points(prp.get("PACKAGEDATA"), grid)
+    if "LOCAL_Z" in popts:
+        # zrpt is a [0, 1] fraction of the cell's thickness (prp local_z)
+        gtop = np.asarray(gwf_grid.top).reshape(-1)[cells]
+        gbot = np.asarray(gwf_grid.bot).reshape(-1)[cells]
+        zs = gbot + zs * (gtop - gbot)
+
+    rt_b = prp.get("RELEASETIMES")
+    times = [float(t[0]) for t in rt_b.lines] if rt_b is not None else []
+    period_settings = {}
+    for b in prp.get_all("PERIOD"):
+        settings = []
+        for toks in b.lines:
+            kw = toks[0].upper()
+            if kw in ("ALL", "FIRST", "LAST"):
+                settings.append((kw.lower(),))
+            elif kw == "FREQUENCY":
+                settings.append(("frequency", int(toks[1])))
+            elif kw == "STEPS":
+                settings.append(("steps", [int(t) for t in toks[1:]]))
+            elif kw == "FRACTION":
+                settings.append(("fraction", float(toks[1])))
+            else:
+                raise _not_ported(f"PRP release setting {kw}")
+        period_settings[b.index] = settings
+
+    prt = PrtModel(mname, gwf_grid,
+                   torch.as_tensor(np.asarray(porosity, np.float64),
+                                   device=device),
+                   ReleasePoints(x=xs, y=ys, z=zs))
+    stoptime = float(popts["STOPTIME"]) if "STOPTIME" in popts else np.inf
+    return PrtDriver(
+        model=prt, gwf_model=gwf_model,
+        schedule=ReleaseSchedule(period_settings=period_settings,
+                                 times=tuple(times)),
+        track_path=_fileout("TRACK"), trackcsv_path=_fileout("TRACKCSV"),
+        stoptime=stoptime,
+        istopzone=int(popts.get("ISTOPZONE", 0) or 0), izone=izone)
+
+
+def _load_swf_simulation(ws, sim, tdis, entry, device):
+    """One CHF6/OLF6 model (and its IMS) → SwfSimulation."""
+    from ...models.swf.simulation import SwfSimulation
+    from .swf_loader import load_swf_model
+
+    mtype, mfname, mname = entry
+    bundle = load_swf_model(ws, mfname, mname, mtype, device=device)
+    settings = None
+    for sg in sim.get_all("SOLUTIONGROUP"):
+        for toks in sg.lines:
+            if toks[0].upper() == "IMS6":
+                s = load_ims(os.path.join(ws, toks[1]))
+                # SWF stages take the DBD under-relaxation defaults where
+                # the deck's IMS leaves them unset (the reference's loader)
+                if s.under_relaxation in (None, "none"):
+                    s = dataclasses.replace(
+                        s, under_relaxation="dbd", theta=0.9, akappa=1e-4,
+                        gamma=0.0, amomentum=0.0, no_ptc=True)
+                settings = s
+    return SwfSimulation(tdis, bundle["model"], settings,
+                         sto_periods=bundle["sto_periods"],
+                         has_sto=bundle["has_sto"],
+                         hds_path=bundle["hds_path"], oc=bundle["oc"])
+
+
 def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
                     device=None):
     """Load mfsim.nam and everything it references → Simulation.
@@ -1467,16 +1798,27 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     models_blk = sim.get("MODELS")
     if models_blk is None or not models_blk.lines:
         raise ValueError("mfsim.nam names no model")
-    entries, gwt_entries = [], []
+    entries, gwt_entries, swf_entries, prt_entries = [], [], [], []
     for i, toks in enumerate(models_blk.lines):
         mtype = toks[0].upper()
         mname = toks[2].upper() if len(toks) > 2 else f"MODEL{i + 1}"
-        if mtype not in ("GWF6", "GWT6", "GWE6"):
+        if mtype not in ("GWF6", "GWT6", "GWE6", "CHF6", "OLF6", "PRT6"):
             raise _not_ported(f"mfsim.nam: model type {mtype}")
         if mtype == "GWF6":
             entries.append((toks[1], mname))
+        elif mtype in ("CHF6", "OLF6"):
+            swf_entries.append((mtype, toks[1], mname))
+        elif mtype == "PRT6":
+            prt_entries.append((toks[1], mname))
         else:
             gwt_entries.append((mtype, toks[1], mname))
+    if swf_entries:
+        if entries or gwt_entries or prt_entries or len(swf_entries) > 1:
+            raise _not_ported(
+                "mfsim.nam: CHF6/OLF6 beside another model (the reference "
+                "loads one SWF model per simulation; couple SWF and GWF "
+                "from Python through models.swf.exchange)")
+        return _load_swf_simulation(ws, sim, tdis, swf_entries[0], device)
     if not entries:
         raise _not_ported("mfsim.nam: a model without a GWF6 model (flows "
                           "from FMI6 files)")
@@ -1489,14 +1831,20 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
                           f"models (a GWF6-{ttypes[0]} exchange with a "
                           "merged flow model; the reference's loader "
                           "refuses it too)")
+    if prt_entries and len(entries) > 1:
+        raise _not_ported("mfsim.nam: PRT6 beside several GWF6 models (the "
+                          "reference's loader refuses it too)")
     names = [mname for _, mname in entries]
     gwt_names = [mname for _, _, mname in gwt_entries]
+    prt_names = [mname for _, mname in prt_entries]
     exchange_entries = []
     exg_blk = sim.get("EXCHANGES")
     for toks in (exg_blk.lines if exg_blk is not None else []):
         etype, m1, m2 = toks[0].upper(), toks[2].upper(), toks[3].upper()
-        if etype in ("GWF6-GWT6", "GWF6-GWE6") and m1 in names \
-                and m2 in gwt_names:
+        if (etype in ("GWF6-GWT6", "GWF6-GWE6") and m1 in names
+                and m2 in gwt_names) or (etype == "GWF6-PRT6"
+                                          and m1 in names
+                                          and m2 in prt_names):
             continue        # the reference never opens its file
         if etype != "GWF6-GWF6":
             raise _not_ported(f"mfsim.nam: exchange {etype}")
@@ -1589,6 +1937,13 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     # reference failure semantics: abort on nonconvergence unless the
     # simulation CONTINUE option is set (sim-nam continue keyword)
     simulation.fail_fast = "CONTINUE" not in sopts
+    # PRT models track over the accepted flow steps (an augmented flow
+    # model's base grid)
+    for mfname, mname in prt_entries:
+        gm = bundle["model"]
+        simulation.prt_drivers.append(_load_prt_model(
+            ws, mfname, mname, getattr(gm, "base", gm), bundle["grid"],
+            device))
     if len(bundles) > 1:
         _merge_period_data(simulation, bundles, model.grid.offsets, device)
         return simulation

@@ -22,6 +22,9 @@ from __future__ import annotations
 import dataclasses
 import os
 import shlex
+from functools import cached_property
+
+import numpy as np
 
 
 def _strip_comment(line: str) -> str:
@@ -43,11 +46,92 @@ def tokenize_line(line: str):
         return line.split()
 
 
+def read_records(path) -> list:
+    """The records of a text file: its lines stripped, without blank and
+    comment lines (what ``_strip_comment`` keeps), in one pass over the
+    file's text."""
+    with open(path) as f:
+        lines = f.read().split("\n")
+    if lines and lines[-1] == "":
+        lines.pop()
+    return [s for s in map(str.strip, lines)
+            if s and s[0] not in "#!" and not (s[0] == "/"
+                                               and s.startswith("//"))]
+
+
+# the characters str.split() splits on, in ASCII
+_SPACE = np.zeros(256, bool)
+_SPACE[list(b" \t\n\r\x0b\x0c\x1c\x1d\x1e\x1f")] = True
+
+
+def split_records(records):
+    """The tokens of ``records`` (stripped, non-empty record strings) as
+    one flat list, and the token count of each record, without a Python
+    loop over the records.  None when a record holds a quote, a backslash
+    or a non-ASCII character: ``tokenize_line`` must split those."""
+    if not records:
+        return [], np.zeros(0, np.int64)
+    text = "\n".join(records)
+    if not text.isascii() or "'" in text or '"' in text or "\\" in text:
+        return None
+    toks = text.split()
+    b = np.frombuffer(text.encode("ascii"), np.uint8)
+    space = _SPACE[b]
+    start = ~space
+    start[1:] &= space[:-1]
+    first = np.concatenate([[0], np.flatnonzero(b == 10) + 1])
+    counts = np.add.reduceat(start.view(np.uint8), first, dtype=np.int64)
+    return toks, counts
+
+
+def uniform_table(records):
+    """(tokens, width) when every record of ``records`` has the same number
+    of tokens: column j is ``tokens[j::width]``; else None."""
+    split = split_records(records)
+    if split is None or not len(records):
+        return None
+    toks, counts = split
+    width = int(counts[0])
+    if width == 0 or (counts != width).any():
+        return None
+    return toks, width
+
+
+class TokenTable:
+    """Records of one width as columns of one token list: the token at
+    field ``c`` of record ``r`` is ``tokens[r * width + c]``."""
+
+    def __init__(self, tokens, width):
+        self.tokens, self.width = tokens, width
+
+    def __len__(self):
+        return len(self.tokens) // self.width
+
+    def column(self, c) -> list:
+        if c >= self.width:
+            raise IndexError(f"field {c} of records of {self.width}")
+        return self.tokens[c::self.width]
+
+
+def table_or_lines(records):
+    """A ``TokenTable`` of ``records`` when they all have the same number
+    of tokens, else their token lists."""
+    table = uniform_table(records)
+    if table is None:
+        return [tokenize_line(s) for s in records]
+    return TokenTable(*table)
+
+
 @dataclasses.dataclass
 class Block:
     name: str
     index: int  # block number (e.g. PERIOD 2); 0 if none
-    lines: list  # list of token lists
+    raw: list  # record strings, tokenized on first use of ``lines``
+
+    @cached_property
+    def lines(self) -> list:
+        """The records as token lists."""
+        return [tokenize_line(s) for s in self.raw]
 
 
 class BlockFile:
@@ -59,21 +143,18 @@ class BlockFile:
         self.blocks: list[Block] = []
         self._parse()
 
-    def _read_lines(self, path):
-        with open(path) as f:
-            for raw in f:
-                s = _strip_comment(raw)
-                if s:
-                    yield s
-
     def _parse(self):
-        cur = None
-        for s in self._read_lines(self.path):
-            toks = tokenize_line(s)
-            if not toks:
-                continue
-            kw = toks[0].upper()
+        records = read_records(self.path)
+        # only a record that starts with b or e can be BEGIN or END
+        marks = [(i, kw) for i, kw in (
+            (i, s.split(None, 1)[0].upper())
+            for i, s in enumerate(records) if s[0] in "bBeE")
+            if kw in ("BEGIN", "END")]
+        cur, first = None, 0
+        for i, kw in marks:
             if kw == "BEGIN":
+                # an unterminated block before another BEGIN is dropped
+                toks = tokenize_line(records[i])
                 name = toks[1].upper()
                 if len(toks) > 2:
                     # PERIOD blocks carry an int index; TAS TIME blocks a
@@ -84,17 +165,16 @@ class BlockFile:
                         idx = float(toks[2])
                 else:
                     idx = 0
-                cur = Block(name, idx, [])
-            elif kw == "END":
-                if cur is not None:
-                    self.blocks.append(cur)
-                cur = None
+                cur, first = Block(name, idx, []), i + 1
             elif cur is not None:
                 # OPEN/CLOSE stays a control record: array readers treat it
                 # as indirection themselves; list loaders splice via
-                # expand_open_close()
-                cur.lines.append(toks)
+                # records() / expand_open_close()
+                cur.raw = records[first:i]
+                self.blocks.append(cur)
+                cur = None
         if cur is not None:
+            cur.raw = records[first:]
             self.blocks.append(cur)
 
     # ------------------------------------------------------------ queries
@@ -110,17 +190,22 @@ class BlockFile:
         name = name.upper()
         return [b for b in self.blocks if b.name == name]
 
+    def records(self, block: Block) -> list:
+        """The record strings of a *list* block with its OPEN/CLOSE records
+        replaced by the records of their files."""
+        out = []
+        for s in block.raw:
+            if s[:10].upper() == "OPEN/CLOSE" and (
+                    len(s) == 10 or s[10].isspace()):
+                toks = tokenize_line(s)
+                out.extend(read_records(os.path.join(self.dir, toks[1])))
+            else:
+                out.append(s)
+        return out
+
     def expand_open_close(self, block: Block):
         """Expand OPEN/CLOSE records in a *list* block into inline records."""
-        out = []
-        for toks in block.lines:
-            if toks[0].upper() == "OPEN/CLOSE":
-                sub = os.path.join(self.dir, toks[1])
-                for s2 in self._read_lines(sub):
-                    out.append(tokenize_line(s2))
-            else:
-                out.append(toks)
-        return out
+        return [tokenize_line(s) for s in self.records(block)]
 
     def options(self) -> dict:
         """OPTIONS block → {KEYWORD: True | value-token-list}."""

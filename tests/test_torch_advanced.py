@@ -704,8 +704,9 @@ def test_r1_reference_thiem_well_takes_the_cell_area():
 def test_r3_r4_refused_with_features():
     """R3: CSUB beside a feature package runs without CSUB in the
     reference; R4: XT3D under an augmented model cannot be built there.
-    The port raises by name for both, and for rewetting, the multigrid
-    preconditioner and TVK/TVS.  MVR is ported: a mover whose receiver
+    The port raises by name for both, and for rewetting and TVK/TVS; the
+    multigrid preconditioner runs as Chebyshev there, as in the
+    reference.  MVR is ported: a mover whose receiver
     the model lacks raises the reference's ValueError, and a model
     without movers reports none."""
     grid = row_grid(4, 10.0, 10.0)
@@ -729,9 +730,23 @@ def test_r3_r4_refused_with_features():
             mvrtype="factor", value=1.0)])
     aug = AugmentedGwfModel(model, maw=maw)
     assert aug.mvr is None and aug.mvr_budget(aug.strt) == []
-    with pytest.raises(NotImplementedError, match="multigrid"):
-        NumericalSolution(aug, ImsSettings(preconditioner="mg")) \
-            .solve_timestep(aug.strt, 1.0)
+    # MG on an augmented model runs as Chebyshev (order >= 4), as the
+    # reference's _make_precond gives any model off the structured path
+    mg = dict(preconditioner="mg", outer_dvclose=1e-9, inner_dvclose=1e-11,
+              inner_rclose=1e-10, inner_maximum=200)
+    head, info, _ = NumericalSolution(aug, ImsSettings(**mg)) \
+        .solve_timestep(aug.strt, 1.0)
+    jaug0 = jadv.AugmentedGwfModel(
+        jax_build_gwf("ref", JaxDisGrid.create(**grid), **base),
+        maw=jadv.build_maw([dict(radius=0.2, strt=5.0,
+                                 connections=[(1, 1.0)])],
+                           JaxDisGrid.create(**grid)))
+    jhead, jinfo, _ = JaxSolution(jaug0, JaxImsSettings(**mg)) \
+        .solve_timestep(jaug0.strt, 1.0)
+    assert info.converged and jinfo.converged
+    assert info.outer_iterations == jinfo.outer_iterations
+    np.testing.assert_allclose(head.numpy(), np.asarray(jhead), rtol=0,
+                               atol=1e-8)
     sim = Simulation(Tdis((StressPeriod(1.0, 1, 1.0),)), aug, ImsSettings())
     sim.tvk = {1: [(1, "K", 2.0)]}
     with pytest.raises(NotImplementedError, match="TVK"):

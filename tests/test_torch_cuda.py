@@ -529,3 +529,31 @@ def test_small_apt_and_gwe_twins_on_card_match_cpu(cuda, twin):
     within 10 × outer_dvclose."""
     from chip_smoke import check_small_apt
     check_small_apt(cuda, names=[twin])
+
+
+@pytest.mark.parametrize("twin", ["chf cxs", "olf dis2d", "olf disv2d",
+                                  "swf-gwf", "prt dis", "prt disv"])
+def test_small_swf_and_prt_twins_on_card_match_cpu(cuda, twin):
+    """chip_smoke.py's small SWF and PRT twins on the card against the
+    CPU: CHF with an n-point section, OLF on DIS2D and DISV2D, the SWF–GWF
+    exchange (stages within 10 × outer_dvclose; equal outer counts or
+    Picard passes but for the OLF twins, whose inner solves run to their
+    cap), Pollock on DIS and the ternary method on DISV (equal statuses,
+    positions and times within 1e-9 relative)."""
+    from chip_smoke import check_small_swf_prt
+    check_small_swf_prt(cuda, names=[twin])
+
+
+def test_swf_and_prt_runs_on_card_are_bitwise_equal(cuda):
+    """The OLF raster at 64 x 64 and a particle swarm on the bench model at
+    4 x 64 x 64 run twice on the card: the same bits."""
+    import chip_smoke
+    a = chip_smoke.run_olf(cuda, 64, 64, "olf twice")[0]
+    b = chip_smoke.run_olf(cuda, 64, 64, "olf twice")[0]
+    assert all(np.array_equal(x.stage, y.stage) for x, y in zip(a, b))
+    grid = chip_smoke.flagship_grid(4, 64, 64)
+    points = chip_smoke.prt_points(grid, 2)
+    drivers = [chip_smoke.run_prt_memory(
+        cuda, chip_smoke.flagship(4, 64, 64, cuda), points, None,
+        "prt twice")[1] for _ in range(2)]
+    assert chip_smoke.same_drivers(*drivers)

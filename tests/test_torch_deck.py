@@ -869,7 +869,7 @@ def test_schema_component_is_the_reference(component):
 
 
 def test_schema_holds_only_the_loaded_components():
-    assert len(schema.load_schema()) == 50
+    assert len(schema.load_schema()) == 72
 
 
 # ------------------------------------------------------------- deck runs

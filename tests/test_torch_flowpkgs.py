@@ -845,3 +845,27 @@ def assert_same_port_system(conv, port, pkgs=None):
     for g, w in zip(conv.assemble(h, h, ib, 1.0, True, cp),
                     port.assemble(h, h, ib, 1.0, True, pkgs)):
         close(g, w, rtol=1e-13)
+
+
+def test_sto_integratechanges_is_refused_by_name():
+    """G2: the port refuses ``StoOptions.integratechanges`` by name.  The
+    reference's flag is inert: no caller passes ``oldss``/``oldsy``, so its
+    storage terms with the flag set equal those without it."""
+    from modflow6_tpu.models.gwf import sto as jsto
+    grid = dict(nlay=1, nrow=3, ncol=4, delr=10.0, delc=10.0, top=10.0,
+                botm=np.zeros((1, 3, 4)))
+    kw = dict(k=1.0, strt=5.0, chd=[(0, 5.0)], icelltype=1,
+              storage={"ss": 1e-5, "sy": 0.2, "iconvert": 1})
+    model = build_gwf("m", DisGrid.create(**grid), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="TVS storage integration"):
+        dataclasses.replace(model, sto_opts=dataclasses.replace(
+            model.sto_opts, integratechanges=1))
+    jm = jax_build_gwf("m", JaxDisGrid.create(**grid), **kw)
+    head = jnp.linspace(4.0, 6.0, 12)
+    ib = jnp.ones(12, jnp.int32)
+    args = (jm.sto_arrays, head, head - 0.5, ib, 2.0)
+    plain = jsto.assemble(jm.sto_opts, *args)
+    flagged = jsto.assemble(dataclasses.replace(jm.sto_opts,
+                                                integratechanges=1), *args)
+    for a, b in zip(plain, flagged):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
