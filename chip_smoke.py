@@ -30,10 +30,11 @@ the same model as a MAW6/LAK6/SFR6 deck with a second period
 through the command-line entry, the gather product at the table's width,
 and small MAW, LAK, SFR and repeated-sum twins on the card against the
 CPU; and the coupling (``coupling``): UZF columns on every top cell of the
-bench grid through ``Simulation`` twice (bitwise equal, the structured
-solve through the stencil kernel) and as a UZF6 deck with a second period
-through the command-line entry, about 320 movers on the advanced phase's
-model once (the apt phase's (a1) runs it twice, bitwise, and its (a2) as
+bench grid through ``Simulation``, and its first step again (bitwise
+equal, the structured solve through the stencil kernel), and as a UZF6
+deck with a second period through the command-line entry, about 320
+movers on the advanced phase's model once (the apt phase's (a1) runs it
+and its first step again, bitwise, and its (a2) as
 an MVR6 deck with transport), and the bench grid split
 into two models joined by GWF6-GWF6 exchanges, merged and run over the
 gather against the single model, and as a two-model deck through the
@@ -50,9 +51,10 @@ MODFLOW-2005 deck converted by mf5to6 and run against the same model
 built in memory; and the transport (``transport``): a contaminant plume
 (TVD, dispersion, decay, sorption, a constant-concentration block, mass
 sources, recharge at a concentration) on the bench model over a 5-d and a
-yearly period through ``Simulation`` twice (bitwise equal; the flow
-through the stencil kernel, the transport through the ELL gather), the
-same as a GWF6 + GWT6 deck through the command-line entry against it, and
+yearly period through ``Simulation``, and its first step again (bitwise
+equal; the flow through the stencil kernel, the transport through the ELL
+gather), its first step as a GWF6 + GWT6 deck through the command-line
+entry against the repeat (bitwise), and
 the seawater wedge with BUY and VSC reading the transport's concentration
 with MXITER 3, twice, against MXITER 1; with small transport twins
 (schemes, sorption, IST, SRC/CNC, ATS_PERCEL, two merged models) on the
@@ -61,14 +63,16 @@ transport (``apt``): the coupling phase's mover model (1024 wells, 256
 lakes, 4160 reaches, 323 movers) with the plume's GWT model and a
 concentration row per feature (SFT inflow at 1.0 on the headwater
 reaches, LKT rain at 0.0, MWT on the pumping wells) through
-``Simulation`` twice (bitwise equal), the same as a GWF6 + GWT6 deck with
-LKT6/SFT6/MWT6/MVT6 through the command-line entry (its .ucn bitwise equal
-to the in-memory run), and UZT on the coupling phase's million UZF columns
+``Simulation``, and its first step again (bitwise equal), that step as a
+GWF6 + GWT6 deck with LKT6/SFT6/MWT6/MVT6 through the command-line entry
+(its .ucn bitwise equal to the repeat's), and UZT on the coupling phase's
+million UZF columns
 (no model here has a grid shape: no stencil7 launch); and heat (``gwe``):
 the bench model with a GWE model (TVD, EST, CND, CTP at 80 °C, ESL,
-recharge at 25 °C) over the plume's steps twice (bitwise equal; its flow
-through the stencil kernel), the same as a GWF6 + GWE6 deck through the
-command-line entry, and the mover model with LKE/SFE/MWE rows once; with
+recharge at 25 °C) over the plume's steps, and its first step again
+(bitwise equal; its flow through the stencil kernel), that step as a
+GWF6 + GWE6 deck through the command-line entry (bitwise), and the mover
+model with LKE/SFE/MWE rows once; with
 small APT and GWE twins on the card against the CPU in the ``small``
 phase; and surface water (``swf``): an overland raster of 1,048,576 cells
 (OLF on DIS2D) through ``SwfSimulation`` and as an OLF6 deck through the
@@ -80,7 +84,19 @@ and particles (``prt``): 1,048,576 particle slots on the bench model
 through ``Simulation`` with a ``PrtDriver`` twice (bitwise) and as a GWF6 +
 PRT6 deck (its track file bitwise equal), and 524,288 slots on the brick
 DISV grid by the ternary method (its first step twice, bitwise); with small
-SWF and PRT twins on the card against the CPU in the ``small`` phase.  The
+SWF and PRT twins on the card against the CPU in the ``small`` phase; and
+the sharded runners (``parallel``, four shards on the one card): the bench
+configuration as row shards through ``ShardedSolution`` in ``f64`` and
+``mixed`` (one stencil launch per shard and product, shard 0's product
+bitwise equal to the plain one) against the bench runs' heads, the brick
+DISV grid through ``partition_general`` against the unstructured phase's
+heads, the advanced model's first step through the augmented split, and
+the plume's first three steps through ``GeneralCoupledSolution``; and the
+API (``api``): ``Mf6Api``'s XMI loop over the bench deck against the deck
+run, a get_value/set_value round trip on the card, and the bench model
+checkpointed after its first step and resumed in a fresh ``Simulation``
+(bitwise).  The deck phase's command-line run takes ``-l summary``: its
+listing holds the profiler's sections and the memory report.  The
 value checks of the transport runs hold the grid rows and the wells',
 lakes' and UZT columns' rows whose water balance closes to the sources'
 range; a reach's flow has no storage where its transport has its volume,
@@ -103,7 +119,8 @@ kernel-vs-plain checks with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
 general-path runs, the property-package runs, the advanced-package runs,
 the coupling runs, the utilities runs, the transport runs, the apt runs,
-the gwe runs, the swf runs, the prt runs, one JSON line
+the gwe runs, the swf runs, the prt runs, the parallel runs, the api runs,
+one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -164,6 +181,17 @@ from modflow6_torch.timing import ats as ats_mod              # noqa: E402
 from modflow6_torch.timing.tdis import StressPeriod, Tdis     # noqa: E402
 from modflow6_torch.utils.mf6io import load_simulation       # noqa: E402
 from modflow6_torch.utils.oc import OutputControl            # noqa: E402
+from modflow6_torch.api import Mf6Api                        # noqa: E402
+from modflow6_torch.parallel import (ShardedSolution,        # noqa: E402
+                                     partition_model)
+from modflow6_torch.parallel.augmented import (              # noqa: E402
+    ShardedAugmentedSolution, partition_augmented)
+from modflow6_torch.parallel.general import (                # noqa: E402
+    GeneralShardedSolution, partition_general)
+from modflow6_torch.parallel.transport import (              # noqa: E402
+    GeneralCoupledSolution, partition_coupled)
+from modflow6_torch.utils.checkpoint import (                # noqa: E402
+    resume_simulation, save_checkpoint)
 
 BENCH_SHAPE = (4, 1024, 1024)
 KERNEL_SHAPES = (BENCH_SHAPE, (3, 37, 45), (1, 5, 129))
@@ -798,9 +826,12 @@ def listing_counts(path):
 
 def run_deck_bench(device, fused_head, fused_counts):
     """The bench model as a deck at full width: in ``f64`` through the
-    command-line entry and through ``load_simulation``, in ``mixed`` through
-    ``load_simulation`` with the solution rebuilt; the ``f64`` runs held
-    against the fused ``f64`` run.  Returns the launches of the three."""
+    command-line entry (``-l summary``: the listing holds the profiler's
+    sections and the memory report) and through ``load_simulation``, in
+    ``mixed`` through ``load_simulation`` with the solution rebuilt; the
+    ``f64`` runs held against the fused ``f64`` run.  Returns (the launches
+    of the three, the ``f64`` loader run's heads each step, the CLI run's
+    saved heads)."""
     nlay, nrow, ncol = BENCH_SHAPE
     launches = 0
     with tempfile.TemporaryDirectory() as ws:
@@ -814,7 +845,7 @@ def run_deck_bench(device, fused_head, fused_counts):
         out = io.StringIO()
         with counted_run() as counts, contextlib.redirect_stdout(out):
             t0 = time.perf_counter()
-            code = cli_main([ws, "--lst", lst])
+            code = cli_main([ws, "--lst", lst, "-l", "summary"])
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
         launches += counts["launches"]
@@ -829,6 +860,16 @@ def run_deck_bench(device, fused_head, fused_counts):
         if cli_counts != fused_counts:
             raise AssertionError(f"deck counts {cli_counts} differ from the "
                                  f"fused run's {fused_counts}")
+        listing = open(lst).read()
+        prof = listing[listing.index("Profiler timings"):].splitlines()
+        mem = listing[listing.index("MEMORY USAGE"):].splitlines()
+        print("deck f64 cli -l summary listing: "
+              + " | ".join(line.strip() for line in prof[:4] + mem[:8]))
+        if not (prof[1].split()[0] == "solve" and "(n=3)" in prof[1]
+                and any(line.startswith("NPF_ARRAYS") for line in mem)
+                and mem[-1].startswith("TOTAL")):
+            raise AssertionError("the listing lacks the profiler sections "
+                                 "or the memory report")
         if counts["plain_on_cuda"] or counts["launches"] < sum(
                 i for _, i in cli_counts):
             raise AssertionError("the command-line run did not go through "
@@ -882,7 +923,9 @@ def run_deck_bench(device, fused_head, fused_counts):
                     != fused_counts:
                 raise AssertionError("deck counts differ from the fused "
                                      "run's")
-    return launches
+            if precision == "f64":
+                deck_heads = [r.head for r in recs]
+    return launches, deck_heads, cli_head
 
 
 def run_deck_preconditioned(device, jacobi_head, jacobi_inner):
@@ -1427,7 +1470,8 @@ def run_brick(device):
     GHB and EVT beside CHD, WEL and RCH, built in memory and run through
     ``Simulation`` (three transient steps of 5.0, CG; heads, budget and
     grid files written): every step converged, the budget closed, the
-    heads file read back, and a second run bitwise equal."""
+    heads file read back, and its first step again bitwise equal.  Returns
+    (the model, the final heads)."""
     nlay, nrow, ncol = BENCH_SHAPE
     ncpl = nrow * ncol
     t0 = time.perf_counter()
@@ -1450,10 +1494,11 @@ def run_brick(device):
                             ("SAVE", "BUDGET"): ("LAST",)}})
     heads = []
     with tempfile.TemporaryDirectory() as ws:
-        for attempt in range(2):
+        # the repeat is the first step (the phases' time limit)
+        for attempt, period in enumerate(((15.0, 3, 1.0), (5.0, 1, 1.0))):
             files = attempt == 0
             sim = Simulation(
-                Tdis((StressPeriod(15.0, 3, 1.0),)), model,
+                Tdis((StressPeriod(*period),)), model,
                 ImsSettings(**BENCH), oc=oc,
                 hds_path=os.path.join(ws, "brick.hds") if files else None,
                 cbc_path=os.path.join(ws, "brick.cbc") if files else None)
@@ -1465,6 +1510,7 @@ def run_brick(device):
             heads.append(recs[-1].head)
             if not files:
                 continue
+            first_head = recs[0].head
             inner_total = sum(r.inner for r in recs)
             solve = sum(r.solve_seconds for r in recs)
             disc = sim.budget.percent_discrepancy()
@@ -1504,10 +1550,12 @@ def run_brick(device):
                     or not np.array_equal(saved, recs[-1].head):
                 raise AssertionError("brick run: the heads file differs from "
                                      "the run's heads")
-    bitwise = bool(np.array_equal(heads[0], heads[1]))
-    print(f"brick simulation: two runs bitwise equal={bitwise}")
+    bitwise = bool(np.array_equal(first_head, heads[1]))
+    print(f"brick simulation: the repeat's first step bitwise equal to the "
+          f"run's={bitwise}")
     if not bitwise:
         raise AssertionError("two brick runs on the card differ")
+    return model, heads[0]
 
 
 def rotated_args(nlay, nrow, ncol):
@@ -2449,7 +2497,8 @@ def run_advanced_memory(device, shape=BENCH_SHAPE):
     through ``Simulation`` (3 transient steps of 5.0, BiCGSTAB, Jacobi,
     ``f64``); (d) the gather product at width Ktot.  The bitwise repeat
     (b) is the apt phase's: its (a1) runs these features, with movers and
-    their transport, twice.  Returns (records of (a), the stencil7
+    their transport, and their first step again.  Returns (records of
+    (a), the stencil7
     launches of (a))."""
     torch.cuda.reset_peak_memory_stats()
     model, table_s, build_s = advanced_model(device, shape)
@@ -2511,11 +2560,12 @@ def run_advanced_memory(device, shape=BENCH_SHAPE):
 
 def run_advanced_deck(device, memory_recs, shape=BENCH_SHAPE):
     """(c) The model of (a) written as a deck (MAW6, LAK6 with TAB6 tables,
-    SFR6 with cross-section TAB6 files), with a PERIOD 2 block of one step
-    that changes the wells' rates and the tributaries' inflow, run through
-    the command-line entry: period 1 has (a)'s counts and heads within
-    DECK_FUSED_ATOL, period 2 converges with its budget closed.  Returns
-    the run's stencil7 launches."""
+    SFR6 with cross-section TAB6 files), period 1 cut to (a)'s first step
+    (the phases' time limit), with a PERIOD 2 block of one step that
+    changes the wells' rates and the tributaries' inflow, run through the
+    command-line entry: period 1 has (a)'s first-step counts and heads
+    within DECK_FUSED_ATOL, period 2 converges with its budget closed.
+    Returns the run's stencil7 launches."""
     from modflow6_torch.utils.mf6io import loader as loader_mod
     nlay, nrow, ncol = shape
     grid = flagship_grid(*shape)
@@ -2524,7 +2574,7 @@ def run_advanced_deck(device, memory_recs, shape=BENCH_SHAPE):
         files = write_advanced_files(ws, advanced_features(
             grid, flagship_kfield(*shape)), grid)
         write_flagship_deck(ws, nlay, nrow, ncol, acc="BICGSTAB",
-                            tdis=[(15.0, 3, 1.0), (5.0, 1, 1.0)],
+                            tdis=[(5.0, 1, 1.0), (5.0, 1, 1.0)],
                             extra_packages=files,
                             oc_extra="  PRINT BUDGET ALL\n")
         print(f"advanced deck written in {time.perf_counter() - t0:.2f} s: "
@@ -2559,9 +2609,9 @@ def run_advanced_deck(device, memory_recs, shape=BENCH_SHAPE):
             saved.setdefault((rec["kper"], rec["kstp"]), []).append(
                 rec["data"])
         N = nlay * nrow * ncol
-        err = float(np.abs(np.stack(saved[(1, 3)]).reshape(-1)
-                           - memory_recs[-1].head[:N]).max())
-        want = [(r.outer, r.inner) for r in memory_recs]
+        err = float(np.abs(np.stack(saved[(1, 1)]).reshape(-1)
+                           - memory_recs[0].head[:N]).max())
+        want = [(r.outer, r.inner) for r in memory_recs[:1]]
         print(f"advanced (c) deck cli exit={code} wall_s={cli_s!r} "
               f"counts={cli_counts} (a)={want} "
               f"build_s={builds[0]!r} period2_rebuild_s={builds[1:]!r} "
@@ -2573,11 +2623,11 @@ def run_advanced_deck(device, memory_recs, shape=BENCH_SHAPE):
         if code != 0 or "Normal termination of simulation" not in \
                 out.getvalue():
             raise AssertionError("the advanced deck did not end normally")
-        if cli_counts[:3] != want or len(cli_counts) != 4:
+        if cli_counts[:1] != want or len(cli_counts) != 2:
             raise AssertionError("the deck's period-1 counts differ from "
                                  "(a)'s")
         if not (err <= DECK_FUSED_ATOL and len(builds) == 2
-                and len(discs) == 4 and abs(discs[-1]) < BUDGET_PERCENT):
+                and len(discs) == 2 and abs(discs[-1]) < BUDGET_PERCENT):
             raise AssertionError("the advanced deck failed its checks")
         if counts["launches"] or counts["plain_on_cuda"]:
             raise AssertionError("the advanced deck went through the "
@@ -2740,12 +2790,13 @@ def check_small_advanced(device):
 
 def run_advanced(device, shape=BENCH_SHAPE):
     """The advanced phase: (a)-(b) and (d) at 4x1024x1024, (c) the deck,
-    (e) the small twins.  Returns the stencil7 launches of (a)-(c), which
-    must be none: an augmented model has no grid shape."""
+    (e) the small twins.  Returns (the stencil7 launches of (a)-(c), which
+    must be none: an augmented model has no grid shape; (a)'s first-step
+    heads)."""
     recs, launches = run_advanced_memory(device, shape)
     launches += run_advanced_deck(device, recs, shape)
     check_small_advanced(device)
-    return launches
+    return launches, recs[0].head
 
 
 # ----------------------------------------------------------------- coupling
@@ -2858,12 +2909,12 @@ def budget_terms(table, names):
 
 def run_uzf_memory(device, shape):
     """(u1) UZF on every top cell of the bench grid through ``Simulation``
-    (3 steps of 5.0, CG with Jacobi, ``f64``); (u2) the same run again,
-    bitwise equal.  Returns ((u1)'s records, the stencil7 launches of both
-    runs)."""
+    (3 steps of 5.0, CG with Jacobi, ``f64``); (u2) its first step again,
+    bitwise equal (the phases' time limit).  Returns ((u1)'s records, the
+    stencil7 launches of both runs)."""
     from modflow6_torch.models.gwf import uzf as uzf_mod
     runs, launches = [], 0
-    for label in ("u1", "u2"):
+    for label, period in (("u1", (15.0, 3, 1.0)), ("u2", (5.0, 1, 1.0))):
         reset_peak(device)
         t0 = time.perf_counter()
         model = uzf_base(device, shape)
@@ -2871,7 +2922,7 @@ def run_uzf_memory(device, shape):
                                    **UZF_FLAGS)
         sync(device)
         build_s = time.perf_counter() - t0
-        sim = Simulation(Tdis((StressPeriod(15.0, 3, 1.0),)), model,
+        sim = Simulation(Tdis((StressPeriod(*period),)), model,
                          ImsSettings(**BENCH))
         sim.uzf = columns
         solves = counted_solves(sim)
@@ -2891,7 +2942,7 @@ def run_uzf_memory(device, shape):
                               "WEL"))
         print(f"coupling ({label}) uzf Simulation cg f64 cells="
               f"{model.nodes} columns={columns.node.shape[0]} nz="
-              f"{columns.nz} steps=3 solves={len(solves)} "
+              f"{columns.nz} steps={len(recs)} solves={len(solves)} "
               f"inner_total_all_solves={inner} outer_total_all_solves="
               f"{sum(o for o, _ in solves)} per_solve_outer_inner={solves} "
               f"accepted_outers={outers} accepted_inners={inners} "
@@ -2912,11 +2963,12 @@ def run_uzf_memory(device, shape):
             raise AssertionError("the UZF budget terms are missing")
         launches += counts["launches"]
         runs.append(recs)
-    same = all(np.array_equal(p.head, q.head) for p, q in zip(*runs))
-    counts_same = [(r.outer, r.inner, r.uzf_resolves) for r in runs[0]] == \
-        [(r.outer, r.inner, r.uzf_resolves) for r in runs[1]]
-    print(f"coupling (u2) vs (u1): heads bitwise equal={same} counts "
-          f"equal={counts_same}")
+    first, repeat = runs[0][0], runs[1][0]
+    same = len(runs[1]) == 1 and np.array_equal(first.head, repeat.head)
+    counts_same = (first.outer, first.inner, first.uzf_resolves) == \
+        (repeat.outer, repeat.inner, repeat.uzf_resolves)
+    print(f"coupling (u2) vs (u1)'s first step: heads bitwise equal={same} "
+          f"counts equal={counts_same}")
     if not (same and counts_same):
         raise AssertionError("two card runs of the UZF model differ")
     return runs[0], launches
@@ -3141,9 +3193,11 @@ def time_mover_chain(model, x):
 
 def run_mvr_memory(device, shape):
     """(m1) The advanced phase's model with about 320 movers through
-    ``Simulation`` (3 steps of 5.0, BiCGSTAB with Jacobi, ``f64``); it
+    ``Simulation`` (2 steps of 5.0, BiCGSTAB with Jacobi, ``f64``; the
+    mover balance reads the second step against the first); it
     launches no stencil7.  The bitwise repeat (m2) is the apt phase's (a1),
-    which runs this flow with its transport twice.  Returns (m1)'s
+    which runs this flow with its transport, and its first step again.
+    Returns (m1)'s
     records."""
     runs = []
     # one run: the apt phase's (a1) repeats this flow with the transport
@@ -3154,7 +3208,7 @@ def run_mvr_memory(device, shape):
         model = mvr_model(device, shape)
         sync(device)
         build_s = time.perf_counter() - t0
-        sim, recs, seconds, counts = simulate(model, [(15.0, 3, 1.0)],
+        sim, recs, seconds, counts = simulate(model, [(10.0, 2, 1.0)],
                                               advanced_settings())
         disc = check_budget(f"coupling ({label})", sim, recs)
         inner, outers, inners, ms = totals(recs, seconds)
@@ -3166,7 +3220,8 @@ def run_mvr_memory(device, shape):
                              ("WEL", "WEL-TO-MVR", "MAW", "LAK", "SFR"))
         print(f"coupling ({label}) mvr Simulation bicgstab f64 rows="
               f"{model.nodes} movers={model.mvr.nmovers} rounds="
-              f"{len(model.mvr.rounds)} steps=3 inner_total={inner} "
+              f"{len(model.mvr.rounds)} steps={len(recs)} "
+              f"inner_total={inner} "
               f"outers={outers} inners={inners} seconds={seconds!r} "
               f"ms_per_inner={ms!r} build_s={build_s!r} "
               f"stencil7_launches={counts['launches']} "
@@ -4220,11 +4275,13 @@ def time_transport_gather(sim, last, ms_per_iteration, label="transport "
           f"share_of_bicgstab_iteration={2 * ms / ms_per_iteration!r}")
 
 
-def run_plume(device, shape, label, time_gather=False):
-    """(t1) once: the flow and the plume through ``Simulation``; with
-    ``time_gather`` (on the card) also the transport's gather product."""
+def run_plume(device, shape, label, time_gather=False,
+              periods=PLUME_PERIODS):
+    """(t1) once: the flow and the plume through ``Simulation`` over
+    ``periods``; with ``time_gather`` (on the card) also the transport's
+    gather product."""
     flow, gwt = plume_models(device, shape)
-    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in PLUME_PERIODS)),
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in periods)),
                      flow, ImsSettings(**PLUME_FLOW), gwt=gwt,
                      gwt_settings=ImsSettings(**PLUME_TRANSPORT))
     steps, last = instrument_transport(sim, device)
@@ -4402,14 +4459,15 @@ END PERIOD
 """)
 
 
-def run_plume_deck(device, shape, memory):
-    """(t2) the (t1) deck through the command-line entry: its .ucn records
-    against (t1)'s concentrations, its counts against (t1)'s."""
+def run_plume_deck(device, shape, memory, periods=PLUME_PERIODS):
+    """(t2) the (t1) deck over ``periods`` through the command-line entry:
+    its .ucn records against ``memory``'s concentrations (an in-memory run
+    over the same periods), its counts against its counts."""
     msim, mrecs = memory
     ws = tempfile.mkdtemp(prefix="plume_")
     try:
         t0 = time.perf_counter()
-        write_plume_deck(ws, shape)
+        write_plume_deck(ws, shape, periods=periods)
         write_s = time.perf_counter() - t0
         out = io.StringIO()
         with captured_loads(device) as loads, counted_run() as counts, \
@@ -4621,27 +4679,28 @@ def check_small_transport(device, names=None):
 
 
 def run_transport(device, shape=BENCH_SHAPE):
-    """The transport phase: (t1) the plume twice (bitwise), (t2) its deck
-    through the command-line entry, (t3) the density-coupled wedge with
-    MXITER twice (bitwise) and with MXITER 1.  Returns the stencil7
-    launches, which must be some: the flow models keep their grid
-    shape."""
+    """The transport phase: (t1) the plume, and its first step again
+    (bitwise), (t2) its deck over the first step through the command-line
+    entry (bitwise against the repeat), (t3) the
+    density-coupled wedge with MXITER twice (bitwise) and with MXITER 1.
+    Returns (the stencil7 launches, which must be some: the flow models
+    keep their grid shape; (t1)'s heads and concentrations of its first
+    three steps)."""
     t0 = time.perf_counter()
-    sims = [run_plume(device, shape, f"run {i}",
-                      time_gather=i == 1 and torch.device(device).type
-                      == "cuda") for i in (1, 2)]
+    # the repeat is the first step, held bitwise (the phases' time limit)
+    sims = [run_plume(device, shape, label, time_gather=i == 1
+                      and torch.device(device).type == "cuda",
+                      periods=periods)
+            for i, label, periods in ((1, "run 1", PLUME_PERIODS),
+                                      (2, "run 2 (first step)", FIRST_STEP))]
     (s1, r1, l1), (s2, r2, l2) = sims
-    same = [(r.outer, r.inner, r.transport_outer, r.transport_inner)
-            for r in r1] == [(r.outer, r.inner, r.transport_outer,
-                              r.transport_inner) for r in r2] and all(
-        np.array_equal(a, b) for a, b in zip(s1.conc_records,
-                                             s2.conc_records))
-    print(f"transport (t1) two runs bitwise equal={same}")
-    if not same:
-        raise AssertionError("the two plume runs differ")
-    del s2, sims
-    launches = l1 + l2 + run_plume_deck(device, shape, (s1, r1))
-    del s1
+    bitwise_first_step("transport (t1)", (s1, r1), (s2, r2))
+    plume = ([r.head for r in r1[:3]], s1.conc_records[:3])
+    del s1, r1, sims
+    # the deck's depth cut to the first step too: held against the repeat
+    launches = l1 + l2 + run_plume_deck(device, shape, (s2, r2),
+                                        periods=FIRST_STEP)
+    del s2
     wedges = [run_wedge(device, shape, WEDGE_MXITER, f"run {i}")
               for i in (1, 2)]
     (w1, wr1, e1, wl1), (w2, wr2, e2, wl2) = wedges
@@ -4663,7 +4722,7 @@ def run_transport(device, shape=BENCH_SHAPE):
     if not launches:
         raise AssertionError("the transport runs launched no stencil7 "
                              "kernel")
-    return launches
+    return launches, plume
 
 
 def small_apt_models(dev):
@@ -5010,25 +5069,33 @@ def run_coupled(label, sim, device, bounds, rclose, time_gather=False):
         sum(s["transport_launches"] for s in steps)
 
 
-def bitwise_runs(label, a, b):
-    """Two runs' counts and transport records bitwise equal."""
-    (sa, ra), (sb, rb) = a, b
-    same = [(r.outer, r.inner, r.transport_outer, r.transport_inner)
-            for r in ra] == [(r.outer, r.inner, r.transport_outer,
-                              r.transport_inner) for r in rb] and all(
-        np.array_equal(p, q) for p, q in zip(sa.conc_records,
-                                             sb.conc_records)) and all(
-        np.array_equal(p.head, q.head) for p, q in zip(ra, rb))
-    print(f"{label} two runs bitwise equal={same}")
+# a repeat cut to the first 5-d step of (t1), (a1) and (e1)
+FIRST_STEP = ((5.0, 1, 1.0),)
+
+
+def bitwise_first_step(label, full, first):
+    """A repeat over ``FIRST_STEP`` against the full run's first step:
+    counts, heads and transport values bitwise."""
+    (sa, ra), (sb, rb) = full, first
+
+    def key(r):
+        return (r.outer, r.inner, r.transport_outer, r.transport_inner)
+
+    same = (len(rb) == 1 and key(ra[0]) == key(rb[0])
+            and np.array_equal(ra[0].head, rb[0].head)
+            and np.array_equal(sa.conc_records[0], sb.conc_records[0]))
+    print(f"{label} the repeat's first step bitwise equal to the run's="
+          f"{same}")
     if not same:
-        raise AssertionError(f"{label}: the two runs differ")
+        raise AssertionError(f"{label}: the repeat's first step differs")
 
 
-def run_apt_memory(device, shape, label, time_gather=False):
+def run_apt_memory(device, shape, label, time_gather=False,
+                   periods=APT_PERIODS):
     """(a1) once: the mover model's flow and its APT transport through
-    ``Simulation``."""
+    ``Simulation`` over ``periods``."""
     flow, gwt, ext = apt_models(device, shape)
-    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in APT_PERIODS)),
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in periods)),
                      flow, advanced_settings(), gwt=gwt,
                      gwt_settings=ImsSettings(**PLUME_TRANSPORT))
     sim.apt_ext_conc = ext
@@ -5099,11 +5166,11 @@ def run_deck_cli(label, device, ws, memory, values_file, text):
     return counts["launches"]
 
 
-def write_apt_deck(ws, shape):
-    """(a2): (a1) as a deck: the mover deck of (m3) (MAW6, LAK6, SFR6,
-    MVR6, the MOVER options) with the recharge as an RCH6 list at the
-    plume's concentration, and the plume's GWT6 model with the APT
-    files."""
+def write_apt_deck(ws, shape, periods=APT_PERIODS):
+    """(a2): (a1) as a deck over ``periods``: the mover deck of (m3)
+    (MAW6, LAK6, SFR6, MVR6, the MOVER options) with the recharge as an
+    RCH6 list at the plume's concentration, and the plume's GWT6 model with
+    the APT files."""
     grid = flagship_grid(*shape)
     _, records = coupling_movers(shape)
     files = write_advanced_files(ws, advanced_features(
@@ -5116,7 +5183,7 @@ def write_apt_deck(ws, shape):
            "BEGIN PACKAGES\n  WEL-1\n  MAW-1\n  LAK-1\n  SFR-1\n"
            "END PACKAGES\nBEGIN PERIOD 1\n" + "\n".join(records)
            + "\nEND PERIOD\n")
-    write_plume_deck(ws, shape, periods=APT_PERIODS,
+    write_plume_deck(ws, shape, periods=periods,
                      flow=dict(BENCH), acc="BICGSTAB",
                      apt_files=apt_files(shape), wel_options="  MOVER\n",
                      extra_packages=files + ["MVR6 m.mvr"])
@@ -5146,18 +5213,22 @@ def run_uzt(device, shape):
 
 
 def run_apt(device, shape=BENCH_SHAPE):
-    """The apt phase: (a1) the mover model with APT transport twice
-    (bitwise), (a2) its deck through the command-line entry, (a3) UZT on
+    """The apt phase: (a1) the mover model with APT transport, and its
+    first step again (bitwise), (a2) its deck over the first step through
+    the command-line entry (bitwise against the repeat), (a3) UZT on
     the UZF columns.  Returns the stencil7 launches (none: no model here
     has a grid shape)."""
     t0 = time.perf_counter()
-    runs = [run_apt_memory(device, shape, f"run {i}", time_gather=i == 1)
-            for i in (1, 2)]
-    bitwise_runs("apt (a1)", runs[0][:2], runs[1][:2])
+    # the repeat is the first step, held bitwise (the phases' time limit)
+    runs = [run_apt_memory(device, shape, "run 1", time_gather=True),
+            run_apt_memory(device, shape, "run 2 (first step)",
+                           periods=FIRST_STEP)]
+    bitwise_first_step("apt (a1)", runs[0][:2], runs[1][:2])
     launches = runs[0][2] + runs[1][2]
-    del runs[1]
+    del runs[0]
+    # the deck's depth cut to the first step too: held against the repeat
     with tempfile.TemporaryDirectory() as ws:
-        write_apt_deck(ws, shape)
+        write_apt_deck(ws, shape, periods=FIRST_STEP)
         launches += run_deck_cli("apt (a2)", device, ws, runs[0][:2],
                                  "t.ucn", "CONCENTRATION")
     del runs
@@ -5169,11 +5240,11 @@ def run_apt(device, shape=BENCH_SHAPE):
     return launches
 
 
-def run_heat_memory(device, shape, label):
+def run_heat_memory(device, shape, label, periods=PLUME_PERIODS):
     """(e1) once: the bench model and its heat transport through
-    ``Simulation`` over (t1)'s steps."""
+    ``Simulation`` over (t1)'s steps (``periods``)."""
     flow = flagship(*shape, device)
-    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in PLUME_PERIODS)),
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in periods)),
                      flow, ImsSettings(**PLUME_FLOW),
                      gwt=heat_transport(device, flow.grid, shape),
                      gwt_settings=ImsSettings(**HEAT_TRANSPORT),
@@ -5184,13 +5255,13 @@ def run_heat_memory(device, shape, label):
     return sim, recs, fl + tl
 
 
-def write_heat_deck(ws, shape):
-    """(e2): (e1) as a GWF6 + GWE6 deck: the recharge as an RCH6 list with
-    a TEMPERATURE column, ADV6 TVD, EST6, CND6 (XT3D_OFF), SSM6, CTP6,
-    ESL6, temperatures saved every step."""
+def write_heat_deck(ws, shape, periods=PLUME_PERIODS):
+    """(e2): (e1) as a GWF6 + GWE6 deck over ``periods``: the recharge as
+    an RCH6 list with a TEMPERATURE column, ADV6 TVD, EST6, CND6
+    (XT3D_OFF), SSM6, CTP6, ESL6, temperatures saved every step."""
     write_coupled_flow(ws, shape, model="GWE6", tname="HEAT",
                        aux="TEMPERATURE", value=HEAT_RCH,
-                       transport=HEAT_TRANSPORT)
+                       transport=HEAT_TRANSPORT, periods=periods)
     _write(ws, "t.nam", "BEGIN PACKAGES\n" + "".join(
         f"  {line}\n" for line in (
             "DIS6 t.dis", "IC6 t.ic", "ADV6 t.adv", "EST6 t.est",
@@ -5228,17 +5299,22 @@ END PERIOD
 
 
 def run_gwe(device, shape=BENCH_SHAPE):
-    """The gwe phase: (e1) heat on the bench model twice (bitwise), (e2)
+    """The gwe phase: (e1) heat on the bench model, and its first step
+    again (bitwise), (e2) over the first step
     its deck through the command-line entry, (e3) the mover model with a
     GWE base (LKE, SFE, MWE rows) once, over (a1)'s first step.  Returns the stencil7 launches,
     which must be some: (e1)'s flow keeps its grid shape."""
     t0 = time.perf_counter()
-    runs = [run_heat_memory(device, shape, f"run {i}") for i in (1, 2)]
-    bitwise_runs("gwe (e1)", runs[0][:2], runs[1][:2])
+    # the repeat is the first step, held bitwise (the phases' time limit)
+    runs = [run_heat_memory(device, shape, "run 1"),
+            run_heat_memory(device, shape, "run 2 (first step)",
+                            periods=FIRST_STEP)]
+    bitwise_first_step("gwe (e1)", runs[0][:2], runs[1][:2])
     launches = runs[0][2] + runs[1][2]
-    del runs[1]
+    del runs[0]
+    # the deck's depth cut to the first step too: held against the repeat
     with tempfile.TemporaryDirectory() as ws:
-        write_heat_deck(ws, shape)
+        write_heat_deck(ws, shape, periods=FIRST_STEP)
         launches += run_deck_cli("gwe (e2)", device, ws, runs[0][:2],
                                  "t.ucn", "TEMPERATURE")
     del runs
@@ -6109,6 +6185,398 @@ def check_small_swf_prt(device, names=None):
                                  "with the CPU")
 
 
+# ------------------------------------------------ the parallel and api phases
+
+SHARDS = 4
+# a sharded run against the single-device run of the same model and
+# settings: the reference tests' bars (tests/test_parallel.py:45-165,
+# tests/test_parallel_augmented.py, tests/test_parallel_transport.py),
+# which hold at their tight closures and where the two marches take the
+# same iterations, as (q1)'s do.  Where the reductions' order moves a
+# march by a few iterations ((q2)-(q4) at the bench closures), two solves
+# closed at outer_dvclose agree to CLOSURE_FACTOR x outer_dvclose, the
+# bar of this script's other pairs of solves; the lines print both.
+SHARDED_ATOL = {"f64": 1e-7, "mixed": 1e-6, "augmented": 5e-7,
+                "transport": 1e-7}
+
+
+def column_owner(nodes, ncpl, shards=None):
+    """Column-aligned blocks of a layered grid: every layer of a block of
+    ``ncpl // shards`` cells on one shard (contiguous node blocks would be
+    whole layers, each shard's halo the layers above and below)."""
+    shards = shards or SHARDS
+    return np.tile(np.repeat(np.arange(shards), -(-ncpl // shards))[:ncpl],
+                   nodes // ncpl)
+
+
+def closure_check(label, err, ref_bar, settings):
+    """The bar of a sharded run that may take other iterations than its
+    single-device oracle: printed beside the reference test's bar."""
+    bar = CLOSURE_FACTOR * settings["outer_dvclose"]
+    print(f"{label}: max|d|={err!r} closure bar={bar!r} reference test "
+          f"bar={ref_bar!r} met={err <= ref_bar}")
+    if not (np.isfinite(err) and err <= bar):
+        raise AssertionError(f"{label}: off the single-device run's")
+# the API's heads against the deck's run (tests/test_api.py:43-44)
+API_RTOL = 1e-12
+
+
+def shard_b1_bitwise(ssol, delt):
+    """Shard 0's first system of ``ssol`` through the kernel and through
+    the plain version on the same tensors: (bitwise equal, max |dy|)."""
+    lm = ssol.models[0]
+    ib, h = lm.boundary_state(lm.strt)
+    diag, off, rhs = lm.assemble(h, h, ib, delt, False)
+    diag, off, _ = fix_system(lm, torch.sign(ib), diag, off, rhs, h,
+                              symmetric=True, own=ssol.own.parts[0])
+    x = h + torch.linspace(-1.0, 1.0, h.numel(), dtype=torch.float64,
+                           device=h.device)
+    y = make_matvec(lm.system_topo, diag, off)(x)
+    y_plain = stencil.spmv_structured(lm.dtopo.grid_shape, diag, off, x)
+    return bool(torch.equal(y, y_plain)), float((y - y_plain).abs().max())
+
+
+def sharded_steps(label, solve, nsteps, device):
+    """``solve(kstp)`` for kstp = 1..nsteps with the kernel's launches
+    counted; returns (infos, seconds, counts, peak bytes)."""
+    reset_peak(device)
+    infos = []
+    with counted_run() as counts:
+        t0 = time.perf_counter()
+        for kstp in range(1, nsteps + 1):
+            infos.append(solve(kstp))
+        sync(device)
+        seconds = time.perf_counter() - t0
+    if not all(i["converged"] for i in infos):
+        raise AssertionError(f"{label}: a step did not converge: {infos}")
+    if counts["plain_on_cuda"]:
+        raise AssertionError(f"{label}: the plain stencil ran on the card")
+    return infos, seconds, counts, peak_bytes(device)
+
+
+def run_parallel_rows(device, precision, oracle):
+    """(q1) the bench configuration (3 steps of 5.0, CG, Jacobi) as
+    ``SHARDS`` row shards through ``ShardedSolution``, held against
+    ``oracle``, the bench phase's single-device heads of ``precision``;
+    each product one stencil7 launch per shard, and shard 0's product
+    bitwise equal to the plain one.  Returns the launches."""
+    label = f"parallel (q1) rows {precision}"
+    model = flagship(*BENCH_SHAPE, device)
+    t0 = time.perf_counter()
+    part = partition_model(model, SHARDS)
+    t1 = time.perf_counter()
+    ssol = ShardedSolution(part, ImsSettings(**BENCH, precision=precision),
+                           devices=[device] * SHARDS)
+    sync(device)
+    t2 = time.perf_counter()
+    state = {"h": ssol.scatter_heads(model.strt)}
+
+    def solve(kstp):
+        state["h"], info = ssol.solve_timestep(state["h"], 5.0, kstp=kstp,
+                                               iss=False)
+        return info
+
+    infos, seconds, counts, peak = sharded_steps(label, solve, 3, device)
+    head = ssol.gather_heads(state["h"])
+    err = float(np.abs(head - oracle.cpu().numpy()).max())
+    inner = sum(i["inner"] for i in infos)
+    launches = counts["launches"]
+    same, b1_err = shard_b1_bitwise(ssol, 5.0)
+    bar = SHARDED_ATOL[precision]
+    print(f"{label}: shards={SHARDS} local_grid={part.local_row_shape()} "
+          f"outers={[i['outer'] for i in infos]} "
+          f"inners={[i['inner'] for i in infos]} partition_s={t1 - t0!r} "
+          f"setup_s={t2 - t1!r} run_s={seconds!r} "
+          f"ms_per_inner={seconds / inner * 1e3!r} "
+          f"max|dh| vs single-device={err!r} bar={bar!r} "
+          f"stencil7_launches={launches} (at least {SHARDS} x {inner}) "
+          f"shard0 b1 vs plain bitwise={same} max|dy|={b1_err!r} "
+          f"peak_bytes={peak}")
+    if not (np.isfinite(head).all() and err <= bar):
+        raise AssertionError(f"{label}: heads off the single-device run's")
+    if launches % SHARDS or launches < SHARDS * inner or not same:
+        raise AssertionError(f"{label}: not one kernel launch per shard "
+                             "and product, or the kernel differs from the "
+                             "plain product")
+    return launches
+
+
+def run_parallel_general(device, model, oracle):
+    """(q2) the unstructured phase's brick DISV model as ``SHARDS``
+    column-aligned blocks through ``partition_general`` (3 steps of 5.0,
+    CG), held
+    against that phase's heads; the host partition's seconds.  No stencil
+    launch: a shard of a DISV grid multiplies through the gather."""
+    label = "parallel (q2) brick disv general"
+    t0 = time.perf_counter()
+    part = partition_general(model, SHARDS, owner=column_owner(
+        model.nodes, model.grid.ncpl))
+    t1 = time.perf_counter()
+    gsol = GeneralShardedSolution(part, ImsSettings(**BENCH),
+                                  devices=[device] * SHARDS)
+    sync(device)
+    t2 = time.perf_counter()
+    state = {"h": gsol.scatter_heads(model.strt)}
+
+    def solve(kstp):
+        state["h"], info = gsol.solve_timestep(state["h"], 5.0, kstp=kstp,
+                                               iss=False)
+        return info
+
+    infos, seconds, counts, peak = sharded_steps(label, solve, 3, device)
+    head = gsol.gather_heads(state["h"])
+    err = float(np.abs(head - oracle).max())
+    halo = [int((~part.own[p]).sum()) for p in range(SHARDS)]
+    print(f"{label}: cells={model.nodes} shards={SHARDS} "
+          f"n_local={part.n_local} halo_and_pad_slots={halo} "
+          f"host_partition_s={t1 - t0!r} setup_s={t2 - t1!r} "
+          f"outers={[i['outer'] for i in infos]} "
+          f"inners={[i['inner'] for i in infos]} run_s={seconds!r} "
+          f"stencil7_launches={counts['launches']} peak_bytes={peak}")
+    closure_check(f"{label} heads vs single-device", err,
+                  SHARDED_ATOL["f64"], BENCH)
+    if counts["launches"]:
+        raise AssertionError(f"{label}: a gather model launched stencil7")
+
+
+def run_parallel_augmented(device, oracle):
+    """(q3) the advanced phase's model (1024 wells, 256 lakes, 4160
+    reaches) as ``SHARDS`` shards, its first step (BiCGSTAB), held against
+    that phase's first step."""
+    label = "parallel (q3) augmented"
+    model, _, build_s = advanced_model(device, BENCH_SHAPE)
+    nlay, nrow, ncol = BENCH_SHAPE
+    t0 = time.perf_counter()
+    apart = partition_augmented(model, SHARDS, owner=column_owner(
+        model.n_grid, nrow * ncol))
+    t1 = time.perf_counter()
+    asol = ShardedAugmentedSolution(apart, advanced_settings(),
+                                    devices=[device] * SHARDS)
+    sync(device)
+    t2 = time.perf_counter()
+    state = {"x": asol.scatter(model.strt)}
+
+    def solve(kstp):
+        state["x"], info = asol.solve_timestep(state["x"], 5.0, kstp=kstp,
+                                               iss=False)
+        return info
+
+    infos, seconds, counts, peak = sharded_steps(label, solve, 1, device)
+    x = asol.gather(state["x"])
+    err = float(np.abs(x - oracle).max())
+    owned = np.bincount(apart.owner_feat, minlength=SHARDS).tolist()
+    print(f"{label}: rows={model.nodes} shards={SHARDS} "
+          f"features_owned={owned} n_aug={apart.n_aug} "
+          f"Ktot={asol.models[0].Ktot} build_s={build_s!r} "
+          f"host_partition_s={t1 - t0!r} setup_s={t2 - t1!r} "
+          f"outer={infos[0]['outer']} inner={infos[0]['inner']} "
+          f"run_s={seconds!r} stencil7_launches={counts['launches']} "
+          f"peak_bytes={peak}")
+    closure_check(f"{label} values vs single-device", err,
+                  SHARDED_ATOL["augmented"], BENCH)
+    if counts["launches"]:
+        raise AssertionError(f"{label}: an augmented model launched "
+                             "stencil7")
+
+
+def run_parallel_transport(device, plume):
+    """(q4) the bench model with (t1)'s plume through
+    ``GeneralCoupledSolution`` on ``SHARDS`` shards (halo depth 2: TVD and
+    dispersion), its three 5-d steps, each step's heads and
+    concentrations held against (t1)'s."""
+    label = "parallel (q4) coupled transport"
+    heads, concs = plume
+    flow, gwt = plume_models(device, BENCH_SHAPE)
+    nlay, nrow, ncol = BENCH_SHAPE
+    t0 = time.perf_counter()
+    part = partition_coupled(flow, gwt, SHARDS, owner=column_owner(
+        flow.nodes, nrow * ncol))
+    t1 = time.perf_counter()
+    csol = GeneralCoupledSolution(
+        part, gwt, ImsSettings(**PLUME_FLOW), ImsSettings(**PLUME_TRANSPORT),
+        devices=[device] * SHARDS, ssm_spec={"RCH": PLUME_RCH_CONC})
+    sync(device)
+    t2 = time.perf_counter()
+    state = {"h": csol.scatter(flow.strt), "c": csol.scatter(gwt.strt)}
+    errs = []
+
+    def solve(kstp):
+        state["h"], state["c"], info = csol.solve_timestep(
+            state["h"], state["c"], 5.0, kstp=kstp, iss=False)
+        errs.append((float(np.abs(csol.gather(state["h"])
+                                  - heads[kstp - 1]).max()),
+                     float(np.abs(csol.gather(state["c"])
+                                  - concs[kstp - 1]).max())))
+        return info
+
+    infos, seconds, counts, peak = sharded_steps(label, solve, 3, device)
+    print(f"{label}: cells={flow.nodes} shards={SHARDS} "
+          f"n_local={part.n_local} host_partition_s={t1 - t0!r} "
+          f"setup_s={t2 - t1!r} outers={[i['outer'] for i in infos]} "
+          f"inners={[i['inner'] for i in infos]} run_s={seconds!r} "
+          f"max|dh|,max|dc| per step vs (t1)={errs} "
+          f"stencil7_launches={counts['launches']} peak_bytes={peak}")
+    closure_check(f"{label} heads vs (t1)", max(e for e, _ in errs),
+                  SHARDED_ATOL["transport"], PLUME_FLOW)
+    closure_check(f"{label} concentrations vs (t1)",
+                  max(e for _, e in errs), SHARDED_ATOL["transport"],
+                  PLUME_TRANSPORT)
+
+
+def run_parallel(device, bench_heads, brick=None, advanced_first=None,
+                 plume=None):
+    """The parallel phase: (q1) the bench configuration as row shards in
+    ``f64`` and ``mixed``, (q2) the brick DISV grid, (q3) the advanced
+    model's first step, (q4) the plume; each held against the earlier
+    phases' single-device runs (``bench_heads`` {precision: heads};
+    ``brick`` (model, heads); ``advanced_first``; ``plume``), which it
+    runs itself when those phases did not run.  Returns the stencil7
+    launches of (q1)."""
+    t0 = time.perf_counter()
+    launches = sum(run_parallel_rows(device, precision, bench_heads[precision])
+                   for precision in ("f64", "mixed"))
+    if brick is None:
+        with contextlib.redirect_stdout(io.StringIO()):
+            brick = run_brick(device)
+    run_parallel_general(device, *brick)
+    del brick
+    if advanced_first is None:
+        # (a)'s first step: a one-step run of its model and settings
+        advanced_first = simulate(advanced_model(device, BENCH_SHAPE)[0],
+                                  [(5.0, 1, 1.0)],
+                                  advanced_settings())[1][0].head
+    run_parallel_augmented(device, advanced_first)
+    if plume is None:
+        with contextlib.redirect_stdout(io.StringIO()):
+            sim, recs, _ = run_plume(device, BENCH_SHAPE, "oracle",
+                                     periods=PLUME_PERIODS[:1])
+        plume = ([r.head for r in recs], sim.conc_records)
+    run_parallel_transport(device, plume)
+    print(f"parallel phase in {time.perf_counter() - t0!r} s, "
+          f"stencil7_launches={launches}")
+    return launches
+
+
+def run_api_xmi(device, deck_heads=None, deck_saved=None):
+    """(i1) ``Mf6Api`` over the deck phase's bench deck by the XMI loop:
+    each step's heads against the deck's ``load_simulation`` run
+    (``deck_heads``) and the last against its command-line run's .hds
+    (``deck_saved``; the deck run here, its .hds read back, when the deck
+    phase did not run); a get_value/set_value round trip of K11 and the
+    heads on the card.  Returns the stencil7 launches of the loop."""
+    label = "api (i1) xmi"
+    nlay, nrow, ncol = BENCH_SHAPE
+    with tempfile.TemporaryDirectory() as ws:
+        write_flagship_deck(ws, nlay, nrow, ncol)
+        if deck_heads is None:
+            sim = load_simulation(ws, device=device)
+            deck_heads = [r.head for r in sim.run()]
+        saved = deck_saved
+        if saved is None:
+            saved = np.stack([r["data"] for r in read_head_file(
+                os.path.join(ws, "m.hds"))]).reshape(-1)
+        t0 = time.perf_counter()
+        api = Mf6Api().initialize(ws, device=device)
+        init_s = time.perf_counter() - t0
+        name = api._sim.model.name.upper()
+        steps, inners = [], []
+        with counted_run() as counts:
+            t0 = time.perf_counter()
+            while api.prepare_time_step():
+                api.prepare_solve()
+                if not api.solve():
+                    raise AssertionError(f"{label}: a solve did not "
+                                         "converge")
+                api.finalize_solve()
+                api.finalize_time_step()
+                steps.append(api.get_value(f"{name}/X"))
+                inners.append(api._solve_info.inner_iterations)
+            sync(device)
+            loop_s = time.perf_counter() - t0
+        errs = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(steps + steps[-1:], deck_heads + [saved])]
+        bitwise = [bool(np.array_equal(a, b))
+                   for a, b in zip(steps, deck_heads)]
+        # the round trip: what get_value hands out, set_value stores back
+        # on the card in the field's dtype, bit for bit
+        model = api._sim.model
+        k_before = model.npf_arrays.k11.clone()
+        c_before = [c.clone() for c in model.condsat3]
+        api.set_value(f"{name}/NPF/K11", api.get_value(f"{name}/NPF/K11"))
+        k = model.npf_arrays.k11
+        x = api.get_value(f"{name}/X")
+        api.set_value(f"{name}/X", x)
+        trip = (k.device == model.device and k.dtype == torch.float64
+                and torch.equal(k, k_before)
+                and all(torch.equal(a, b)
+                        for a, b in zip(c_before, model.condsat3))
+                and api._head.device == model.device
+                and np.array_equal(api.get_value(f"{name}/X"), x))
+        api.finalize()
+        print(f"{label}: steps={len(steps)} init_s={init_s!r} "
+              f"loop_s={loop_s!r} relative max|dh| per step vs the deck "
+              f"run, and the last vs its .hds={errs} bar={API_RTOL!r} "
+              f"bitwise={bitwise} last step vs .hds bitwise="
+              f"{np.array_equal(steps[-1], saved)} "
+              f"get/set round trip on the card={trip} "
+              f"inners={inners} stencil7_launches={counts['launches']}")
+    if len(steps) != 3 or not all(e <= API_RTOL for e in errs) or not trip:
+        raise AssertionError(f"{label}: heads off the deck run's, or the "
+                             "round trip changed a value")
+    if counts["plain_on_cuda"] or counts["launches"] < sum(inners):
+        raise AssertionError(f"{label}: the loop did not go through the "
+                             "kernel")
+    return counts["launches"]
+
+
+def run_api_checkpoint(device):
+    """(i2) the bench model through ``Simulation``: 3 steps of 5.0, then
+    step 1, a checkpoint, and a fresh ``Simulation`` resumed from it for
+    steps 2-3, bitwise equal to the uninterrupted run's."""
+    label = "api (i2) checkpoint"
+
+    def sim(periods):
+        return Simulation(Tdis(periods), flagship(*BENCH_SHAPE, device),
+                          ImsSettings(**BENCH))
+
+    t0 = time.perf_counter()
+    full = sim((StressPeriod(15.0, 3, 1.0),)).run()
+    first = sim((StressPeriod(5.0, 1, 1.0),)).run()
+    with tempfile.TemporaryDirectory() as ws:
+        ck = os.path.join(ws, "ck.npz")
+        t1 = time.perf_counter()
+        save_checkpoint(ck, first[-1].head, kper=1, kstp=1, totim=5.0)
+        save_s = time.perf_counter() - t1
+        rest_sim = sim((StressPeriod(10.0, 2, 1.0),))
+        snap = resume_simulation(rest_sim, ck)
+        on_card = str(rest_sim.model.strt.device) == str(device)
+        with counted_run() as counts:
+            rest = rest_sim.run()
+        size = os.path.getsize(ck)
+    same = [bool(np.array_equal(a.head, b.head))
+            for a, b in zip(rest, full[1:])]
+    counts_same = [(a.outer, a.inner) for a in rest] == [
+        (b.outer, b.inner) for b in full[1:]]
+    print(f"{label}: steps 2-3 resumed bitwise={same} counts equal="
+          f"{counts_same} snapshot_bytes={size} save_s={save_s!r} "
+          f"totim={snap['totim']!r} heads on the card={on_card} "
+          f"seconds={time.perf_counter() - t0!r} "
+          f"stencil7_launches={counts['launches']}")
+    if not (all(same) and len(same) == 2 and counts_same and on_card):
+        raise AssertionError(f"{label}: the resumed run differs")
+    return counts["launches"]
+
+
+def run_api(device, deck_heads=None, deck_saved=None):
+    """The api phase: (i1) and (i2).  Returns their stencil7 launches."""
+    t0 = time.perf_counter()
+    launches = (run_api_xmi(device, deck_heads, deck_saved)
+                + run_api_checkpoint(device))
+    print(f"api phase in {time.perf_counter() - t0!r} s, "
+          f"stencil7_launches={launches}")
+    return launches
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -6196,7 +6664,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
           "unstructured", "properties", "advanced", "coupling", "utilities",
-          "transport", "apt", "gwe", "swf", "prt")
+          "transport", "apt", "gwe", "swf", "prt", "parallel", "api")
 
 
 def main():
@@ -6240,6 +6708,8 @@ def main():
         return
 
     launches = {}
+    # what the parallel and api phases hold their runs against
+    brick = advanced_first = plume = deck_heads = deck_saved = None
     t_script = time.perf_counter()
     if "kernel" in phases:
         worst, times = check_kernel(device)
@@ -6258,7 +6728,8 @@ def main():
         print(f"small phase in {time.perf_counter() - t_small!r} s (the "
               f"SWF and PRT twins {time.perf_counter() - t_swf!r} s)")
     if "bench" in phases:
-        launches["fused"], _, _, mixed_inners, _ = run_bench(device, "mixed")
+        launches["fused"], mixed_head, _, mixed_inners, _ = run_bench(
+            device, "mixed")
         f64_launches, fused_head, kiters, inners, _ = run_bench(device, "f64")
         launches["fused"] += f64_launches
     if "precond" in phases:
@@ -6272,31 +6743,33 @@ def main():
                       warmup=False)[0]
             for pc in ("chebyshev", "mg") for precision in ("mixed", "f64"))
     if "deck" in phases:
-        launches["deck"] = run_deck_bench(device, fused_head,
-                                          list(zip(kiters, inners)))
+        launches["deck"], deck_heads, deck_saved = run_deck_bench(
+            device, fused_head, list(zip(kiters, inners)))
         launches["deck"] += run_deck_preconditioned(device, fused_head,
                                                     sum(inners))
     if "newton" in phases:
         launches["newton"] = run_newton_deck(device,
                                              args.newton_preconditioner)
-    if ("unstructured" in phases or "properties" in phases) \
-            and "bench" not in phases:
+    if ("unstructured" in phases or "properties" in phases
+            or "parallel" in phases) and "bench" not in phases:
         _, fused_head, kiters, inners, _ = run_bench(device, "f64")
+    if "parallel" in phases and "bench" not in phases:
+        mixed_head = run_bench(device, "mixed")[1]
     if "unstructured" in phases:
         run_disv_oracle(device, fused_head, list(zip(kiters, inners)))
-        run_brick(device)
+        brick = run_brick(device)
         run_brick_deck(device)
         launches["general"] = run_rotated(device)
     if "properties" in phases:
         launches["properties"] = run_properties(device, fused_head)
     if "advanced" in phases:
-        advanced_launches = run_advanced(device)
+        advanced_launches, advanced_first = run_advanced(device)
     if "coupling" in phases:
         launches["coupling"] = run_coupling(device)
     if "utilities" in phases:
         launches["utilities"] = run_utilities(device)
     if "transport" in phases:
-        launches["transport"] = run_transport(device)
+        launches["transport"], plume = run_transport(device)
     if "apt" in phases:
         apt_launches = run_apt(device)
     if "gwe" in phases:
@@ -6305,6 +6778,13 @@ def main():
         launches["swf"] = run_swf(device)
     if "prt" in phases:
         launches["prt"] = run_prt(device)
+    if "parallel" in phases:
+        launches["parallel"] = run_parallel(
+            device, {"f64": fused_head, "mixed": mixed_head}, brick,
+            advanced_first, plume)
+    del brick, plume
+    if "api" in phases:
+        launches["api"] = run_api(device, deck_heads, deck_saved)
     print(f"chip_smoke: phases {phases} in "
           f"{time.perf_counter() - t_script!r} s (the build before them)")
     if set(phases) != set(PHASES):
@@ -6336,6 +6816,8 @@ def main():
         "launches_gwe_path": launches["gwe"],
         "launches_swf_path": launches["swf"],
         "launches_prt_path": launches["prt"],
+        "launches_parallel_path": launches["parallel"],
+        "launches_api_path": launches["api"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),

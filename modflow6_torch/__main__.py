@@ -11,7 +11,9 @@ CONTINUE: then the run goes on, reports the failures and ends normally, as
 the reference program does.  A transport (GWT or GWE) step that does not
 converge is reported in the listing (``*** GWT NONCONVERGENCE kper= kstp=
 ***``, GWE for a heat model) and counted on standard error; as in the
-reference, it does not end the run.  The reference's ``-l/--level`` profiling flag is not ported.
+reference, it does not end the run.  ``-l/--level summary|detail`` turns
+on the profiler (PROFILE_OPTION), whose report goes into the listing with
+the memory report.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ def main(argv=None):
                     help="directory containing mfsim.nam (default: cwd)")
     ap.add_argument("-v", "--version", action="store_true",
                     help="print version and exit")
+    ap.add_argument("-l", "--level", choices=["summary", "detail"],
+                    default=None, help="profiling level (PROFILE_OPTION)")
     ap.add_argument("-m", "--mode", choices=["validate", "run"],
                     default="run",
                     help="validate = load inputs only (comarg -m validate)")
@@ -56,6 +60,10 @@ def main(argv=None):
                               device=device)
     finally:
         set_strict(False)
+    if args.level:
+        from modflow6_torch.utils.profiler import Profiler
+        sim.profile_mode = args.level
+        sim.prof = Profiler()
     if args.mode == "validate":
         print(f"mf6torch: model input validated "
               f"({sim.model.nodes} nodes, {sim.tdis.nper} periods)")

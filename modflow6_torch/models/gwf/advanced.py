@@ -62,7 +62,7 @@ class AugTopo:
     grid_shape: tuple = None  # none: the product is the gather
 
 
-def _build_ext_table(base_nbr, N, R, edges):
+def _build_ext_table(base_nbr, N, R, edges, ktot_min=0):
     """Extend the base neighbour table with feature rows.
 
     ``edges`` is an int[E, 2] array of (row_a, row_b) pairs over the
@@ -71,7 +71,8 @@ def _build_ext_table(base_nbr, N, R, edges):
     slots flat indices into the [N+R, Ktot] table.  The reference fills
     each row's slots after its ``Kb`` base slots in edge order; here the
     slot of an edge end is the number of earlier edge ends in the same row
-    (``running_count`` over the interleaved (a, b) ends)."""
+    (``running_count`` over the interleaved (a, b) ends).  ``ktot_min``
+    forces a least width (the sharded runners give every shard one)."""
     Kb = base_nbr.shape[1]
     edges = np.asarray(edges, np.int64).reshape(-1, 2)
     ends = edges.reshape(-1)
@@ -80,7 +81,7 @@ def _build_ext_table(base_nbr, N, R, edges):
     deg = np.full(N + R, 0, np.int64)
     deg[:N] = Kb
     deg += np.bincount(ends, minlength=N + R)
-    Ktot = max(int(deg.max(initial=Kb)), Kb)
+    Ktot = max(int(deg.max(initial=Kb)), Kb, int(ktot_min))
     nbr = np.empty((N + R, Ktot), np.int64)
     nbr[:] = np.arange(N + R, dtype=np.int64)[:, None]
     nbr[:N, :Kb] = base_nbr
@@ -947,7 +948,8 @@ class AugmentedGwfModel:
     is_linear = False
     use_structured = False
 
-    def __init__(self, base, maw=None, lak=None, sfr=None, mvr=None):
+    def __init__(self, base, maw=None, lak=None, sfr=None, mvr=None,
+                 ktot_min=0):
         if base.csub is not None:
             raise NotImplementedError(
                 "CSUB with MAW, LAK or SFR is not ported (the reference's "
@@ -960,6 +962,8 @@ class AugmentedGwfModel:
             raise NotImplementedError(
                 "rewetting with MAW, LAK or SFR is not ported")
         self.base = base
+        # the host specs, for the sharded runner's per-shard builds
+        self.specs = dict(maw=maw, lak=lak, sfr=sfr)
         device = base.device
         N = base.nodes
         offset = N
@@ -1016,8 +1020,8 @@ class AugmentedGwfModel:
             base_nbr = structured_nbr(base._host_topo())
         else:
             base_nbr = base.dtopo.nbr.cpu().numpy()
-        nbr_ext, slot_ab, slot_ba = _build_ext_table(base_nbr, N,
-                                                     self.n_extra, edges)
+        nbr_ext, slot_ab, slot_ba = _build_ext_table(
+            base_nbr, N, self.n_extra, edges, ktot_min)
         self.Kb = base_nbr.shape[1]
         self.Ktot = nbr_ext.shape[1]
         self.dtopo = AugTopo(nbr=torch.as_tensor(nbr_ext, device=device))

@@ -168,7 +168,8 @@ def _scatter_rows(order, values):
     return torch.empty_like(values).scatter_(1, order, values)
 
 
-def extended_table(nbr, edge_n, edge_m, slot_nm, slot_mn, device=None):
+def extended_table(nbr, edge_n, edge_m, slot_nm, slot_mn, device=None,
+                   ktot_min=0):
     """(nbr_ext [N, Ktot], pos_n_jm [E, K], pos_m_in [E, K], rank_n_jm,
     rank_m_in), int64 tensors on ``device``, of full mode, equal to the
     reference's loops (xt3d.py:199-240): for each edge (n, m) and slot s,
@@ -180,7 +181,9 @@ def extended_table(nbr, edge_n, edge_m, slot_nm, slot_mn, device=None):
     position, the entries before it that reach the same position, in the
     order -chat1j into pos_n_jm then -chati0 into pos_m_in, edge by edge
     and slot by slot (the reference's scatter order): the rounds of the
-    cross-term plan.
+    cross-term plan.  ``ktot_min`` widens the table to at least that
+    many slots, the padding pointing at the row itself (the sharded
+    runners give every shard one width).
 
     Row by row, as the reference visits a row: the candidates of row r
     arrive in the order of the edges of r (by edge number), each edge
@@ -229,7 +232,7 @@ def extended_table(nbr, edge_n, edge_m, slot_nm, slot_mn, device=None):
     rank = _scatter_rows(order, rank)
     del srt, order, starts, gstart
     k2 = int(first.sum(dim=1).max()) if N else 0
-    ktot = K + k2
+    ktot = max(K + k2, int(ktot_min))
     nbr_ext = own.repeat(1, ktot)
     nbr_ext[:, :K] = nbr
     rows, cols = torch.nonzero(first, as_tuple=True)
@@ -264,9 +267,10 @@ def extended_table(nbr, edge_n, edge_m, slot_nm, slot_mn, device=None):
 
 
 def build_xt3d(grid, topo, k11, k22, k33, angle1=0.0, angle2=0.0,
-               angle3=0.0, ixt3d=1, device=None) -> Xt3dData:
+               angle3=0.0, ixt3d=1, device=None, ktot_min=0) -> Xt3dData:
     """Host-side geometry/tensor preparation (xt3d_df + xt3d_load roles).
-    ``device``: where the tensors go."""
+    ``device``: where the tensors go.  ``ktot_min``: the least width of
+    the extended table in full mode (see ``extended_table``)."""
     N = topo.nodes
     E = topo.nedges
     K = topo.max_degree
@@ -329,7 +333,7 @@ def build_xt3d(grid, topo, k11, k22, k33, angle1=0.0, angle2=0.0,
     ranks = None
     if ixt3d == 1:
         nbr_ext, pos_n_jm, pos_m_in, *ranks = extended_table(
-            nbr, en, em, slot_nm, slot_mn, device)
+            nbr, en, em, slot_nm, slot_mn, device, ktot_min)
     else:
         nbr_ext = nbr
         pos_n_jm = np.full((E, K), N * K, np.int64)

@@ -74,6 +74,8 @@ from ..utils import grb
 from ..utils.binary import BudgetFileWriter, HeadFileWriter
 from ..utils.budget import Budget
 from ..utils.csvout import OuterCsvWriter
+from ..utils.memreport import memory_report
+from ..utils.profiler import Profiler
 from .gwf import csub as csub_mod
 from .gwf import uzf as uzf_mod
 from .gwt import adv as adv_mod
@@ -129,7 +131,7 @@ class Simulation:
                  transient=None, hds_path=None, cbc_path=None,
                  lst_path=None, outer_csv_path=None, oc=None, gwt=None,
                  obs=None, nc_path=None, gwt_settings=None, conc_path=None,
-                 gwt_oc=None, conc_text="CONCENTRATION"):
+                 gwt_oc=None, conc_text="CONCENTRATION", profile=None):
         self.tdis = tdis
         self.model = model
         self.solution = NumericalSolution(model, settings)
@@ -185,6 +187,10 @@ class Simulation:
         self._lst_lines: list[str] = []
         self.outer_csv = OuterCsvWriter(outer_csv_path) \
             if outer_csv_path else None
+        # profile: None (off) | "summary" | "detail" (sim-nam
+        # PROFILE_OPTION, the CLI's -l/--level)
+        self.profile_mode = profile
+        self.prof = Profiler() if profile else None
         # optional per-period package data: {kper: PackageData}; data
         # persists across periods until redefined (MF6 PERIOD semantics)
         self.period_data: dict = {}
@@ -327,8 +333,13 @@ class Simulation:
             pkgs = self._augment_uzf(pkgs, delt, head_old)
 
         def solve(p):
-            return self.solution.solve_timestep(head_old, delt, kstp=kstp,
-                                                iss=iss, pkgs=p, kper=kper)
+            if self.prof is None:
+                return self.solution.solve_timestep(
+                    head_old, delt, kstp=kstp, iss=iss, pkgs=p, kper=kper)
+            # the section waits for the card, so its seconds are the solve's
+            with self.prof.section("solve", block_on=head_old):
+                return self.solution.solve_timestep(
+                    head_old, delt, kstp=kstp, iss=iss, pkgs=p, kper=kper)
 
         solved = solve(pkgs)
         self._uzf_resolves = 0
@@ -664,6 +675,10 @@ class Simulation:
             drv.finish()
         if self.obs is not None:
             self.obs.close()
+        if self.prof:
+            self._lst_lines.append(self.prof.report(self.profile_mode))
+        if self.lst_path:
+            self._lst_lines.append(memory_report(self.model))
         if self.nc is not None:
             self.nc.close()
         if self.outer_csv:

@@ -13,9 +13,10 @@ the exit flag) stay 0-d device tensors; the host reads the exit flag once
 per iteration, which is one device synchronisation per iteration.
 ``trace=True`` keeps each iteration's (dvmax, rmax, l2norm) on the device
 and returns them stacked, without a further host read per iteration.
-The reference's injectable ``dot``/``absmax`` (for its sharded psum/pmax
-path) and ``max_passes`` knob are left out until the sharded slice needs
-them.
+``dot`` and ``absmax`` are injectable, as in the reference: the sharded
+runners (``parallel/``) pass the owned-row partial sums and maxima combined
+over the shards, so one loop serves one device and P shards.  The
+reference's ``max_passes`` knob is left out (``MAX_PASSES``).
 """
 
 from __future__ import annotations
@@ -112,6 +113,8 @@ def cg(
     north: int = 0,
     l2norm0=0.0,
     epfact_val=1.0,
+    dot: Callable = vector_dot,
+    absmax: Callable = _signed_absmax,
     trace: bool = False,
 ) -> KrylovResult:
     """Preconditioned conjugate gradient, IMS semantics.
@@ -129,20 +132,20 @@ def cg(
     done = False
     while not done and iiter < itmax:
         z = precond(d)
-        rho = vector_dot(d, z)
+        rho = dot(d, z)
         beta = zero if iiter == 0 else rho / torch.where(rho0 != 0.0, rho0,
                                                          1.0)
         p = z + beta * p
         q = matvec(p)
-        denom = vector_dot(p, q)
+        denom = dot(p, q)
         denom = denom + _sign_dprec(denom)
         alpha = rho / denom
         tv = alpha * p
         x = x + tv
-        dvmax = _signed_absmax(tv)
+        dvmax = absmax(tv)
         d = d - alpha * q
-        rmax = _signed_absmax(d)
-        l2norm = torch.sqrt(vector_dot(d, d))
+        rmax = absmax(d)
+        l2norm = torch.sqrt(dot(d, d))
         rcnvg = l2norm if icnvgopt in (2, 3, 4) else rmax
         icnvg = _test_cnvg(icnvgopt, iiter, dvmax, rcnvg, l2norm0,
                            epfact_val, dvclose, rclose)
@@ -182,6 +185,8 @@ def bicgstab(
     north: int = 0,
     l2norm0=0.0,
     epfact_val=1.0,
+    dot: Callable = vector_dot,
+    absmax: Callable = _signed_absmax,
     trace: bool = False,
 ) -> KrylovResult:
     """Preconditioned BiCGSTAB, IMS semantics (for systems that are not
@@ -199,7 +204,7 @@ def bicgstab(
     iiter = 0
     done = False
     while not done and iiter < itmax:
-        rho = vector_dot(dhat, d)
+        rho = dot(dhat, d)
         if iiter == 0:
             p = d
         else:
@@ -208,22 +213,22 @@ def bicgstab(
             p = d + beta * (p - omega0 * v)
         phat = precond(p)
         v = matvec(phat)
-        denom = vector_dot(dhat, v)
+        denom = dot(dhat, v)
         denom = denom + _sign_dprec(denom)
         alpha = rho / denom
         q = d - alpha * v
         qhat = precond(q)
         t = matvec(qhat)
-        numer = vector_dot(t, q)
-        denom2 = vector_dot(t, t)
+        numer = dot(t, q)
+        denom2 = dot(t, t)
         denom2 = denom2 + _sign_dprec(denom2)
         omega = numer / denom2
         tv = alpha * phat + omega * qhat
         x = x + tv
-        dvmax = _signed_absmax(tv)
+        dvmax = absmax(tv)
         d = q - omega * t
-        rmax = _signed_absmax(d)
-        l2norm = torch.sqrt(vector_dot(d, d))
+        rmax = absmax(d)
+        l2norm = torch.sqrt(dot(d, d))
         rcnvg = l2norm if icnvgopt in (2, 3, 4) else rmax
         icnvg = _test_cnvg(icnvgopt, iiter, dvmax, rcnvg, l2norm0,
                            epfact_val, dvclose, rclose)
@@ -256,6 +261,8 @@ def refined_solve(
     l2norm0=0.0,
     epfact_val=1.0,
     solver: Callable = cg,
+    dot: Callable = vector_dot,
+    absmax: Callable = _signed_absmax,
 ) -> KrylovResult:
     """Mixed-precision linear solve: f32 Krylov + f64 iterative refinement.
 
@@ -268,13 +275,13 @@ def refined_solve(
     own residual by 1e-5 (icnvgopt=3) before handing back to the f64
     refinement; at most ``MAX_PASSES`` passes run.  The result reports
     IMS-semantics convergence measured in f64, so the outer loop behaves
-    as on the f64 path.
+    as on the f64 path.  ``dot``/``absmax`` serve both precisions.
     """
     f32 = torch.float32
     f64 = b.dtype
 
     def f64_norms(r):
-        return _signed_absmax(r), torch.sqrt(vector_dot(r, r))
+        return absmax(r), torch.sqrt(dot(r, r))
 
     x = x0
     r = b - matvec64(x0)
@@ -286,14 +293,15 @@ def refined_solve(
     done = False
     while not done and npass < MAX_PASSES and iters < itmax:
         r32 = r.to(f32)
-        l2r0 = torch.sqrt(vector_dot(r32, r32))
+        l2r0 = torch.sqrt(dot(r32, r32))
         res = solver(matvec32, r32, torch.zeros_like(r32), precond32,
                  itmax=itmax, dvclose=dvclose, rclose=1.0e-5, icnvgopt=3,
-                 north=north, l2norm0=l2r0, epfact_val=1.0)
+                 north=north, l2norm0=l2r0, epfact_val=1.0, dot=dot,
+                 absmax=absmax)
         d = res.x.to(f64)
         x = x + d
         r = b - matvec64(x)
-        dvmax = _signed_absmax(d)
+        dvmax = absmax(d)
         rmax, l2 = f64_norms(r)
         rcnvg = l2 if icnvgopt in (2, 3, 4) else rmax
         icnvg = _test_cnvg(icnvgopt, 0, dvmax, rcnvg, l2norm0, epfact_val,

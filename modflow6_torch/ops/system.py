@@ -3,8 +3,8 @@ neighbour table, its products and the Dirichlet fixups.
 
 Port of modflow6_tpu/ops/system.py: ``spmv`` (the ELL gather product),
 ``spmv_structured`` (in ops.stencil), ``make_matvec``, ``to_scipy_csr``,
-``apply_dirichlet`` (without ``own``, which the sharded
-path brings) and ``apply_dirichlet_structured``.  Padded ELL slots point
+``apply_dirichlet`` and ``apply_dirichlet_structured`` (with ``own``, the
+sharded runners' owned-row mask).  Padded ELL slots point
 at their own row and must carry coefficient 0.
 
 The gather product is plain PyTorch in the reference's XLA code too and
@@ -61,13 +61,15 @@ def to_scipy_csr(topo, diag, off):
     return mat + sp.diags(host(diag))
 
 
-def apply_dirichlet(nbr, active, diag, off, rhs, x, symmetric=True):
+def apply_dirichlet(nbr, active, diag, off, rhs, x, symmetric=True,
+                    own=None):
     """Row/column fixups before the linear solve over the neighbour table
     (reference sln_ls NumericalSolution.f90:2404-2475); see
-    :func:`apply_dirichlet_structured` for the three rules.  With
+    :func:`apply_dirichlet_structured` for the rules and ``own``.  With
     ``symmetric`` the coefficients that couple an active row to a Dirichlet
     column are found by gathering the neighbours' activity."""
-    row_active = active > 0
+    is_active = active > 0
+    row_active = is_active if own is None else is_active & own
 
     tiny = row_active & (diag.abs() < 1.0e-15)
     diag = torch.where(tiny, -1.0, diag)
@@ -78,14 +80,14 @@ def apply_dirichlet(nbr, active, diag, off, rhs, x, symmetric=True):
     rhs = torch.where(row_active, rhs, x)
 
     if symmetric:
-        move = row_active[:, None] & ~row_active[nbr]
+        move = row_active[:, None] & ~is_active[nbr]
         rhs = rhs - torch.sum(torch.where(move, off * x[nbr], 0.0), dim=1)
         off = torch.where(move, 0.0, off)
     return diag, off, rhs
 
 
 def apply_dirichlet_structured(shape, active, diag, off, rhs, x,
-                               symmetric=True):
+                               symmetric=True, own=None):
     """Row/column fixups before the linear solve (reference sln_ls
     NumericalSolution.f90:2404-2475):
 
@@ -95,9 +97,15 @@ def apply_dirichlet_structured(shape, active, diag, off, rhs, x,
     - with ``symmetric`` (the CG path), coefficients coupling an active
       row to a Dirichlet column move to the rhs and are zeroed, so the
       matrix stays symmetric; BiCGSTAB leaves them in the matrix, where
-      the identity row of the Dirichlet cell gives the same solution.
+      the identity row of the Dirichlet cell gives the same solution;
+    - ``own`` (the sharded runners): rows outside the shard's owned block
+      (its halo copies) become identity rows too, since their equations
+      live on the neighbouring shard, while their columns stay, as their
+      values arrive by the halo exchange before each product (the
+      reference's interface-model mask, Connections.f90:28).
     """
-    row_active = active > 0
+    is_active = active > 0
+    row_active = is_active if own is None else is_active & own
 
     tiny = row_active & (diag.abs() < 1.0e-15)
     diag = torch.where(tiny, -1.0, diag)
@@ -110,12 +118,13 @@ def apply_dirichlet_structured(shape, active, diag, off, rhs, x,
         return diag, off, rhs
 
     nlay, nrow, ncol = shape
-    act3 = row_active.reshape(shape)
+    row3 = row_active.reshape(shape)
+    act3 = is_active.reshape(shape)
     x3 = x.reshape(shape)
     c = off.reshape(nlay, nrow, ncol, 6).clone()
     moves = []
     for slot, (axis, d) in enumerate(_SLOTS):
-        move = act3 & ~shifted(act3, axis, d, True)
+        move = row3 & ~shifted(act3, axis, d, True)
         xn = shifted(x3, axis, d, 0.0)
         moves.append(torch.where(move, c[..., slot] * xn, 0.0))
         c[..., slot] = torch.where(move, 0.0, c[..., slot])

@@ -96,16 +96,17 @@ class ImsSettings:
         raise ValueError(f"unknown complexity {complexity!r}")
 
 
-def fix_system(model, active, diag, off, rhs, x, symmetric):
+def fix_system(model, active, diag, off, rhs, x, symmetric, own=None):
     """The Dirichlet fixup before the linear solve, by the model's path:
     on shifted dense fields for a structured model, through the neighbour
-    table otherwise (modflow6_tpu/solution/ims.py:166-173)."""
+    table otherwise (modflow6_tpu/solution/ims.py:166-173).  ``own``: a
+    shard's owned-row mask (the sharded runners)."""
     if model.use_structured:
         return apply_dirichlet_structured(model.dtopo.grid_shape, active,
                                           diag, off, rhs, x,
-                                          symmetric=symmetric)
+                                          symmetric=symmetric, own=own)
     return apply_dirichlet(model.system_topo.nbr, active, diag, off, rhs, x,
-                           symmetric=symmetric)
+                           symmetric=symmetric, own=own)
 
 
 def _make_precond(s, model, dtopo, matvec, diag, off):

@@ -62,7 +62,8 @@ APT files beside later PERIOD blocks of the flow model's features;
 ATS6 in TDIS (read past there too: adaptive steps reach a ``Simulation``
 only through ``Simulation.ats``),
 NETCDF_MESH2D and a list package's own OBS6 option (both read past
-there), TS6 values in MAW6, LAK6 and SFR6, and HPC6; and where the
+there), TS6 values in MAW6, LAK6 and SFR6, an HPC6 record without
+FILEIN and an option in the HPC6 file; and where the
 reference refuses: several GWT6 or GWE6 models, GWT6 or GWE6 beside
 several GWF6 models, an APT file beside a flow model without its feature
 or, for UZT6/UZE6, without UZF6 (``ValueError``), UZF or CSUB in a
@@ -155,6 +156,25 @@ def _refuse(opts, keys, source):
     for key in keys:
         if key in opts:
             raise _not_ported(f"{source}: option {key}")
+
+
+def _load_hpc(ws, sopts):
+    """mfsim.nam's HPC6 FILEIN record → {MODEL: rank} of its PARTITIONS
+    block (utl-hpc.dfn; the reference's explicit model → rank load
+    balance, DistributedSim.f90), or None without one."""
+    v = sopts.get("HPC6")
+    if v is None:
+        return None
+    if not (isinstance(v, list) and len(v) == 2
+            and v[0].upper() == "FILEIN"):
+        raise _not_ported("mfsim.nam: HPC6 without FILEIN <file>")
+    hbf = BlockFile(os.path.join(ws, v[1]))
+    for key in hbf.options():
+        raise _not_ported(f"{v[1]}: option {key}")
+    pb = hbf.get("PARTITIONS")
+    if pb is None:
+        return None
+    return {t[0].upper(): int(t[1]) for t in pb.lines}
 
 
 def load_tdis(path):
@@ -1788,7 +1808,7 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     ws = os.path.abspath(workspace)
     sim = BlockFile(os.path.join(ws, "mfsim.nam"))
     sopts = sim.options()
-    _refuse(sopts, ("HPC6",), "mfsim.nam")
+    hpc_partitions = _load_hpc(ws, sopts)
 
     # timing
     timing = sim.get("TIMING")
@@ -1937,6 +1957,14 @@ def load_simulation(workspace, hds_path=None, cbc_path=None, lst_path=None,
     # reference failure semantics: abort on nonconvergence unless the
     # simulation CONTINUE option is set (sim-nam continue keyword)
     simulation.fail_fast = "CONTINUE" not in sopts
+    # the model → rank spec for the sharded runners (HPC6 PARTITIONS, the
+    # owner vector of parallel.general.owner_from_partitions)
+    simulation.hpc_partitions = hpc_partitions
+    offsets = model.grid.offsets if len(bundles) > 1 else [0]
+    simulation.model_offsets = {b["name"].upper(): int(off)
+                                for b, off in zip(bundles, offsets)}
+    simulation.model_sizes = {b["name"].upper(): b["grid"].nodes
+                              for b in bundles}
     # PRT models track over the accepted flow steps (an augmented flow
     # model's base grid)
     for mfname, mname in prt_entries:

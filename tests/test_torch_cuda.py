@@ -10,7 +10,10 @@ utilities deck (TS6, TAS6, OBS6, NetCDF) stepping adaptively with
 retries, its small transport twins (GWT with each scheme, sorption,
 IST, SRC/CNC, ATS_PERCEL, two merged models), and its small APT and GWE
 twins (LKT, SFT, MWT, UZT, MVT and their GWE analogs, GWE with each
-package, two merged GWE models).
+package, two merged GWE models), and the sharded runners (row shards,
+whose products launch the kernel once a shard, and the general split), the
+``Mf6Api`` XMI loop and a checkpointed run resumed, on the card against
+the CPU.
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -557,3 +560,114 @@ def test_swf_and_prt_runs_on_card_are_bitwise_equal(cuda):
         cuda, chip_smoke.flagship(4, 64, 64, cuda), points, None,
         "prt twice")[1] for _ in range(2)]
     assert chip_smoke.same_drivers(*drivers)
+
+
+def _sharded_model(device, nrow=16, ncol=12):
+    g = DisGrid.create(1, nrow, ncol, delr=10.0, delc=10.0, top=20.0,
+                       botm=np.zeros((1, nrow, ncol)))
+    k = np.exp(np.random.default_rng(7).normal(0, 0.8, size=nrow * ncol))
+    return build_gwf("par", g, k=k, strt=8.0, device=device,
+                     storage={"ss": 1e-4, "iconvert": 0},
+                     chd=[(i * ncol, 10.0) for i in range(nrow)]
+                     + [(i * ncol + ncol - 1, 6.0) for i in range(nrow)],
+                     wel=[(nrow // 2 * ncol + ncol // 2, -40.0)],
+                     rch=[(n, 1e-4) for n in range(nrow * ncol)])
+
+
+_SHARD_SETTINGS = dict(outer_dvclose=1e-8, outer_maximum=100,
+                       inner_dvclose=1e-10, inner_rclose=1e-9,
+                       inner_maximum=2000)
+
+
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_row_sharded_on_card_matches_cpu(cuda, precision):
+    """Four row shards, three transient steps: one kernel launch per shard
+    and product, heads within 1e-10 of the CPU run (1e-7 in mixed)."""
+    from modflow6_torch.parallel import ShardedSolution, partition_model
+
+    heads, counts = [], []
+    for dev in ("cpu", cuda):
+        model = _sharded_model(dev)
+        ssol = ShardedSolution(partition_model(model, 4),
+                               ImsSettings(**_SHARD_SETTINGS,
+                                           precision=precision),
+                               devices=[dev] * 4)
+        hs = ssol.scatter_heads(model.strt)
+        stencil.stencil7.launches = 0
+        inner = 0
+        for kstp in (1, 2, 3):
+            hs, info = ssol.solve_timestep(hs, 0.5 * kstp, kstp=kstp)
+            assert info["converged"]
+            inner += info["inner"]
+        counts.append((stencil.stencil7.launches, inner))
+        heads.append(ssol.gather_heads(hs))
+    launches, inner = counts[1]
+    assert counts[0][0] == 0 and launches % 4 == 0 and launches >= 4 * inner
+    np.testing.assert_allclose(heads[1], heads[0],
+                               atol=1e-10 if precision == "f64" else 1e-7)
+
+
+def test_general_sharded_on_card_matches_cpu(cuda):
+    from modflow6_torch.parallel.general import (GeneralShardedSolution,
+                                                 partition_general)
+
+    heads = []
+    for dev in ("cpu", cuda):
+        model = _sharded_model(dev)
+        gsol = GeneralShardedSolution(partition_general(model, 3),
+                                      ImsSettings(**_SHARD_SETTINGS),
+                                      devices=dev)
+        hs, info = gsol.solve_timestep(gsol.scatter_heads(model.strt), 1.0)
+        assert info["converged"]
+        heads.append(gsol.gather_heads(hs))
+    np.testing.assert_allclose(heads[1], heads[0], atol=1e-10)
+
+
+def _api_sim(device):
+    from modflow6_torch.models.simulation import Simulation
+    from modflow6_torch.timing.tdis import StressPeriod, Tdis
+
+    model = _sharded_model(device)
+    return Simulation(Tdis([StressPeriod(4.0, 4, 1.0)]), model,
+                      ImsSettings(**_SHARD_SETTINGS))
+
+
+def test_api_xmi_loop_on_card_matches_cpu(cuda):
+    from modflow6_torch.api import Mf6Api
+
+    heads = []
+    for dev in ("cpu", cuda):
+        api = Mf6Api().initialize(_api_sim(dev))
+        k = api.get_value("PAR/NPF/K11")
+        api.set_value("PAR/NPF/K11", k)
+        assert api._sim.model.npf_arrays.k11.device.type == \
+            torch.device(dev).type
+        np.testing.assert_array_equal(api.get_value("PAR/NPF/K11"), k)
+        steps = []
+        while api.prepare_time_step():
+            api.prepare_solve()
+            assert api.solve()
+            api.finalize_solve()
+            steps.append(api.get_value("PAR/X"))
+        heads.append(np.stack(steps))
+    np.testing.assert_allclose(heads[1], heads[0], atol=1e-10)
+
+
+def test_checkpoint_resume_on_card_is_bitwise(cuda, tmp_path):
+    from modflow6_torch.models.simulation import Simulation
+    from modflow6_torch.timing.tdis import StressPeriod, Tdis
+    from modflow6_torch.utils.checkpoint import (resume_simulation,
+                                                 save_checkpoint)
+
+    full = _api_sim(cuda).run()
+    model = _sharded_model(cuda)
+    first = Simulation(Tdis([StressPeriod(1.0, 1, 1.0)]), model,
+                       ImsSettings(**_SHARD_SETTINGS)).run()
+    ck = str(tmp_path / "ck.npz")
+    save_checkpoint(ck, first[-1].head, kper=1, kstp=1, totim=1.0)
+    rest = Simulation(Tdis([StressPeriod(3.0, 3, 1.0)]),
+                      _sharded_model(cuda), ImsSettings(**_SHARD_SETTINGS))
+    resume_simulation(rest, ck)
+    assert rest.model.strt.is_cuda
+    for a, b in zip(rest.run(), full[1:]):
+        assert np.array_equal(a.head, b.head)

@@ -731,7 +731,6 @@ UNSUPPORTED = {
         "  INNER_MAXIMUM",
         "  PRECONDITIONER_DROP_TOLERANCE 1e-3\n  INNER_MAXIMUM")),
     "ATS6": ("sim.tdis", _add_option("ATS6 FILEIN sim.ats")),
-    "HPC6": ("mfsim.nam", _add_option("HPC6 FILEIN sim.hpc")),
     # a GWT6 model loads now (test_torch_gwt_decks.py), and a GWE6 one
     # (test_torch_gwe.py); these stay refused: MST6 in a GWE6 model, ...
     "GWE6": _gwt("", model="GWE6"),

@@ -365,18 +365,6 @@ def scenario(name):
     raise KeyError(name)
 
 
-@pytest.mark.parametrize("name", ["normal_depth", "backwater", "olf_plane",
-                                  "volume", "cxs", "pcp_evp_cdb"])
-def test_scenarios_match_reference(name):
-    tm, jm, nstep, delt = scenario(name)
-    ts, js, _ = march_both(tm, jm, nstep, delt)
-    if name == "volume":
-        # stored volume equals the integrated inflow (swf-sto)
-        vol = float((_np(ts) * tm.grid.area).sum())
-        np.testing.assert_allclose(vol - 1e-6 * tm.grid.area.sum(),
-                                   0.5 * delt * nstep, rtol=1e-6)
-
-
 @pytest.mark.parametrize("name", ["volume"])
 def test_scenario_counts_at_one_sum_order(name, monkeypatch):
     """The cause of outer counts that differ by one against the jitted
