@@ -1,10 +1,13 @@
 """GPU smoke run of modflow6_torch: builds the CUDA stencil kernel, checks
 it against its plain PyTorch version (at the bench shape, at odd shapes and
-at every level shape of the multigrid hierarchy), checks the fused
-transient solve on the card against the CPU and a direct solve, runs the
-bench configuration (4x1024x1024 cells, 3 steps) in ``mixed`` and ``f64``
-through the fused run with the Jacobi, Chebyshev and multigrid
-preconditioners, runs the same model as an MF6 input deck through the deck
+at every level shape of the multigrid hierarchy) and times one CSR product
+of the same system (cuSPARSE through ``torch.mv``) as its yardstick, checks
+the fused transient solve on the card against the CPU and a direct solve,
+runs the bench configuration (4x1024x1024 cells, 3 steps) in ``mixed``
+and ``f64`` through ``modflow6_torch.bench``'s build and timed run (the
+``mixed`` run then the scipy baseline and the benchmark's JSON line) and
+through the fused run with the Chebyshev and multigrid preconditioners,
+runs the same model as an MF6 input deck through the deck
 path (the command-line entry, the loader, ``Simulation`` and the output
 files) in ``f64`` and ``mixed`` and once with PRECONDITIONER_LEVELS,
 holding it against the fused run, runs the bench grid made unconfined as a
@@ -95,8 +98,13 @@ the plume's first three steps through ``GeneralCoupledSolution``; and the
 API (``api``): ``Mf6Api``'s XMI loop over the bench deck against the deck
 run, a get_value/set_value round trip on the card, and the bench model
 checkpointed after its first step and resumed in a fresh ``Simulation``
-(bitwise).  The deck phase's command-line run takes ``-l summary``: its
-listing holds the profiler's sections and the memory report.  The
+(bitwise); and the entry scripts (``entry``): ``entry()``'s step on the
+card against the CPU, ``dryrun_multichip(4)`` (its row shards through the
+stencil kernel; each run against its single-device solve),
+``iteration_study``'s 75x75 rows against their CPU counts, and
+``halo_study`` at 4x128x128 on four shards.  The deck phase's
+command-line run takes ``-l summary``: its listing holds the profiler's
+sections and the memory report.  The
 value checks of the transport runs hold the grid rows and the wells',
 lakes' and UZT columns' rows whose water balance closes to the sources'
 range; a reach's flow has no storage where its transport has its volume,
@@ -120,7 +128,7 @@ runs, the preconditioner runs, the deck runs, the Newton runs, the
 general-path runs, the property-package runs, the advanced-package runs,
 the coupling runs, the utilities runs, the transport runs, the apt runs,
 the gwe runs, the swf runs, the prt runs, the parallel runs, the api runs,
-one JSON line
+the entry runs, one JSON line
 ``{"kernels": [...]}``, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -149,7 +157,9 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: CUDA is not available; this script runs only on "
              "a CUDA device")
 
+from modflow6_torch import bench as bench_mod                # noqa: E402
 from modflow6_torch import cuda_device                       # noqa: E402
+from modflow6_torch import entry as entry_mod                # noqa: E402
 from modflow6_torch.__main__ import main as cli_main         # noqa: E402
 from modflow6_torch.models.discretization import (DisGrid,   # noqa: E402
                                                   DisuGrid, DisvGrid)
@@ -182,6 +192,12 @@ from modflow6_torch.timing.tdis import StressPeriod, Tdis     # noqa: E402
 from modflow6_torch.utils.mf6io import load_simulation       # noqa: E402
 from modflow6_torch.utils.oc import OutputControl            # noqa: E402
 from modflow6_torch.api import Mf6Api                        # noqa: E402
+from modflow6_torch.bench import (BENCH, flagship,           # noqa: E402
+                                  flagship_args, flagship_botm,
+                                  flagship_grid, flagship_kfield,
+                                  flagship_stresses)
+from modflow6_torch.entry import ENTRY                       # noqa: E402
+from modflow6_torch.tools import halo_study, iteration_study  # noqa: E402
 from modflow6_torch.parallel import (ShardedSolution,        # noqa: E402
                                      partition_model)
 from modflow6_torch.parallel.augmented import (              # noqa: E402
@@ -210,15 +226,9 @@ CARD_CPU_ATOL = 1e-10
 # heads of an iterative solve against a direct solve of the same system
 # (tests/test_regression_decks.py:423-424)
 DIRECT_ATOL = 2e-5
-# the entry-point settings of the reference (__graft_entry__.entry)
-ENTRY = dict(outer_dvclose=1e-6, outer_maximum=50, inner_dvclose=1e-8,
-             inner_rclose=1e-6, inner_maximum=300)
 # the tight settings of tests/test_fused.py:14-18
 TIGHT = dict(outer_dvclose=1e-8, outer_maximum=100, inner_dvclose=1e-10,
              inner_rclose=1e-9, inner_maximum=2000)
-# bench.py:50-52
-BENCH = dict(outer_dvclose=1e-5, outer_maximum=50, inner_dvclose=1e-7,
-             inner_rclose=1e-5, inner_maximum=400)
 SLOTS = ((2, +1), (2, -1), (1, -1), (1, +1), (0, -1), (0, +1))
 # heads of the deck path against the fused run of the same model: the
 # reference's fused-vs-loop bar is 1e-12 on a 12x10 model
@@ -235,17 +245,6 @@ GENERAL_STRUCTURED_ATOL = DECK_FUSED_ATOL
 SYSTEM_RTOL = 1e-12
 # volume budget of a full-width run: percent discrepancy below this
 BUDGET_PERCENT = 0.01
-
-
-def flagship_kfield(nlay, nrow, ncol):
-    rng = np.random.default_rng(75)
-    return np.exp(rng.normal(0.0, 1.0, size=nlay * nrow * ncol))
-
-
-def flagship(nlay, nrow, ncol, device):
-    """The model of bench.py and __graft_entry__._flagship, on ``device``."""
-    return build_gwf("flagship", flagship_grid(nlay, nrow, ncol),
-                     device=device, **flagship_args(nlay, nrow, ncol))
 
 
 def mg_products(levels):
@@ -368,8 +367,73 @@ def check_kernel(device):
                                  f"version: {err} > {bar}")
         worst = max(worst, err)
         if shape == BENCH_SHAPE:
-            times[name] = (ms, plain_ms, one_call_ms)
+            library_ms = library_csr(shape, diag, off, x, y, name)
+            times[name] = (ms, plain_ms, one_call_ms, library_ms)
     return worst, times
+
+
+def csr_of_planes(shape, diag, off):
+    """The 7-point system as one CSR tensor on the planes' device: int32
+    row and column indices, each row's structural entries (its neighbours
+    inside the grid) in ascending column order U, N, W, diagonal, E, S, D."""
+    nlay, nrow, ncol = shape
+    ncpl = nrow * ncol
+    n = nlay * ncpl
+    idx = torch.arange(n, device=diag.device)
+    k, i, j = idx // ncpl, idx % ncpl // ncol, idx % ncol
+    # (plane slot, column offset, neighbour inside the grid); the planes'
+    # slots are [E, W, N, S, U, D]
+    entries = ((4, -ncpl, k > 0), (2, -ncol, i > 0), (1, -1, j > 0),
+               (None, 0, torch.ones_like(k, dtype=torch.bool)),
+               (0, 1, j < ncol - 1), (3, ncol, i < nrow - 1),
+               (5, ncpl, k < nlay - 1))
+    vals = torch.stack([diag if slot is None else off[:, slot]
+                        for slot, _, _ in entries], dim=1)
+    cols = torch.stack([idx + d for _, d, _ in entries], dim=1)
+    keep = torch.stack([inside for _, _, inside in entries], dim=1)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=diag.device)
+    crow[1:] = keep.sum(dim=1).cumsum(0)
+    return torch.sparse_csr_tensor(
+        crow.to(torch.int32), cols[keep].to(torch.int32), vals[keep],
+        size=(n, n), check_invariants=True)
+
+
+def csr_bytes(a):
+    """Bytes one CSR product y = A x must move: the values, the column and
+    row indices, x and y, each read or written once."""
+    es = a.values().element_size()
+    n = a.shape[0]
+    return (a.values().numel() * es + a.col_indices().numel() * 4
+            + a.crow_indices().numel() * 4 + 2 * n * es)
+
+
+def library_csr(shape, diag, off, x, y, name):
+    """The library's yardstick for stencil7: one CSR product (cuSPARSE
+    through torch.mv) of the same system, built from the same planes,
+    timed as the kernel is.  It adds a row's 7 products in another order
+    (and may fuse them), so it is held to ``y`` at rounding: per row
+    within 2 x 7 x u x the sum of the terms' magnitudes (u the unit
+    roundoff), the bound of two summation orders.  Returns its ms."""
+    a = csr_of_planes(shape, diag, off)
+    y_csr = torch.mv(a, x)
+    magnitude = stencil.stencil7(shape, diag.abs(), off.abs(), x.abs())
+    torch.cuda.synchronize()
+    diff = (y_csr - y).abs()
+    bound = 7.0 * torch.finfo(x.dtype).eps * magnitude
+    err = float(diff.max())
+    within = bool((diff <= bound).all())
+    ms = back_to_back_ms(lambda: torch.mv(a, x))
+    nbytes = csr_bytes(a)
+    print(f"library csr {name} shape={shape} nnz={a.values().numel()} "
+          f"bytes={nbytes} (stencil7: {9 * x.numel() * x.element_size()}) "
+          f"max_abs_err vs stencil7={err!r} within the rounding bound="
+          f"{within} bitwise={bool(torch.equal(y_csr, y))} ms={ms!r} "
+          f"(100 launches per event pair) bytes_bound_ms="
+          f"{nbytes / HBM_BYTES_PER_S * 1e3!r}")
+    if not within:
+        raise AssertionError("the CSR product disagrees with stencil7 "
+                             "beyond rounding")
+    return ms
 
 
 def direct_solution(model):
@@ -433,11 +497,12 @@ def check_small_model(device):
 
 
 @contextlib.contextmanager
-def counted_run():
+def counted_run(counts=None):
     """Counts of one run of a main path: the kernel's launches (set to 0 on
     entry) and the calls of the kernel's plain version on a CUDA tensor,
-    which no path on the card may make."""
-    counts = {"plain_on_cuda": 0}
+    which no path on the card may make; in ``counts`` when given."""
+    counts = {} if counts is None else counts
+    counts["plain_on_cuda"] = 0
     plain = stencil.spmv_structured
 
     def counting_plain(shape, diag, off, x):
@@ -454,28 +519,20 @@ def counted_run():
 
 
 def run_bench(device, precision, preconditioner="jacobi", jacobi=None,
-              warmup=True):
-    """bench.py's configuration through the port: a warm-up run (unless
-    ``warmup`` is false), then a timed run whose kernel launches are
-    counted.  With another
-    preconditioner than Jacobi the run is held against the Jacobi ``f64``
-    run of this call, ``jacobi`` = (heads, inner_total of the same
+              warmup=True, baseline=False):
+    """The port's benchmark (``modflow6_torch.bench``'s build and timed
+    run): a warm-up run (unless ``warmup`` is false), then a timed run
+    whose kernel launches are counted; with ``baseline``, then the scipy
+    baseline on the same model and the benchmark's JSON line.  With
+    another preconditioner than Jacobi the run is held against the Jacobi
+    ``f64`` run of this call, ``jacobi`` = (heads, inner_total of the same
     precision): heads within 10 x outer_dvclose, fewer inner iterations,
     and at least the launches that the inner count implies."""
-    model = flagship(*BENCH_SHAPE, device)
-    run = make_fused_run(
-        model, ImsSettings(**BENCH, precision=precision,
-                           preconditioner=preconditioner),
-        iss=False, nsteps=3)
-    delts = [5.0, 5.0, 5.0]
-    if warmup:
-        run(model.strt, delts)
-        torch.cuda.synchronize()
-    with counted_run() as counts:
-        t0 = time.perf_counter()
-        head, kiters, inners, convs = run(model.strt, delts)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
+    model, settings = bench_mod.build(*BENCH_SHAPE, precision, device)
+    settings = dataclasses.replace(settings, preconditioner=preconditioner)
+    counts = {}
+    head, kiters, inners, convs, elapsed = bench_mod.timed_run(
+        model, settings, 3, warmup=warmup, around=counted_run(counts))
     launches = counts["launches"]
     inner_total = sum(inners)
     cells = model.nodes
@@ -484,9 +541,17 @@ def run_bench(device, precision, preconditioner="jacobi", jacobi=None,
     print(f"bench precision={precision} preconditioner={preconditioner} "
           f"cells={cells} steps=3 "
           f"inner_total={inner_total} inners={inners} outers={kiters} "
-          f"converged={all(convs)} elapsed_s={elapsed!r} "
+          f"converged={all(convs)} warm={warmup} elapsed_s={elapsed!r} "
           f"ims_cell_iters_per_s={rate!r} stencil7_launches={launches} "
           f"plain_on_cuda={counts['plain_on_cuda']}")
+    if baseline:
+        t0 = time.perf_counter()
+        # 20 iterations of the benchmark's 60 (the phases' time limit)
+        base = bench_mod.scipy_baseline_rate(model, iters=20)
+        print(f"bench scipy baseline (1 core, 20 Jacobi-CG iterations): "
+              f"{base!r} cell-iter/s in {time.perf_counter() - t0!r} s "
+              "with the host copy of the system; the bench line:")
+        print(bench_mod.result_line(rate, rate / base))
     if not (all(convs) and finite and head.shape == (cells,)):
         raise AssertionError(f"bench run ({precision}, {preconditioner}) "
                              f"failed: converged={convs} finite={finite}")
@@ -1191,19 +1256,6 @@ def disu_of(grid, stagger_every=5):
                            (grid.idomain.reshape(-1) > 0).astype(np.int32))
 
 
-def flagship_stresses(nrow, ncol):
-    """CHD, WEL and RCH of ``flagship`` by cell number in layer 1."""
-    return dict(
-        chd=[(i * ncol, 45.0) for i in range(nrow)]
-        + [(i * ncol + ncol - 1, 35.0) for i in range(nrow)],
-        wel=[((nrow // 2) * ncol + ncol // 2, -500.0)],
-        rch=[(n, 1e-4) for n in range(nrow * ncol)])
-
-
-def flagship_botm(nlay, ncpl):
-    return np.linspace(0.0, -50.0, nlay)[:, None] * np.ones((nlay, ncpl))
-
-
 def ell_bound_ms(n, k, index_bytes=8):
     """The least time the card could take for one gather product: diag, x
     and y of n float64 values, the n x k coefficients and the n x k
@@ -1753,19 +1805,6 @@ def run_xt3d_bench(device, dis_head):
         raise AssertionError("the XT3D bench run failed its checks")
     if counts["launches"] or counts["plain_on_cuda"]:
         raise AssertionError("the XT3D run went through the stencil")
-
-
-def flagship_grid(nlay, nrow, ncol):
-    return DisGrid.create(nlay, nrow, ncol, delr=10.0, delc=10.0, top=50.0,
-                          botm=flagship_botm(nlay, nrow * ncol).reshape(
-                              nlay, nrow, ncol))
-
-
-def flagship_args(nlay, nrow, ncol):
-    """The keyword arguments of ``flagship`` but the grid and the device."""
-    return dict(k=flagship_kfield(nlay, nrow, ncol), strt=40.0,
-                storage={"ss": 1e-5, "iconvert": 0},
-                **flagship_stresses(nrow, ncol))
 
 
 def simulate(model, periods, settings, period_data=None, tvk=None,
@@ -3937,10 +3976,10 @@ def run_utilities_deck(device, shape):
 
 def run_utilities_ats(device, ws):
     """(b) The deck of (a) through ``load_simulation`` without its output
-    files, period 1 stepping adaptively from a first step of the whole
-    period with an outer maximum one below that step's count, run twice,
-    and replayed as fixed steps of the accepted length.  Returns the
-    launches."""
+    files, period 1 alone (period 2 cut in depth for the phases' time),
+    stepping adaptively from a first step of the whole period with an
+    outer maximum one below that step's count, run twice, and replayed as
+    fixed steps of the accepted length.  Returns the launches."""
     from modflow6_torch.timing.ats import AtsPeriod
     from modflow6_torch.utils.mf6io import load_simulation as load
     nam = os.path.join(ws, "m.nam")
@@ -3954,6 +3993,7 @@ def run_utilities_ats(device, ws):
     for attempt in ("ats", "ats", "replay"):
         sim = load(ws, device=None if torch.device(device).type == "cuda"
                    else device)
+        sim.tdis = Tdis(sim.tdis.periods[:1])
         if outer_maximum is None:
             # a probe of the whole period as one step, which commits
             # nothing: the same Simulation runs below
@@ -3971,8 +4011,7 @@ def run_utilities_ats(device, ws):
                                    dtmax=perlen, dtadj=1.0, dtfailadj=4.0)
         else:
             steps = runs[0][0]
-            sim.tdis = Tdis((StressPeriod(perlen, len(steps), 1.0),)
-                            + sim.tdis.periods[1:])
+            sim.tdis = Tdis((StressPeriod(perlen, len(steps), 1.0),))
         with counted_run() as counts:
             t0 = time.perf_counter()
             recs = sim.run()
@@ -4526,12 +4565,13 @@ def wedge_models(device, shape):
     return flow, gwt
 
 
-def run_wedge(device, shape, mxiter, label):
-    """(t3) once: returns (simulation, records, flow self-consistency
-    error, launches)."""
+def run_wedge(device, shape, mxiter, label, periods=WEDGE_PERIODS):
+    """(t3) once over ``periods``: returns (simulation, records, flow
+    self-consistency error, launches); a run of one step has no
+    self-consistency re-solve, and its error is None."""
     flow, gwt = wedge_models(device, shape)
     settings = ImsSettings(**BENCH, linear_acceleration="bicgstab")
-    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in WEDGE_PERIODS)),
+    sim = Simulation(Tdis(tuple(StressPeriod(*p) for p in periods)),
                      flow, settings, gwt=gwt,
                      gwt_settings=ImsSettings(**PLUME_TRANSPORT))
     sim.sgp_mxiter = mxiter
@@ -4540,23 +4580,26 @@ def run_wedge(device, shape, mxiter, label):
         recs = sim.run()
         sync(device)
         seconds = time.perf_counter() - t0
-    # the flow's self-consistency: the last step re-solved at the final
-    # concentration
-    pkgs = dataclasses.replace(flow.packages, buy_conc=sim.conc)
-    h2, info, _ = sim.solution.solve_timestep(
-        torch.as_tensor(recs[-2].head, device=device), recs[-1].totim
-        - recs[-2].totim, kstp=len(recs), iss=False, pkgs=pkgs)
-    err = float((h2.cpu() - torch.as_tensor(recs[-1].head)).abs().max())
+    err, resolved = None, True
+    if len(recs) > 1:
+        # the flow's self-consistency: the last step re-solved at the
+        # final concentration
+        pkgs = dataclasses.replace(flow.packages, buy_conc=sim.conc)
+        h2, info, _ = sim.solution.solve_timestep(
+            torch.as_tensor(recs[-2].head, device=device), recs[-1].totim
+            - recs[-2].totim, kstp=len(recs), iss=False, pkgs=pkgs)
+        err = float((h2.cpu() - torch.as_tensor(recs[-1].head)).abs().max())
+        resolved = info.converged
     print(f"transport (t3) wedge {label} mxiter={mxiter}: "
           f"cells={flow.nodes} run_s={seconds!r} "
           f"counts={[(r.outer, r.inner) for r in recs]} "
           f"group_passes={[r.group_iterations for r in recs]} "
           f"transport={[(r.transport_outer, r.transport_inner) for r in recs]} "
-          f"self_consistency={err!r} resolve_converged={info.converged} "
+          f"self_consistency={err!r} resolve_converged={resolved} "
           f"conc_max={float(sim.conc.max())!r} "
           f"stencil7_launches={counts['launches']}")
     if not (all(r.converged and r.transport_converged for r in recs)
-            and info.converged and counts["launches"]
+            and resolved and counts["launches"]
             and not counts["plain_on_cuda"]):
         raise AssertionError(f"transport (t3) wedge {label} failed")
     return sim, recs, err, counts["launches"]
@@ -4701,17 +4744,21 @@ def run_transport(device, shape=BENCH_SHAPE):
     launches = l1 + l2 + run_plume_deck(device, shape, (s2, r2),
                                         periods=FIRST_STEP)
     del s2
-    wedges = [run_wedge(device, shape, WEDGE_MXITER, f"run {i}")
-              for i in (1, 2)]
-    (w1, wr1, e1, wl1), (w2, wr2, e2, wl2) = wedges
-    same = [(r.outer, r.inner, r.group_iterations) for r in wr1] == [
+    # the repeat is the first step, held bitwise (the phases' time limit)
+    wedges = [run_wedge(device, shape, WEDGE_MXITER, "run 1"),
+              run_wedge(device, shape, WEDGE_MXITER, "run 2 (first step)",
+                        periods=((WEDGE_PERIODS[0][0] / WEDGE_PERIODS[0][1],
+                                  1, 1.0),))]
+    (w1, wr1, e1, wl1), (w2, wr2, _, wl2) = wedges
+    same = [(r.outer, r.inner, r.group_iterations) for r in wr1[:1]] == [
         (r.outer, r.inner, r.group_iterations) for r in wr2] and all(
         np.array_equal(a.head, b.head) for a, b in zip(wr1, wr2)) and all(
         np.array_equal(a, b) for a, b in zip(w1.conc_records,
                                              w2.conc_records))
     del wedges, w1, w2
     _, _, e_lagged, wl3 = run_wedge(device, shape, 1, "lagged")
-    print(f"transport (t3) two runs bitwise equal={same} self_consistency "
+    print(f"transport (t3) run 2 bitwise equal to run 1's first step={same} "
+          f"self_consistency "
           f"mxiter={WEDGE_MXITER} {e1!r} against mxiter=1 {e_lagged!r}")
     if not (same and e1 < e_lagged):
         raise AssertionError("the wedge runs differ, or the group loop did "
@@ -4881,7 +4928,8 @@ def check_small_apt(device, names=None):
 # ------------------------------------------------ the apt and gwe phases
 
 # (a1)-(a3) and (e3): the advanced model's three 5-d steps
-APT_PERIODS = ((15.0, 3, 1.0),)
+# two steps of 5 d (cut in depth for the phases' time limit)
+APT_PERIODS = ((10.0, 2, 1.0),)
 # (e1)-(e3): heat on the bench grid; TVD, EST, CND, CTP at 80 °C on the
 # plume's CNC block, ESL on its SRC cells, recharge at 25 °C through SSM,
 # starting at 10 °C; the west CHD column's inflow enters at 0 °C (SSM's
@@ -6577,6 +6625,129 @@ def run_api(device, deck_heads=None, deck_saved=None):
     return launches
 
 
+# ---------------------------------------------------------- entry phase
+
+# the dry run's sharded results against their single-device solves: the
+# bars of tests/test_torch_parallel*.py (row shards in mixed precision,
+# the general runner, the coupled transport, the augmented runner)
+DRYRUN_ATOL = {"rows": SHARDED_ATOL["mixed"], "general": SHARDED_ATOL["f64"],
+               "coupled": SHARDED_ATOL["transport"],
+               "augmented": SHARDED_ATOL["augmented"]}
+STUDY_SHAPE = (1, 75, 75)
+HALO_ARGV = ["--nlay", "4", "--nrow", "128", "--ncol", "128", "--shards",
+             str(SHARDS)]
+
+
+def run_entry_step(device):
+    """(n1) ``entry()``'s step on the card against the port's fused step
+    on the CPU at the entry settings: heads within 1e-10."""
+    fn, args = entry_mod.entry(device)
+    with counted_run() as counts:
+        head = fn(*args)
+        sync(device)
+    cpu = flagship(2, 64, 64, "cpu")
+    h_cpu, k_cpu, i_cpu, c_cpu = make_fused_step(
+        cpu, ImsSettings(**ENTRY), False)(cpu.strt, 1.0, 1)
+    err = float((head.cpu() - h_cpu).abs().max())
+    print(f"entry (n1) entry() step on the card: max|dh| vs the CPU step="
+          f"{err!r} bar={CARD_CPU_ATOL!r} (cpu outer={k_cpu} inner={i_cpu} "
+          f"converged={c_cpu}) example_args on "
+          f"{[str(a.device) for a in args]} "
+          f"stencil7_launches={counts['launches']}")
+    if not (c_cpu and err <= CARD_CPU_ATOL and counts["launches"] >= i_cpu
+            and not counts["plain_on_cuda"]):
+        raise AssertionError("entry (n1): the card's step disagrees with "
+                             "the CPU's, or missed the kernel")
+    return counts["launches"]
+
+
+def run_entry_dryrun(device):
+    """(n2) ``dryrun_multichip(SHARDS)`` over the machine's cards (all its
+    shards on the one card here): each run against its single-device solve
+    on the card; the row shards' launches, one per shard and product."""
+    t0 = time.perf_counter()
+    with counted_run() as counts:
+        runs = entry_mod.dryrun_multichip(SHARDS)
+        sync(device)
+    seconds = time.perf_counter() - t0
+    errs = {}
+    for name, run in runs.items():
+        heads, conc = entry_mod.single_device(run)
+        errs[name] = float(np.abs(run.heads - heads).max())
+        if conc is not None:
+            errs[f"{name} conc"] = float(np.abs(run.conc - conc).max())
+    bars = {k: DRYRUN_ATOL[k.split()[0]] for k in errs}
+    rows_inner = runs["rows"].info["inner"]
+    print(f"entry (n2) dryrun_multichip({SHARDS}) in {seconds!r} s: "
+          f"infos={ {k: r.info for k, r in runs.items()} } max|d| vs "
+          f"single-device={errs} bars={bars} "
+          f"stencil7_launches={counts['launches']} (at least {SHARDS} x "
+          f"{rows_inner})")
+    if not all(errs[k] <= bars[k] for k in errs):
+        raise AssertionError("entry (n2): a sharded dry run is off its "
+                             "single-device solve")
+    if counts["launches"] < SHARDS * rows_inner or counts["plain_on_cuda"]:
+        raise AssertionError("entry (n2): the row shards missed the kernel")
+    return counts["launches"]
+
+
+def run_entry_study(device):
+    """(n3) ``iteration_study``'s 75x75 rows on the card, the f64 ones
+    against the same cases on the CPU (equal inner counts); and its scipy
+    row."""
+    card = iteration_study.build(*STUDY_SHAPE, device=device)
+    cpu = iteration_study.build(*STUDY_SHAPE, device="cpu")
+    launches = 0
+    for pc in ("jacobi", "chebyshev", "mg"):
+        for prec in ("f64", "mixed"):
+            with counted_run() as counts:
+                r = iteration_study.card_case(card, pc, prec)
+            want = (iteration_study.card_case(cpu, pc, prec)
+                    if prec == "f64" else r)
+            launches += counts["launches"]
+            print(f"entry (n3) | 75x75 | {pc}-CG ({prec}) | {r['inner']} | "
+                  f"{r['per_step'] * 1e3:.1f} ms | cpu inner="
+                  f"{want['inner'] if prec == 'f64' else 'not run'} "
+                  f"converged={r['conv']} stencil7_launches="
+                  f"{counts['launches']}")
+            if not (r["conv"] and want["conv"] and counts["launches"]
+                    and not counts["plain_on_cuda"]):
+                raise AssertionError(f"entry (n3): {pc} {prec} failed")
+            if r["inner"] != want["inner"]:
+                raise AssertionError(f"entry (n3): {pc} f64 took "
+                                     f"{r['inner']} inner iterations on the "
+                                     f"card, {want['inner']} on the CPU")
+    r = iteration_study.scipy_ilu_case(card)
+    print(f"entry (n3) | 75x75 | scipy ILU(0)-BiCGSTAB | {r['inner']} | "
+          f"{r['wall'] * 1e3:.1f} ms (1 core) | converged={r['conv']}")
+    if not r["conv"]:
+        raise AssertionError("entry (n3): the scipy case did not converge")
+    return launches
+
+
+def run_entry_halo(device):
+    """(n4) ``halo_study`` at 4 x 128 x 128 on SHARDS shards (all on the
+    one card): its lines; the single-device solve's launches."""
+    with counted_run() as counts:
+        out = halo_study.main(HALO_ARGV)
+    if not (out["sharded_inner"] > 1 and out["single_inner"] > 1
+            and out["slots_ppermute"] > 0) or counts["plain_on_cuda"]:
+        raise AssertionError("entry (n4): the halo study failed")
+    print(f"entry (n4) halo_study stencil7_launches={counts['launches']}")
+    return counts["launches"]
+
+
+def run_entry(device):
+    """The entry phase: the port's entry scripts, (n1)-(n4).  Returns
+    their stencil7 launches."""
+    t0 = time.perf_counter()
+    launches = (run_entry_step(device) + run_entry_dryrun(device)
+                + run_entry_study(device) + run_entry_halo(device))
+    print(f"entry phase in {time.perf_counter() - t0!r} s, "
+          f"stencil7_launches={launches}")
+    return launches
+
+
 def _device_us(evt, self_time=True):
     """Device time of a profiler row in microseconds (the attribute's name
     changed across PyTorch versions)."""
@@ -6664,7 +6835,8 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
 
 PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
           "unstructured", "properties", "advanced", "coupling", "utilities",
-          "transport", "apt", "gwe", "swf", "prt", "parallel", "api")
+          "transport", "apt", "gwe", "swf", "prt", "parallel", "api",
+          "entry")
 
 
 def main():
@@ -6711,8 +6883,15 @@ def main():
     # what the parallel and api phases hold their runs against
     brick = advanced_first = plume = deck_heads = deck_saved = None
     t_script = time.perf_counter()
+    marks = []
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
+    mark("kernel")
     if "kernel" in phases:
         worst, times = check_kernel(device)
+    mark("small")
     if "small" in phases:
         t_small = time.perf_counter()
         check_small_model(device)
@@ -6727,11 +6906,15 @@ def main():
         check_small_swf_prt(device)
         print(f"small phase in {time.perf_counter() - t_small!r} s (the "
               f"SWF and PRT twins {time.perf_counter() - t_swf!r} s)")
+    mark("bench")
     if "bench" in phases:
         launches["fused"], mixed_head, _, mixed_inners, _ = run_bench(
-            device, "mixed")
-        f64_launches, fused_head, kiters, inners, _ = run_bench(device, "f64")
+            device, "mixed", baseline=True)
+        # the f64 run without a warm-up (its seconds are printed, not held)
+        f64_launches, fused_head, kiters, inners, _ = run_bench(
+            device, "f64", warmup=False)
         launches["fused"] += f64_launches
+    mark("precond")
     if "precond" in phases:
         measure_preconditioner_apply(device)
         jacobi_inner = {"f64": sum(inners), "mixed": sum(mixed_inners)}
@@ -6742,11 +6925,13 @@ def main():
                       jacobi=(fused_head, jacobi_inner[precision]),
                       warmup=False)[0]
             for pc in ("chebyshev", "mg") for precision in ("mixed", "f64"))
+    mark("deck")
     if "deck" in phases:
         launches["deck"], deck_heads, deck_saved = run_deck_bench(
             device, fused_head, list(zip(kiters, inners)))
         launches["deck"] += run_deck_preconditioned(device, fused_head,
                                                     sum(inners))
+    mark("newton")
     if "newton" in phases:
         launches["newton"] = run_newton_deck(device,
                                              args.newton_preconditioner)
@@ -6755,38 +6940,58 @@ def main():
         _, fused_head, kiters, inners, _ = run_bench(device, "f64")
     if "parallel" in phases and "bench" not in phases:
         mixed_head = run_bench(device, "mixed")[1]
+    mark("unstructured")
     if "unstructured" in phases:
         run_disv_oracle(device, fused_head, list(zip(kiters, inners)))
         brick = run_brick(device)
         run_brick_deck(device)
         launches["general"] = run_rotated(device)
+    mark("properties")
     if "properties" in phases:
         launches["properties"] = run_properties(device, fused_head)
+    mark("advanced")
     if "advanced" in phases:
         advanced_launches, advanced_first = run_advanced(device)
+    mark("coupling")
     if "coupling" in phases:
         launches["coupling"] = run_coupling(device)
+    mark("utilities")
     if "utilities" in phases:
         launches["utilities"] = run_utilities(device)
+    mark("transport")
     if "transport" in phases:
         launches["transport"], plume = run_transport(device)
+    mark("apt")
     if "apt" in phases:
         apt_launches = run_apt(device)
+    mark("gwe")
     if "gwe" in phases:
         launches["gwe"] = run_gwe(device)
+    mark("swf")
     if "swf" in phases:
         launches["swf"] = run_swf(device)
+    mark("prt")
     if "prt" in phases:
         launches["prt"] = run_prt(device)
+    mark("parallel")
     if "parallel" in phases:
         launches["parallel"] = run_parallel(
             device, {"f64": fused_head, "mixed": mixed_head}, brick,
             advanced_first, plume)
     del brick, plume
+    mark("api")
     if "api" in phases:
         launches["api"] = run_api(device, deck_heads, deck_saved)
+    mark("entry")
+    if "entry" in phases:
+        launches["entry"] = run_entry(device)
+    mark("end")
     print(f"chip_smoke: phases {phases} in "
-          f"{time.perf_counter() - t_script!r} s (the build before them)")
+          f"{time.perf_counter() - t_script!r} s (the build before them); "
+          "seconds from each phase's start to the next's (the oracle runs "
+          "of a phase whose oracle phase was left out count to the phase "
+          "before it): "
+          f"{ {n: t1 - t0 for (n, t0), (_, t1) in zip(marks, marks[1:])} }")
     if set(phases) != set(PHASES):
         print(f"phases {phases} passed; the result lines need all phases")
         return
@@ -6794,8 +6999,8 @@ def main():
         raise AssertionError(f"a main path launched no stencil7 kernel: "
                              f"{launches}")
 
-    ms, plain_ms, one_call_ms = times["f64"]
-    ms32, plain_ms32, one_call_ms32 = times["f32"]
+    ms, plain_ms, one_call_ms, library_ms = times["f64"]
+    ms32, plain_ms32, one_call_ms32, library_ms32 = times["f32"]
     print(json.dumps({"kernels": [{
         "name": "stencil7", "route": "cuda",
         "source": "modflow6_torch/csrc/stencil7.cu",
@@ -6818,10 +7023,12 @@ def main():
         "launches_prt_path": launches["prt"],
         "launches_parallel_path": launches["parallel"],
         "launches_api_path": launches["api"],
+        "launches_entry_path": launches["entry"],
         "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": stencil_bound_ms(BENCH_SHAPE, torch.float64),
-        "bound_by": "bytes", "library_ms": None,
+        "bound_by": "bytes", "library_ms": library_ms,
+        "library_ms_f32": library_ms32,
         "ms_one_call_host_inclusive": one_call_ms,
         "ms_f32": ms32, "plain_ms_f32": plain_ms32,
         "bound_ms_f32": stencil_bound_ms(BENCH_SHAPE, torch.float32),

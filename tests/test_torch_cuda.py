@@ -13,7 +13,8 @@ twins (LKT, SFT, MWT, UZT, MVT and their GWE analogs, GWE with each
 package, two merged GWE models), and the sharded runners (row shards,
 whose products launch the kernel once a shard, and the general split), the
 ``Mf6Api`` XMI loop and a checkpointed run resumed, on the card against
-the CPU.
+the CPU, and the entry scripts (``modflow6_torch.bench``'s run through the
+kernel, ``entry.dryrun_multichip`` against its single-device solves).
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -671,3 +672,46 @@ def test_checkpoint_resume_on_card_is_bitwise(cuda, tmp_path):
     assert rest.model.strt.is_cuda
     for a, b in zip(rest.run(), full[1:]):
         assert np.array_equal(a.head, b.head)
+
+
+def test_bench_main_on_card_launches_the_kernel(cuda, capsys, monkeypatch):
+    """The port's benchmark entry on the card: at least one kernel launch
+    per inner iteration, no plain product on a CUDA tensor (chip_smoke.py's
+    ``counted_run`` check), and its JSON line."""
+    import json
+
+    from modflow6_torch import bench
+
+    plain = stencil.spmv_structured
+    on_cuda = []
+
+    def counting_plain(shape, diag, off, x):
+        on_cuda.append(x.is_cuda)
+        return plain(shape, diag, off, x)
+
+    monkeypatch.setattr(stencil, "spmv_structured", counting_plain)
+    stencil.stencil7.launches = 0
+    out = bench.main(["--nlay", "1", "--nrow", "64", "--ncol", "64"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "ims_cell_iters_per_s" and line["value"] > 0
+    assert all(out["convs"]) and out["head"].is_cuda
+    assert stencil.stencil7.launches >= out["inner_total"] > 0
+    assert not any(on_cuda)
+
+
+def test_dryrun_multichip_on_card_converges(cuda):
+    """``dryrun_multichip(2)`` on the card: every run converges and meets
+    its single-device solve on the card at the bars of
+    tests/test_torch_parallel*.py."""
+    from modflow6_torch import entry
+
+    bars = {"rows": 1e-6, "general": 1e-7, "coupled": 1e-7,
+            "augmented": 5e-7}
+    runs = entry.dryrun_multichip(2)
+    for name, run in runs.items():
+        assert run.info["converged"], name
+        assert run.model.device.type == "cuda"
+        heads, conc = entry.single_device(run)
+        np.testing.assert_allclose(run.heads, heads, atol=bars[name])
+        if conc is not None:
+            np.testing.assert_allclose(run.conc, conc, atol=bars[name])

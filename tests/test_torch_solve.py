@@ -315,6 +315,9 @@ import numpy as np
 import modflow6_torch
 names = [m.name for m in pkgutil.walk_packages(modflow6_torch.__path__,
                                                "modflow6_torch.")]
+assert {"modflow6_torch.bench", "modflow6_torch.entry",
+        "modflow6_torch.tools.iteration_study",
+        "modflow6_torch.tools.halo_study"} <= set(names)
 for name in names:
     importlib.import_module(name)
 from modflow6_torch.models.discretization import DisGrid
