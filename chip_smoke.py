@@ -191,6 +191,7 @@ from modflow6_torch.timing import ats as ats_mod              # noqa: E402
 from modflow6_torch.timing.tdis import StressPeriod, Tdis     # noqa: E402
 from modflow6_torch.utils.mf6io import load_simulation       # noqa: E402
 from modflow6_torch.utils.oc import OutputControl            # noqa: E402
+from modflow6_torch.utils import profiler                     # noqa: E402
 from modflow6_torch.api import Mf6Api                        # noqa: E402
 from modflow6_torch.bench import (BENCH, flagship,           # noqa: E402
                                   flagship_args, flagship_botm,
@@ -498,9 +499,10 @@ def check_small_model(device):
 
 @contextlib.contextmanager
 def counted_run(counts=None):
-    """Counts of one run of a main path: the kernel's launches (set to 0 on
-    entry) and the calls of the kernel's plain version on a CUDA tensor,
-    which no path on the card may make; in ``counts`` when given."""
+    """Counts of one run of a main path: the kernel's launches (from the
+    program's counter, ``profiler.launches``) and the calls of the kernel's
+    plain version on a CUDA tensor, which no path on the card may make; in
+    ``counts`` when given."""
     counts = {} if counts is None else counts
     counts["plain_on_cuda"] = 0
     plain = stencil.spmv_structured
@@ -510,12 +512,12 @@ def counted_run(counts=None):
         return plain(shape, diag, off, x)
 
     stencil.spmv_structured = counting_plain
-    stencil.stencil7.launches = 0
+    before = profiler.launches["stencil7"]
     try:
         yield counts
     finally:
         stencil.spmv_structured = plain
-    counts["launches"] = stencil.stencil7.launches
+    counts["launches"] = profiler.launches["stencil7"] - before
 
 
 def run_bench(device, precision, preconditioner="jacobi", jacobi=None,
@@ -602,10 +604,10 @@ def measure_preconditioner_apply(device):
         mg = make_mg_preconditioner(model.dtopo.grid_shape, d, o)
         for kind, apply in (("chebyshev", chebyshev_precondition(
                 matvec, d, order=4)), ("mg", mg)):
-            stencil.stencil7.launches = 0
+            before = profiler.launches["stencil7"]
             z = apply(r)
             torch.cuda.synchronize()
-            launches = stencil.stencil7.launches
+            launches = profiler.launches["stencil7"] - before
             ms = back_to_back_ms(lambda: apply(r), launches=10, runs=5,
                                  warmup=2)
             extra = (f" levels={[tuple(lv[0].shape) for lv in mg.levels]}"
@@ -929,8 +931,9 @@ def run_deck_bench(device, fused_head, fused_counts):
         prof = listing[listing.index("Profiler timings"):].splitlines()
         mem = listing[listing.index("MEMORY USAGE"):].splitlines()
         print("deck f64 cli -l summary listing: "
-              + " | ".join(line.strip() for line in prof[:4] + mem[:8]))
-        if not (prof[1].split()[0] == "solve" and "(n=3)" in prof[1]
+              + " | ".join(line.strip() for line in prof[:9] + mem[:8]))
+        if not ([line.split()[0] for line in prof[1:3]] == ["step", "solve"]
+                and all("(n=3)" in line for line in prof[1:3])
                 and any(line.startswith("NPF_ARRAYS") for line in mem)
                 and mem[-1].startswith("TOTAL")):
             raise AssertionError("the listing lacks the profiler sections "
@@ -4257,21 +4260,23 @@ def instrument_transport(sim, device):
         return out
 
     def counted_solve(*args, **kwargs):
-        before = stencil.stencil7.launches
+        before = profiler.launches["stencil7"]
         steps[-1]["flow_launches"] = before - steps[-1]["flow_launches"]
         ims_mod.bicgstab = timed_bicgstab
         try:
             out = solve(*args, **kwargs)
         finally:
             ims_mod.bicgstab = bicgstab
-        steps[-1]["transport_launches"] = stencil.stencil7.launches - before
+        steps[-1]["transport_launches"] = (profiler.launches["stencil7"]
+                                           - before)
         return out
 
     def step(*args, **kwargs):
         reset_peak(device)
         steps.append(dict(assembly_s=0.0, bicgstab_s=0.0,
-                          bicgstab_iterations=0, flow_launches=stencil
-                          .stencil7.launches, transport_launches=0))
+                          bicgstab_iterations=0,
+                          flow_launches=profiler.launches["stencil7"],
+                          transport_launches=0))
         out = do_step(*args, **kwargs)
         steps[-1]["peak_bytes"] = peak_bytes(device)
         return out

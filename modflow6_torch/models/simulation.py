@@ -54,10 +54,16 @@ structured planes; each step the host reads the budget's IN/OUT sums in one
 transfer, the observed values in one more, and the arrays of a record only
 when that record is saved.  On the general path the same holds with the
 per-edge flows in place of the planes.
+
+Each ``do_step`` is a ``step`` span holding a ``solve`` span (the flow
+solve up to the device's end of it) and an ``output`` span (everything
+after it); the step's record carries its spans and counters
+(``utils.profiler``), and the listing's profile is built from them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import NamedTuple, Optional
@@ -75,7 +81,7 @@ from ..utils.binary import BudgetFileWriter, HeadFileWriter
 from ..utils.budget import Budget
 from ..utils.csvout import OuterCsvWriter
 from ..utils.memreport import memory_report
-from ..utils.profiler import Profiler
+from ..utils.profiler import Profiler, host_read, span, synchronize, take
 from .gwf import csub as csub_mod
 from .gwf import uzf as uzf_mod
 from .gwt import adv as adv_mod
@@ -99,8 +105,8 @@ class StepRecord:
     outer: int
     inner: int
     budget_table: Optional[str] = None
-    solve_seconds: float = 0.0      # host clock, device work finished
-    output_seconds: float = 0.0     # budget, record and file output
+    solve_seconds: float = 0.0      # the step's solve spans (device done)
+    output_seconds: float = 0.0     # its output span: budget, record, files
     uzf_resolves: int = 0           # uzf_cc re-solves of the step
     retries: int = 0                # ATS attempts that failed before it
     transport_converged: bool = True
@@ -110,6 +116,10 @@ class StepRecord:
     apt_seconds: float = 0.0        # APT's feature flows
     transport_seconds: float = 0.0  # the committed transport solve
     group_iterations: int = 1       # solution-group passes (sgp_mxiter)
+    # the spans closed since the last step's record, in the order they
+    # opened, and the counters' growth (utils.profiler.take)
+    spans: list = dataclasses.field(default_factory=list)
+    counters: dict = dataclasses.field(default_factory=dict)
 
 
 class _Transport(NamedTuple):
@@ -333,13 +343,8 @@ class Simulation:
             pkgs = self._augment_uzf(pkgs, delt, head_old)
 
         def solve(p):
-            if self.prof is None:
-                return self.solution.solve_timestep(
-                    head_old, delt, kstp=kstp, iss=iss, pkgs=p, kper=kper)
-            # the section waits for the card, so its seconds are the solve's
-            with self.prof.section("solve", block_on=head_old):
-                return self.solution.solve_timestep(
-                    head_old, delt, kstp=kstp, iss=iss, pkgs=p, kper=kper)
+            return self.solution.solve_timestep(
+                head_old, delt, kstp=kstp, iss=iss, pkgs=p, kper=kper)
 
         solved = solve(pkgs)
         self._uzf_resolves = 0
@@ -350,9 +355,9 @@ class Simulation:
             res_prev = self._uzf_pending[0]
             res = uzf_mod.advance(self.uzf, self.uzf_theta, delt,
                                   head=solved[0], watab_old=self.uzf_watab)
-            dmax, scale = torch.stack((
+            dmax, scale = host_read(torch.stack((
                 ((res.rch - res_prev.rch).abs() * area).max(),
-                (res.rch * area).abs().max())).tolist()
+                (res.rch * area).abs().max())), torch.Tensor.tolist)
             if dmax <= max(1e-10, 1e-6 * (scale + 1e-30)):
                 break
             pkgs = dataclasses.replace(pkgs, uzf=uzf_mod.make_step(
@@ -363,173 +368,205 @@ class Simulation:
         return solved
 
     def _sync(self):
-        if self.model.device.type == "cuda":
-            torch.cuda.synchronize(self.model.device)
+        synchronize(self.model.device)
 
     def do_step(self, head, kper, kstp, delt, pertim, totim,
                 save_heads_every=1, solved=None):
         """Advance one time step (Mf6PrepareTimestep + Mf6DoTimestep +
         Mf6FinalizeTimestep for the single-solution case).  Returns the new
         head; appends the StepRecord and writes outputs.  ``solved``: the
-        accepted attempt's ``solve_step`` result (the ATS path), else the
-        step is solved here."""
-        model = self.model
-        iss = not self.transient[kper - 1]
-        head_old = head
-        for hook in self.step_hooks:
-            hook(kper, kstp, delt)
-        pkgs = self.step_packages(kper)
-        t0 = time.perf_counter()
-        if solved is None:
-            solved = self.solve_step(head_old, kper, kstp, delt)
-        head, info, aux = solved
-        ibound, cond = aux["ibound"], aux["cond"]
-        uzf_step = None
-        if self._uzf_pending is not None:
-            # commit the column state the accepted solve used; its
-            # packages (with the UZF terms) serve the budget and outputs,
-            # the march and its step-start state the UZT rows
-            res, pkgs = self._uzf_pending
-            uzf_step = (res, self.uzf_theta)
-            self.uzf_theta, self.uzf_watab = res.theta, res.watab
-            self._uzf_pending = None
-        transport = None
-        if (self.gwt is not None and self.sgp_mxiter > 1
-                and self._density_coupled and self.uzf is None
-                and model.csub is None):
-            head, info, aux, pkgs, transport = self._group_picard(
-                head, info, aux, head_old, pkgs, kstp, delt, iss)
-            ibound, cond = aux["ibound"], aux["cond"]
-        if model.csub is not None:
-            # pkgs keeps the start-of-step state (for budgets); then the
-            # state advances: es0 ← es, pcs ← max(pcs, es), compaction +=
-            a = model.npf_arrays
-            self.csub_state = csub_mod.advance_state(
-                model.csub, self.csub_state, a.top, a.bot, model.area,
-                a.icelltype, head, head_old, ibound, delt)
-        maw = getattr(model, "maw", None)
-        if maw is not None and maw.shut is not None:
-            # MAW SHUT_OFF hysteresis advances at the accepted solution
-            # (gwf-maw.f90 shutoffmin/max); one host read per step
-            new_shut = maw.advance_shutoff(head, model._maw_offset)
-            if bool(torch.any(new_shut != maw.shut)):
-                model.maw = dataclasses.replace(maw, shut=new_shut)
-                self.solution = NumericalSolution(model, self.solution.s)
-        self._sync()
-        t1 = time.perf_counter()
-        # ---- explicit PRT models track over the accepted flow step
-        for drv in self.prt_drivers:
-            if not hasattr(drv, "x"):
-                drv.begin(self.tdis)
-            drv.on_step(kper, kstp, delt, totim, head, ibound, cond)
-        if self.outer_csv:
-            self.outer_csv.write_step(totim, kper, kstp, info)
-        if info.inner_traces:
-            # IMS CSV_INNER_OUTPUT: one row per inner iteration
-            if self._inner_csv is None:
-                self._inner_csv = open(self.solution.s.csv_inner_path, "w")
-                self._inner_csv.write(
-                    "totim,kper,kstp,kouter,kinner,dvmax,rmax,l2norm\n")
-            for kiter, n, dv, rm, l2 in info.inner_traces:
-                for i in range(n):
-                    self._inner_csv.write(
-                        f"{totim},{kper},{kstp},{kiter},{i + 1},"
-                        f"{dv[i]:.10g},{rm[i]:.10g},{l2[i]:.10g}\n")
-            self._inner_csv.flush()
+        accepted attempt's ``solve_step`` result (the ATS path, which holds
+        the step's span and ends its record), else the step is solved here.
+        The record carries the step's spans and counters (``_end_step``)."""
+        own = solved is None
+        if own:
+            take()      # what ran before the step is not the step's
+        with span("step") if own else contextlib.nullcontext():
+            model = self.model
+            iss = not self.transient[kper - 1]
+            head_old = head
+            for hook in self.step_hooks:
+                hook(kper, kstp, delt)
+            pkgs = self.step_packages(kper)
+            with span("solve"):
+                if solved is None:
+                    solved = self.solve_step(head_old, kper, kstp, delt)
+                head, info, aux = solved
+                ibound, cond = aux["ibound"], aux["cond"]
+                uzf_step = None
+                if self._uzf_pending is not None:
+                    # commit the column state the accepted solve used;
+                    # its packages (with the UZF terms) serve the budget
+                    # and outputs, the march and its step-start state the
+                    # UZT rows
+                    res, pkgs = self._uzf_pending
+                    uzf_step = (res, self.uzf_theta)
+                    self.uzf_theta, self.uzf_watab = res.theta, res.watab
+                    self._uzf_pending = None
+                transport = None
+                if (self.gwt is not None and self.sgp_mxiter > 1
+                        and self._density_coupled and self.uzf is None
+                        and model.csub is None):
+                    head, info, aux, pkgs, transport = self._group_picard(
+                        head, info, aux, head_old, pkgs, kstp, delt, iss)
+                    ibound, cond = aux["ibound"], aux["cond"]
+                if model.csub is not None:
+                    # pkgs keeps the start-of-step state (for budgets);
+                    # then the state advances: es0 ← es,
+                    # pcs ← max(pcs, es), compaction +=
+                    a = model.npf_arrays
+                    self.csub_state = csub_mod.advance_state(
+                        model.csub, self.csub_state, a.top, a.bot,
+                        model.area, a.icelltype, head, head_old, ibound,
+                        delt)
+                maw = getattr(model, "maw", None)
+                if maw is not None and maw.shut is not None:
+                    # MAW SHUT_OFF hysteresis advances at the accepted
+                    # solution (gwf-maw.f90 shutoffmin/max); one host read
+                    # per step
+                    new_shut = maw.advance_shutoff(head, model._maw_offset)
+                    if host_read(torch.any(new_shut != maw.shut), bool):
+                        model.maw = dataclasses.replace(maw, shut=new_shut)
+                        self.solution = NumericalSolution(model,
+                                                          self.solution.s)
+                self._sync()
+            with span("output"):
+                # ---- explicit PRT models track over the accepted step
+                for drv in self.prt_drivers:
+                    if not hasattr(drv, "x"):
+                        drv.begin(self.tdis)
+                    drv.on_step(kper, kstp, delt, totim, head, ibound, cond)
+                if self.outer_csv:
+                    self.outer_csv.write_step(totim, kper, kstp, info)
+                if info.inner_traces:
+                    # IMS CSV_INNER_OUTPUT: one row per inner iteration
+                    if self._inner_csv is None:
+                        self._inner_csv = open(
+                            self.solution.s.csv_inner_path, "w")
+                        self._inner_csv.write("totim,kper,kstp,kouter,"
+                                              "kinner,dvmax,rmax,l2norm\n")
+                    for kiter, n, dv, rm, l2 in info.inner_traces:
+                        for i in range(n):
+                            self._inner_csv.write(
+                                f"{totim},{kper},{kstp},{kiter},{i + 1},"
+                                f"{dv[i]:.10g},{rm[i]:.10g},{l2[i]:.10g}\n")
+                    self._inner_csv.flush()
 
-        # the iteration summary of the reference program's listing
-        # (NumericalSolution.f90 sln_ot); modflow6_tpu's listing has none
-        self._lst_lines.append(
-            f" {info.outer_iterations} CALLS TO NUMERICAL SOLUTION IN TIME "
-            f"STEP {kstp} STRESS PERIOD {kper}")
-        self._lst_lines.append(f" {info.inner_iterations} TOTAL ITERATIONS")
-        self._lst_lines.append("")
+                # the iteration summary of the reference program's listing
+                # (NumericalSolution.f90 sln_ot); modflow6_tpu's listing has
+                # none
+                self._lst_lines.append(
+                    f" {info.outer_iterations} CALLS TO NUMERICAL SOLUTION IN "
+                    f"TIME STEP {kstp} STRESS PERIOD {kper}")
+                self._lst_lines.append(
+                    f" {info.inner_iterations} TOTAL ITERATIONS")
+                self._lst_lines.append("")
 
-        # ---- budget (model_cq/model_bd phase)
-        flows = self._accumulate_budget(head, head_old, ibound, cond, delt,
-                                        iss, pkgs)
-        table = self.budget.table(
-            f"VOLUME BUDGET FOR ENTIRE MODEL AT END OF TIME STEP {kstp}, "
-            f"STRESS PERIOD {kper}")
-        # OC PRINT BUDGET selection; without OC PERIOD blocks every step's
-        # table is kept in the listing
-        nstp = self.tdis.periods[kper - 1].nstp
-        has_oc = self.oc is not None and bool(self.oc.periods)
-        print_budget = (self.oc.active("PRINT", "BUDGET", kper, kstp, nstp)
-                        if has_oc else True)
-        if print_budget:
-            self._lst_lines.append(table)
-            self._lst_lines.append("")
+                # ---- budget (model_cq/model_bd phase)
+                flows = self._accumulate_budget(head, head_old, ibound, cond,
+                                                delt, iss, pkgs)
+                table = self.budget.table(
+                    f"VOLUME BUDGET FOR ENTIRE MODEL AT END OF TIME STEP "
+                    f"{kstp}, STRESS PERIOD {kper}")
+                # OC PRINT BUDGET selection; without OC PERIOD blocks every
+                # step's table is kept in the listing
+                nstp = self.tdis.periods[kper - 1].nstp
+                has_oc = self.oc is not None and bool(self.oc.periods)
+                print_budget = (self.oc.active("PRINT", "BUDGET", kper, kstp,
+                                               nstp) if has_oc else True)
+                if print_budget:
+                    self._lst_lines.append(table)
+                    self._lst_lines.append("")
 
-        if self.obs is not None:
-            self.obs.record(totim, head, flows=self._obs_flows(flows, pkgs))
+                if self.obs is not None:
+                    self.obs.record(totim, head,
+                                    flows=self._obs_flows(flows, pkgs))
 
-        head_np = head.cpu().numpy()
-        rec = StepRecord(kper, kstp, totim, head_np, info.converged,
-                         info.outer_iterations, info.inner_iterations, table,
-                         uzf_resolves=self._uzf_resolves)
-        self.records.append(rec)
+                head_np = host_read(head).numpy()
+                rec = StepRecord(kper, kstp, totim, head_np, info.converged,
+                                 info.outer_iterations,
+                                 info.inner_iterations, table,
+                                 uzf_resolves=self._uzf_resolves)
+                self.records.append(rec)
 
-        # ---- the sequentially coupled transport step (flow → FMI → GWT)
-        if self.gwt is not None:
-            if transport is None:
-                transport = self._solve_transport(head, head_old, aux, pkgs,
-                                                  kstp, delt, iss,
-                                                  uzf_step=uzf_step)
-            self._commit_transport(rec, transport, aux["ibound"], kper, kstp,
-                                   delt)
+                # ---- the sequentially coupled transport step
+                # (flow → FMI → GWT)
+                if self.gwt is not None:
+                    if transport is None:
+                        transport = self._solve_transport(
+                            head, head_old, aux, pkgs, kstp, delt, iss,
+                            uzf_step=uzf_step)
+                    self._commit_transport(rec, transport, aux["ibound"],
+                                           kper, kstp, delt)
 
-        # ---- outputs (OC SAVE selection when PERIOD blocks are present)
-        save_head = (self.oc.active("SAVE", "HEAD", kper, kstp, nstp)
-                     if has_oc else kstp % save_heads_every == 0)
-        save_budget = (self.oc.active("SAVE", "BUDGET", kper, kstp, nstp)
-                       if has_oc else True)
-        shape3d = self._shape3d()
-        # the grid rows (an augmented model's feature rows follow them)
-        ng = getattr(model, "n_grid", model.nodes)
-        if self.hds and save_head:
-            out = head_np[:ng].copy()
-            out[ibound[:ng].cpu().numpy() == 0] = DHNOFLO
-            self.hds.write_step(kstp, kper, pertim, totim,
-                                out.reshape(shape3d))
-            if self.nc is not None:
-                self.nc.record(totim, out)
-        if self.cbc and save_budget:
-            flowja = self._flowja_csr(head, ibound, cond, pkgs)
-            self.cbc.write_flowja(kstp, kper, flowja, shape3d, delt, pertim,
-                                  totim)
-            self._write_boundary_cbc(flows, pkgs, kstp, kper, delt, pertim,
-                                     totim)
-        if has_oc and self.oc.active("PRINT", "HEAD", kper, kstp, nstp):
-            # OC PRINT HEAD: formatted layer arrays in the listing
-            self._lst_lines.append(self._format_array(
-                head_np[:ng].reshape(shape3d),
-                f"HEAD IN LAYER   AT END OF TIME STEP {kstp}, "
-                f"STRESS PERIOD {kper}"))
-        if self.conc_hds is not None and (
-                self.gwt_oc.active("SAVE", self.conc_text, kper, kstp, nstp)
-                if self.gwt_oc is not None and self.gwt_oc.periods
-                else True):
-            # the grid rows (APT's feature rows follow them)
-            self.conc_hds.write_step(
-                kstp, kper, pertim, totim,
-                self.conc_records[-1][:self.gwt.grid.nodes].reshape(
-                    _shape3d(self.gwt.grid)))
-        rec.solve_seconds = t1 - t0
-        rec.output_seconds = time.perf_counter() - t1
-        if not info.converged:
+                # ---- outputs (OC SAVE selection when PERIOD blocks are
+                # present)
+                save_head = (self.oc.active("SAVE", "HEAD", kper, kstp, nstp)
+                             if has_oc else kstp % save_heads_every == 0)
+                save_budget = (self.oc.active("SAVE", "BUDGET", kper, kstp,
+                                              nstp) if has_oc else True)
+                shape3d = self._shape3d()
+                # the grid rows (an augmented model's feature rows follow
+                # them)
+                ng = getattr(model, "n_grid", model.nodes)
+                if self.hds and save_head:
+                    out = head_np[:ng].copy()
+                    out[host_read(ibound[:ng]).numpy() == 0] = DHNOFLO
+                    self.hds.write_step(kstp, kper, pertim, totim,
+                                        out.reshape(shape3d))
+                    if self.nc is not None:
+                        self.nc.record(totim, out)
+                if self.cbc and save_budget:
+                    flowja = self._flowja_csr(head, ibound, cond, pkgs)
+                    self.cbc.write_flowja(kstp, kper, flowja, shape3d, delt,
+                                          pertim, totim)
+                    self._write_boundary_cbc(flows, pkgs, kstp, kper, delt,
+                                             pertim, totim)
+                if has_oc and self.oc.active("PRINT", "HEAD", kper, kstp,
+                                             nstp):
+                    # OC PRINT HEAD: formatted layer arrays in the listing
+                    self._lst_lines.append(self._format_array(
+                        head_np[:ng].reshape(shape3d),
+                        f"HEAD IN LAYER   AT END OF TIME STEP {kstp}, "
+                        f"STRESS PERIOD {kper}"))
+                if self.conc_hds is not None and (
+                        self.gwt_oc.active("SAVE", self.conc_text, kper,
+                                           kstp, nstp)
+                        if self.gwt_oc is not None and self.gwt_oc.periods
+                        else True):
+                    # the grid rows (APT's feature rows follow them)
+                    self.conc_hds.write_step(
+                        kstp, kper, pertim, totim,
+                        self.conc_records[-1][:self.gwt.grid.nodes].reshape(
+                            _shape3d(self.gwt.grid)))
+        if own:
+            self._end_step(rec)
+        return head
+
+    def _end_step(self, rec):
+        """Put the step's spans and counters on its record (its
+        ``solve_seconds`` are its ``solve`` spans', its ``output_seconds``
+        its ``output`` span's), fold them into the profile, and stop the
+        run at a failed step unless it may go on."""
+        rec.spans, rec.counters = take()
+        rec.solve_seconds = sum(s.seconds for s in rec.spans
+                                if s.name == "solve")
+        rec.output_seconds = sum(s.seconds for s in rec.spans
+                                 if s.name == "output")
+        if self.prof is not None:
+            self.prof.add(rec.spans)
+        if not rec.converged:
             self._lst_lines.append(
-                f"*** NONCONVERGENCE kper={kper} kstp={kstp} ***")
+                f"*** NONCONVERGENCE kper={rec.kper} kstp={rec.kstp} ***")
             if self.fail_fast:
                 # reference default: a failed time step aborts the run
                 # unless the simulation CONTINUE option is set
                 # (Sim.f90:401-433 convergence bookkeeping + ustop)
                 self.finish()
                 raise ConvergenceFailure(
-                    f"simulation failed to converge at kper={kper} "
-                    f"kstp={kstp} (set the mfsim.nam CONTINUE option to "
+                    f"simulation failed to converge at kper={rec.kper} "
+                    f"kstp={rec.kstp} (set the mfsim.nam CONTINUE option to "
                     "run on)")
-        return head
 
     def _solve_transport(self, head, head_old, aux, pkgs, kstp, delt, iss,
                          passes=1, uzf_step=None):
@@ -595,7 +632,7 @@ class Simulation:
             prev = transport.conc
             transport = self._solve_transport(head, head_old, aux, pkgs,
                                               kstp, delt, iss, passes)
-            if float((transport.conc - prev).abs().max()) <= \
+            if host_read((transport.conc - prev).abs().max(), float) <= \
                     self.sgp_dclose:
                 break
         return head, info, aux, pkgs, transport
@@ -611,7 +648,7 @@ class Simulation:
                                          gwt.area, gwt.top, gwt.bot, ibound,
                                          self.conc, gwt.cim, conc, delt)
         self.conc = conc
-        self.conc_records.append(conc.cpu().numpy())
+        self.conc_records.append(host_read(conc).numpy())
         rec.fmi_seconds = transport.fmi_seconds
         rec.apt_seconds = transport.apt_seconds
         rec.transport_seconds = transport.solve_seconds
@@ -747,38 +784,42 @@ class Simulation:
         delt = ats_mod.initial_delt(a)
         pertim, kstp = 0.0, 0
         while pertim < period.perlen - 1e-12:
-            if self.gwt is not None and self.ats_percel \
-                    and not hasattr(self.gwt, "mst_arrays"):
-                raise NotImplementedError(
-                    "ATS_PERCEL with a GWE model or APT rows")
-            if self.gwt is not None and self.ats_percel \
-                    and self.gwt._fields is not None:
-                # the transport's Courant step on the last flow fields
-                # (model_dt / adv_dt role); one host read
-                g = self.gwt
-                dtadv = float(adv_mod.adv_dtmax(
-                    g.dtopo, g._fields, g.ibound0, g.mst_arrays.porosity,
-                    g.area, g.top, g.bot, self.ats_percel))
-                if np.isfinite(dtadv):
-                    delt = min(delt, dtadv)
-            delt = min(ats_mod.clamp(delt, a), period.perlen - pertim)
-            kstp += 1
-            t0 = time.perf_counter()
-            solved = self.solve_step(head, kper, kstp, delt)
-            retries = 0
-            while (not solved[1].converged and a.dtfailadj > 1.0
-                   and retries < max_retries and delt > a.dtmin):
-                delt = min(ats_mod.fail_delt(delt, a), period.perlen - pertim)
-                retries += 1
-                solved = self.solve_step(head, kper, kstp, delt)
-            self._sync()
-            solve_seconds = time.perf_counter() - t0
-            pertim += delt
-            totim += delt
-            head = self.do_step(head, kper, kstp, delt, pertim, totim,
-                                save_heads_every, solved=solved)
-            self.records[-1].retries = retries
-            self.records[-1].solve_seconds += solve_seconds
+            # the step's span holds its attempts
+            take()      # what ran before the step is not the step's
+            with span("step"):
+                if self.gwt is not None and self.ats_percel \
+                        and not hasattr(self.gwt, "mst_arrays"):
+                    raise NotImplementedError(
+                        "ATS_PERCEL with a GWE model or APT rows")
+                if self.gwt is not None and self.ats_percel \
+                        and self.gwt._fields is not None:
+                    # the transport's Courant step on the last flow fields
+                    # (model_dt / adv_dt role); one host read
+                    g = self.gwt
+                    dtadv = host_read(adv_mod.adv_dtmax(
+                        g.dtopo, g._fields, g.ibound0, g.mst_arrays.porosity,
+                        g.area, g.top, g.bot, self.ats_percel), float)
+                    if np.isfinite(dtadv):
+                        delt = min(delt, dtadv)
+                delt = min(ats_mod.clamp(delt, a), period.perlen - pertim)
+                kstp += 1
+                with span("solve"):
+                    solved = self.solve_step(head, kper, kstp, delt)
+                    retries = 0
+                    while (not solved[1].converged and a.dtfailadj > 1.0
+                           and retries < max_retries and delt > a.dtmin):
+                        delt = min(ats_mod.fail_delt(delt, a),
+                                   period.perlen - pertim)
+                        retries += 1
+                        solved = self.solve_step(head, kper, kstp, delt)
+                    self._sync()
+                pertim += delt
+                totim += delt
+                head = self.do_step(head, kper, kstp, delt, pertim, totim,
+                                    save_heads_every, solved=solved)
+            rec = self.records[-1]
+            rec.retries = retries
+            self._end_step(rec)
             delt = ats_mod.next_delt(delt, a, solved[1].outer_iterations,
                                      self.solution.s.outer_maximum)
         return head, totim
@@ -791,7 +832,8 @@ class Simulation:
     def _flowja_csr(self, head, ibound, cond, pkgs):
         """The full CSR flowja array (diagonal entries zero) as numpy,
         matching the reference's .cbc FLOW-JA-FACE layout."""
-        return self.model.flowja_csr(head, ibound, cond, pkgs).cpu().numpy()
+        return host_read(self.model.flowja_csr(head, ibound, cond,
+                                               pkgs)).numpy()
 
     def _accumulate_budget(self, head, head_old, ibound, cond, delt, iss,
                            pkgs=None):
@@ -839,17 +881,18 @@ class Simulation:
                 chd = pkgs.chd
                 self._chd_entry_flows = torch.where(
                     chd.mask, -into_cell[chd.node], 0.0)
-                q = self._chd_entry_flows[chd.mask]
+                # a boolean mask's selection reads its count on the host
+                q = host_read(self._chd_entry_flows, lambda f: f[chd.mask])
             flows[name] = q
 
         if flows:
             # one transfer for all the IN/OUT sums; the table lists CHD
             # after the other packages, as the reference's does
             names = sorted(flows, key=lambda name: name == "CHD")
-            sums = torch.stack([
+            sums = host_read(torch.stack([
                 torch.stack((flows[name].clamp(min=0.0).sum(),
                              -flows[name].clamp(max=0.0).sum()))
-                for name in names]).tolist()
+                for name in names]), torch.Tensor.tolist)
             for name, (rate_in, rate_out) in zip(names, sums):
                 self.budget.add_rates(name, rate_in, rate_out, delt)
         return flows
@@ -868,16 +911,16 @@ class Simulation:
                 continue        # the reference writes no record of these
             if name.startswith("STO-"):
                 nodes = np.arange(q.shape[0])
-                qv = q.cpu().numpy()
+                qv = host_read(q).numpy()
             elif name.startswith("UZF-"):
-                nodes = pkgs.uzf.node.cpu().numpy()
-                qv = q.cpu().numpy()
+                nodes = host_read(pkgs.uzf.node).numpy()
+                qv = host_read(q).numpy()
             else:
                 data = getattr(pkgs, name.lower())
-                mask = data.mask.cpu().numpy()
-                nodes = data.node.cpu().numpy()[mask]
+                mask = host_read(data.mask).numpy()
+                nodes = host_read(data.node).numpy()[mask]
                 # the CHD flows are already cut to the masked entries
-                qv = q.cpu().numpy()
+                qv = host_read(q).numpy()
                 qv = qv if name == "CHD" else qv[mask]
             self.cbc.write_list(kstp, kper, name, nodes, qv, shape3d, delt,
                                 pertim, totim, mname, name)

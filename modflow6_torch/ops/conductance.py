@@ -74,13 +74,20 @@ def hcond(ibdn, ibdm, ictn, ictm, iupstream, ihc, icellavg, condsat,
         sat_up = torch.where(hn > hm, satn, satm)
         cond_conv = sat_up * condsat
     else:
-        is_stag = torch.as_tensor(ihc == C3D_STAGGERED, device=satn.device)
-        thksatn = torch.where(
-            is_stag, staggered_thkfrac(topn, botn, satn, topm, botm),
-            satn * (topn - botn))
-        thksatm = torch.where(
-            is_stag, staggered_thkfrac(topm, botm, satm, topn, botn),
-            satm * (topm - botm))
+        def thick(top, bot, sat, topc, botc):
+            flat = sat * (top - bot)
+            if isinstance(ihc, int):
+                # one connection type for every pair (the structured
+                # planes): chosen on the host, with no flag copied to the
+                # device, which would wait for it
+                return (staggered_thkfrac(top, bot, sat, topc, botc)
+                        if ihc == C3D_STAGGERED else flat)
+            is_stag = torch.as_tensor(ihc == C3D_STAGGERED, device=sat.device)
+            return torch.where(
+                is_stag, staggered_thkfrac(top, bot, sat, topc, botc), flat)
+
+        thksatn = thick(topn, botn, satn, topm, botm)
+        thksatm = thick(topm, botm, satm, topn, botn)
         cond_conv = condmean(hkn, hkm, thksatn, thksatm, cln, clm, fawidth,
                              icellavg)
 

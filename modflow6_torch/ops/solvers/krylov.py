@@ -10,7 +10,10 @@ RCLOSE per ICNVGOPT, and stagnation of rho to within 100 machine epsilons.
 The JAX version runs each loop as one ``lax.while_loop`` on the device.
 Here the loop is a Python ``while`` whose scalars (rho, alpha, the norms,
 the exit flag) stay 0-d device tensors; the host reads the exit flag once
-per iteration, which is one device synchronisation per iteration.
+per iteration, which is one device synchronisation per iteration.  That
+read goes through ``utils.profiler.exit_flag``, which counts it and adds
+the host's wait to the solve's ``krylov`` span (``krylov_solve``); under
+a ``torch.profiler`` each iteration is an ``mf6::krylov_iter`` range.
 ``trace=True`` keeps each iteration's (dvmax, rmax, l2norm) on the device
 and returns them stacked, without a further host read per iteration.
 ``dot`` and ``absmax`` are injectable, as in the reference: the sharded
@@ -26,6 +29,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ...constants import DPREC
+from ...utils.profiler import exit_flag, iteration_ranges, krylov_solve
 
 # f32 passes of refined_solve before it gives up (the reference's default)
 MAX_PASSES = 8
@@ -100,6 +104,7 @@ def epfact(icnvgopt: int, kstp: int) -> float:
     return 1.0
 
 
+@krylov_solve
 def cg(
     matvec: Callable,
     b: torch.Tensor,
@@ -130,7 +135,10 @@ def cg(
     rows = [] if trace else None
     iiter = 0
     done = False
+    ranges = iteration_ranges()
     while not done and iiter < itmax:
+        if ranges:
+            ranges.begin()
         z = precond(d)
         rho = dot(d, z)
         beta = zero if iiter == 0 else rho / torch.where(rho0 != 0.0, rho0,
@@ -153,11 +161,13 @@ def cg(
         stagnant = _is_close(rho, rho0)
         if trace:
             rows.append(torch.stack((dvmax, rmax, l2norm)))
-        done = bool((icnvg != 0) | stagnant | (rho == 0.0))
+        done = exit_flag((icnvg != 0) | stagnant | (rho == 0.0))
         if north > 0 and (iiter + 2) % north == 0 and not done:
             d = b - matvec(x)
         rho0 = rho
         iiter += 1
+        if ranges:
+            ranges.end()
     return KrylovResult(x, iiter, icnvg == 1, dvmax, rmax, l2norm,
                         _stack_trace(rows, b))
 
@@ -172,6 +182,7 @@ def _stack_trace(rows, b):
     return tuple(torch.stack(rows).unbind(dim=1))
 
 
+@krylov_solve
 def bicgstab(
     matvec: Callable,
     b: torch.Tensor,
@@ -203,7 +214,10 @@ def bicgstab(
     rows = [] if trace else None
     iiter = 0
     done = False
+    ranges = iteration_ranges()
     while not done and iiter < itmax:
+        if ranges:
+            ranges.begin()
         rho = dot(dhat, d)
         if iiter == 0:
             p = d
@@ -237,15 +251,18 @@ def bicgstab(
             rows.append(torch.stack((dvmax, rmax, l2norm)))
         stagnant = (_is_close(rho, rho0) | _is_close(alpha, alpha0)
                     | _is_close(omega, omega0))
-        done = bool((icnvg != 0) | stagnant | (rho * omega == 0.0))
+        done = exit_flag((icnvg != 0) | stagnant | (rho * omega == 0.0))
         if north > 0 and (iiter + 2) % north == 0 and not done:
             d = b - matvec(x)
         rho0, alpha0, omega0 = rho, alpha, omega
         iiter += 1
+        if ranges:
+            ranges.end()
     return KrylovResult(x, iiter, icnvg == 1, dvmax, rmax, l2norm,
                         _stack_trace(rows, b))
 
 
+@krylov_solve
 def refined_solve(
     matvec64: Callable,
     matvec32: Callable,
@@ -307,7 +324,7 @@ def refined_solve(
         icnvg = _test_cnvg(icnvgopt, 0, dvmax, rcnvg, l2norm0, epfact_val,
                            dvclose, rclose)
         # a pass that produced no correction cannot make progress (f32 floor)
-        done = bool((icnvg != 0) | (dvmax == 0.0))
+        done = exit_flag((icnvg != 0) | (dvmax == 0.0))
         iters += res.iters
         npass += 1
     return KrylovResult(x, iters, icnvg == 1, dvmax, rmax, l2)

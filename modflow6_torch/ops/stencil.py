@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiler import launches
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "stencil7.cu"
 BUILD_DIR = _PKG / "_build"
@@ -137,7 +139,7 @@ def bind_stencil7(shape, diag, off):
     CPU tensors: the plain version.  CUDA tensors: diag and off are checked
     and the kernel is bound once here; each call checks only x, launches
     the sm_90a kernel on the current stream of diag's device (which must be
-    the current device) and adds one to ``stencil7.launches``.
+    the current device) and counts it (``utils.profiler.launches``).
     """
     if diag.device.type == "cpu":
         def matvec(x):
@@ -165,7 +167,7 @@ def bind_stencil7(shape, diag, off):
         if err != 0:
             raise RuntimeError("stencil7 launch failed: "
                                + lib.stencil7_error_string(err).decode())
-        stencil7.launches += 1
+        launches["stencil7"] += 1
         return y
 
     # holds diag and off, so their memory outlives the pointers bound above
@@ -174,9 +176,7 @@ def bind_stencil7(shape, diag, off):
 
 
 def stencil7(shape, diag, off, x):
-    """y = A x in one call (see ``bind_stencil7``); the launch counter
-    ``stencil7.launches`` counts every kernel launch of either."""
+    """y = A x in one call (see ``bind_stencil7``); every kernel launch of
+    either is counted as ``utils.profiler.launches["stencil7"]``."""
     return bind_stencil7(shape, diag, off)(x)
 
-
-stencil7.launches = 0

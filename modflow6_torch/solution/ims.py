@@ -20,7 +20,11 @@ iteration.  Here each outer iteration is a sequence of PyTorch calls on the
 model's device; the host reads the Krylov loop's exit flag once per inner
 iteration (see ops.solvers.krylov) and ``(converged, dxmax)`` once per
 outer iteration.  The matvec is bound to the assembled system once per
-outer iteration and precision (``make_matvec``), not per product.
+outer iteration and precision (``make_matvec``), not per product.  Each
+outer iteration is an ``outer`` span, with ``assemble`` (the assembly,
+the Dirichlet fixup and the PTC terms), ``precond`` and the solver's
+``krylov`` spans inside it (``utils.profiler``); every host read goes
+through ``utils.profiler.host_read``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from ..ops.solvers.mg import make_mg_preconditioner
 from ..ops.solvers.precond import make_preconditioner
 from ..ops.system import (apply_dirichlet, apply_dirichlet_structured,
                           make_matvec)
+from ..utils.profiler import host_read, span
 
 
 @dataclasses.dataclass
@@ -233,17 +238,19 @@ class NumericalSolution:
         model = self.model
         dtopo = model.system_topo
 
-        diag, off, rhs = model.assemble(head, head_old, ibound, delt, iss,
-                                        pkgs)
-        xtemp = head
-        active = torch.sign(ibound)
-        diag, off, rhs = fix_system(
-            model, active, diag, off, rhs, head,
-            symmetric=(s.linear_acceleration == "cg"))
+        with span("assemble"):
+            diag, off, rhs = model.assemble(head, head_old, ibound, delt,
+                                            iss, pkgs)
+            xtemp = head
+            active = torch.sign(ibound)
+            diag, off, rhs = fix_system(
+                model, active, diag, off, rhs, head,
+                symmetric=(s.linear_acceleration == "cg"))
 
-        if use_ptc:
-            diag, rhs, ur_state = self._apply_ptc(
-                diag, off, rhs, head, active, delt, ur_state, kiter_is_first)
+            if use_ptc:
+                diag, rhs, ur_state = self._apply_ptc(
+                    diag, off, rhs, head, active, delt, ur_state,
+                    kiter_is_first)
 
         matvec = make_matvec(dtopo, diag, off)
         r0 = rhs - matvec(head)
@@ -256,12 +263,14 @@ class NumericalSolution:
             diag32 = diag.to(torch.float32)
             off32 = off.to(torch.float32)
             matvec32 = make_matvec(dtopo, diag32, off32)
-            precond32 = _make_precond(s, model, dtopo, matvec32, diag32,
-                                      off32)
+            with span("precond"):
+                precond32 = _make_precond(s, model, dtopo, matvec32, diag32,
+                                          off32)
             res = refined_solve(matvec, matvec32, rhs, head, precond32,
                                 solver=solver, **kw)
         else:
-            precond = _make_precond(s, model, dtopo, matvec, diag, off)
+            with span("precond"):
+                precond = _make_precond(s, model, dtopo, matvec, diag, off)
             res = solver(matvec, rhs, head, precond,
                          trace=s.csv_inner_path is not None, **kw)
         x = res.x
@@ -357,13 +366,14 @@ class NumericalSolution:
         active = ibound > 0
         x = head
         res_new = l2(head)
-        done = bool(res_new <= res_prev * s.backtracking_tolerance)
+        done = host_read(res_new <= res_prev * s.backtracking_tolerance,
+                         bool)
         nb = 0
         while not done and nb < s.backtracking_number:
             dxmax = torch.where(active, x - head_prev, DZERO).abs().max()
             # dependent-variable change already below dvclose → stop
-            stop_small = bool(s.backtracking_reduction_factor * dxmax
-                              < s.outer_dvclose)
+            stop_small = host_read(s.backtracking_reduction_factor * dxmax
+                                   < s.outer_dvclose, bool)
             if stop_small:
                 break
             x = torch.where(
@@ -371,8 +381,9 @@ class NumericalSolution:
                 head_prev + s.backtracking_reduction_factor * (x - head_prev),
                 x)
             res_new = l2(x)
-            done = bool((res_new < res_prev * s.backtracking_tolerance)
-                        | (res_new < s.backtracking_residual_limit))
+            done = host_read(
+                (res_new < res_prev * s.backtracking_tolerance)
+                | (res_new < s.backtracking_residual_limit), bool)
             nb += 1
         return x, res_new
 
@@ -481,40 +492,43 @@ class NumericalSolution:
         res_prev = torch.zeros((), dtype=head.dtype, device=head.device)
         head_prev = head
         for kiter in range(1, s.outer_maximum + 1):
-            wd_changed = None
-            if wetdry is not None:
-                # npf_cf wetting/drying sweep before formulate
-                kw = dict(iwetit=iwetit, ihdwet=ihdwet, wetfct=wetfct)
-                if model.use_structured:
-                    ibound, head, wd_changed = npf_mod.wetdry_update(
-                        model.dtopo, model.npf_arrays, wetdry,
-                        model.ibound0, ibound, head, kiter, **kw)
-                else:
-                    ibound, head, wd_changed = npf_mod.wetdry_update_edges(
-                        model.dtopo, model.npf_arrays, wetdry, ibound, head,
-                        kiter, **kw)
-            if use_bt:
-                head, res_prev = self._backtrack(
-                    head, head_prev, head_old_adj, ibound, delt, res_prev,
-                    pkgs, iss=iss, kiter_is_first=(kiter == 1))
-            head_prev = head
-            head, conv, dxmax, inner, ur_state = self._outer_iter(
-                head, head_old_adj, ibound, delt, kstp, ur_state, pkgs,
-                iss=iss, kiter_is_first=(kiter == 1), use_ptc=use_ptc)
-            total_inner += inner
-            # the one host read of the outer iteration
-            flags = [conv.to(dxmax.dtype), dxmax]
-            if wd_changed is not None:
-                flags.append(wd_changed.to(dxmax.dtype))
-            conv, dxmax, *changed = torch.stack(flags).tolist()
-            dv_hist.append(dxmax)
-            if s.csv_inner_path and "inner_trace" in ur_state:
-                inner_traces.append(
-                    (kiter, inner) + tuple(t.cpu().numpy() for t in
-                                           ur_state["inner_trace"]))
-            if conv and not any(changed):
-                converged = True
-                break
+            with span("outer"):
+                wd_changed = None
+                if wetdry is not None:
+                    # npf_cf wetting/drying sweep before formulate
+                    kw = dict(iwetit=iwetit, ihdwet=ihdwet, wetfct=wetfct)
+                    if model.use_structured:
+                        ibound, head, wd_changed = npf_mod.wetdry_update(
+                            model.dtopo, model.npf_arrays, wetdry,
+                            model.ibound0, ibound, head, kiter, **kw)
+                    else:
+                        ibound, head, wd_changed = \
+                            npf_mod.wetdry_update_edges(
+                                model.dtopo, model.npf_arrays, wetdry,
+                                ibound, head, kiter, **kw)
+                if use_bt:
+                    head, res_prev = self._backtrack(
+                        head, head_prev, head_old_adj, ibound, delt,
+                        res_prev, pkgs, iss=iss, kiter_is_first=(kiter == 1))
+                head_prev = head
+                head, conv, dxmax, inner, ur_state = self._outer_iter(
+                    head, head_old_adj, ibound, delt, kstp, ur_state, pkgs,
+                    iss=iss, kiter_is_first=(kiter == 1), use_ptc=use_ptc)
+                total_inner += inner
+                # the one host read of the outer iteration
+                flags = [conv.to(dxmax.dtype), dxmax]
+                if wd_changed is not None:
+                    flags.append(wd_changed.to(dxmax.dtype))
+                conv, dxmax, *changed = host_read(torch.stack(flags),
+                                                  torch.Tensor.tolist)
+                dv_hist.append(dxmax)
+                if s.csv_inner_path and "inner_trace" in ur_state:
+                    inner_traces.append(
+                        (kiter, inner) + tuple(host_read(t).numpy() for t in
+                                               ur_state["inner_trace"]))
+                if conv and not any(changed):
+                    converged = True
+                    break
         info = SolveInfo(converged, kiter, total_inner,
                          dv_hist[-1] if dv_hist else 0.0, dv_hist,
                          inner_traces if s.csv_inner_path else None)

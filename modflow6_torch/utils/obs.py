@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.scatter import AddPlan
+from .profiler import host_read
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +133,8 @@ class ObsManager:
         self._rows.append((totim, list(vals)))
 
     def record(self, totim, head, flows=None):
-        self.append(totim, self.values(head, flows).tolist())
+        self.append(totim, host_read(self.values(head, flows),
+                                     torch.Tensor.tolist))
 
     def close(self):
         with open(self.csv_path, "w") as f:
@@ -158,8 +160,9 @@ class ObsGroup:
     def record(self, totim, head, flows=None):
         if not self.managers:
             return
-        vals = torch.cat([m.values(head, flows)
-                          for m in self.managers]).tolist()
+        vals = host_read(torch.cat([m.values(head, flows)
+                                    for m in self.managers]),
+                         torch.Tensor.tolist)
         start = 0
         for m in self.managers:
             m.append(totim, vals[start:start + len(m.records)])

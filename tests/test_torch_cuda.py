@@ -42,6 +42,7 @@ from modflow6_torch.ops import stencil
 from modflow6_torch.ops.system import make_matvec
 from modflow6_torch.solution import ImsSettings
 from modflow6_torch.solution.fused import make_fused_step
+from modflow6_torch.utils import profiler
 
 pytestmark = pytest.mark.cuda
 
@@ -51,6 +52,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
+
+
+def _launches():
+    """The stencil7 kernel launches so far."""
+    return profiler.launches["stencil7"]
 
 
 def _inputs(shape, dtype, device, zero_borders=True, seed=0):
@@ -77,9 +83,9 @@ def _inputs(shape, dtype, device, zero_borders=True, seed=0):
                                    (5, 1, 1)])
 def test_kernel_matches_plain_version(cuda, shape, dtype, zero_borders):
     diag, off, x = _inputs(shape, dtype, cuda, zero_borders)
-    before = stencil.stencil7.launches
+    before = _launches()
     y = stencil.stencil7(shape, diag, off, x)
-    assert stencil.stencil7.launches == before + 1
+    assert _launches() == before + 1
     y_plain = stencil.spmv_structured(shape, diag, off, x)
     torch.cuda.synchronize()
     assert y.dtype == dtype and y.device == x.device
@@ -91,9 +97,9 @@ def test_kernel_matches_plain_version(cuda, shape, dtype, zero_borders):
 def test_make_matvec_on_cuda_launches_the_kernel(cuda):
     shape = (2, 6, 9)
     diag, off, x = _inputs(shape, torch.float64, cuda)
-    before = stencil.stencil7.launches
+    before = _launches()
     make_matvec(DeviceTopology(shape), diag, off)(x)
-    assert stencil.stencil7.launches == before + 1
+    assert _launches() == before + 1
 
 
 @pytest.mark.parametrize("case", ["half", "cpu_operand", "x_shape",
@@ -160,13 +166,13 @@ def test_deck_run_on_card_matches_cpu(cuda, tmp_path, precision):
         sim.solution = NumericalSolution(
             sim.model, dataclasses.replace(sim.solution.s,
                                            precision=precision))
-        stencil.stencil7.launches = 0
+        before = _launches()
         runs[name] = sim.run()
         inner = sum(r.inner for r in runs[name])
         if device is None:
-            assert stencil.stencil7.launches >= inner > 0
+            assert _launches() - before >= inner > 0
         else:
-            assert stencil.stencil7.launches == 0
+            assert _launches() - before == 0
     assert all(r.converged for r in runs["card"])
     assert [r.outer for r in runs["card"]] == [r.outer for r in runs["cpu"]]
     for a, b in zip(runs["card"], runs["cpu"]):
@@ -215,14 +221,14 @@ def test_mg_apply_on_card_launches_the_kernel_on_every_level(cuda, shape,
     real = stencil.spmv_structured
     stencil.spmv_structured = lambda *a: plain_calls.append(1) or real(*a)
     try:
-        before = stencil.stencil7.launches
+        before = _launches()
         got = apply(r.to(cuda))
         torch.cuda.synchronize()
     finally:
         stencil.spmv_structured = real
     levels = len(apply.levels)
     assert levels >= 3 and not plain_calls
-    assert stencil.stencil7.launches - before == 4 * (levels - 1) + 15
+    assert _launches() - before == 4 * (levels - 1) + 15
     bar = (1e-12 if dtype == torch.float64 else 2e-5) * float(want.abs().max())
     assert float((got.cpu() - want).abs().max()) <= bar
 
@@ -244,10 +250,10 @@ def test_preconditioned_fused_step_on_card_matches_cpu(cuda, pc):
     results = []
     for device in ("cpu", cuda):
         m = model(device)
-        stencil.stencil7.launches = 0
+        before = _launches()
         results.append(make_fused_step(m, settings, iss=False)(m.strt, 1.0,
                                                                1))
-        assert (stencil.stencil7.launches > results[-1][2]) == (
+        assert (_launches() - before > results[-1][2]) == (
             device != "cpu")
     (h_cpu, *counts_cpu), (h_gpu, *counts_gpu) = results
     assert counts_gpu == counts_cpu and counts_cpu[-1]
@@ -294,10 +300,10 @@ def test_general_path_model_on_card_matches_cpu(cuda, kind):
     assert not gpu.use_structured and gpu.dtopo.nbr.is_cuda
     hc, kc, ic, cc = make_fused_run(cpu, settings, False, 2)(cpu.strt,
                                                             [5.0, 5.0])
-    stencil.stencil7.launches = 0
+    before = _launches()
     run = make_fused_run(gpu, settings, False, 2)
     hg, kg, ig, cg_ = run(gpu.strt, [5.0, 5.0])
-    assert stencil.stencil7.launches == 0
+    assert _launches() - before == 0
     assert all(cg_) and all(cc) and (kg, ig) == (kc, ic)
     np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=0,
                                atol=1e-10)
@@ -316,10 +322,10 @@ def test_rotated_anisotropy_dis_model_launches_the_kernel(cuda):
     assert not gpu.use_structured and gpu.dtopo.grid_shape == (3, 37, 45)
     hc, kc, ic, cc = make_fused_run(cpu, settings, False, 2)(cpu.strt,
                                                             [5.0, 5.0])
-    stencil.stencil7.launches = 0
+    before = _launches()
     hg, kg, ig, cg_ = make_fused_run(gpu, settings, False, 2)(gpu.strt,
                                                              [5.0, 5.0])
-    assert stencil.stencil7.launches >= 4 * sum(ig) > 0
+    assert _launches() - before >= 4 * sum(ig) > 0
     assert all(cg_) and (kg, ig) == (kc, ic)
     np.testing.assert_allclose(hg.cpu().numpy(), hc.numpy(), rtol=0,
                                atol=1e-10)
@@ -350,11 +356,11 @@ def test_xt3d_runs_on_card_are_bitwise_equal(cuda):
     assert gpu.system_topo.nbr.shape[1] > gpu.dtopo.nbr.shape[1]
     hc, kc, ic, cc = make_fused_run(cpu, settings, False, 2)(cpu.strt,
                                                             [5.0, 5.0])
-    stencil.stencil7.launches = 0
+    before = _launches()
     run = make_fused_run(gpu, settings, False, 2)
     first = run(gpu.strt, [5.0, 5.0])
     again = run(gpu.strt, [5.0, 5.0])
-    assert stencil.stencil7.launches == 0
+    assert _launches() - before == 0
     assert all(first[3]) and all(cc), (first[1:], kc, ic)
     assert torch.equal(first[0], again[0]), "two card runs differ"
     assert first[1:] == again[1:]
@@ -421,7 +427,7 @@ def test_augmented_runs_on_card_are_bitwise_equal(cuda):
     model, _, _ = chip_smoke.advanced_model(cuda, (4, 128, 128))
     maw0 = model.maw
     out = []
-    stencil.stencil7.launches = 0
+    before = _launches()
     for _ in range(2):
         model.maw = maw0
         sim = Simulation(Tdis((StressPeriod(10.0, 2, 1.0),)), model,
@@ -429,7 +435,7 @@ def test_augmented_runs_on_card_are_bitwise_equal(cuda):
         recs = sim.run()
         assert all(r.converged for r in recs)
         out.append(([(r.outer, r.inner) for r in recs], recs[-1].head))
-    assert stencil.stencil7.launches == 0
+    assert _launches() - before == 0
     assert out[0][0] == out[1][0]
     assert np.array_equal(out[0][1], out[1][1])
 
@@ -479,14 +485,14 @@ def test_series_obs_deck_with_ats_retries_on_card_matches_cpu(cuda,
             sim.solution.s, outer_maximum=13))
         sim.ats[1] = AtsPeriod(dt0=perlen, dtmin=perlen / 64, dtmax=perlen,
                                dtadj=1.0, dtfailadj=4.0)
-        stencil.stencil7.launches = 0
+        before = _launches()
         recs = sim.run()
         assert all(r.converged for r in recs)
         assert recs[0].retries > 0
         if device is None:
-            assert stencil.stencil7.launches >= sum(r.inner for r in recs)
+            assert _launches() - before >= sum(r.inner for r in recs)
         else:
-            assert stencil.stencil7.launches == 0
+            assert _launches() - before == 0
         runs[name] = (ws, recs)
     (ws, card), (cws, cpu) = runs["card"], runs["cpu"]
     assert [(r.kper, r.kstp, r.totim, r.retries) for r in card] == [
@@ -594,13 +600,13 @@ def test_row_sharded_on_card_matches_cpu(cuda, precision):
                                            precision=precision),
                                devices=[dev] * 4)
         hs = ssol.scatter_heads(model.strt)
-        stencil.stencil7.launches = 0
+        before = _launches()
         inner = 0
         for kstp in (1, 2, 3):
             hs, info = ssol.solve_timestep(hs, 0.5 * kstp, kstp=kstp)
             assert info["converged"]
             inner += info["inner"]
-        counts.append((stencil.stencil7.launches, inner))
+        counts.append((_launches() - before, inner))
         heads.append(ssol.gather_heads(hs))
     launches, inner = counts[1]
     assert counts[0][0] == 0 and launches % 4 == 0 and launches >= 4 * inner
@@ -690,12 +696,12 @@ def test_bench_main_on_card_launches_the_kernel(cuda, capsys, monkeypatch):
         return plain(shape, diag, off, x)
 
     monkeypatch.setattr(stencil, "spmv_structured", counting_plain)
-    stencil.stencil7.launches = 0
+    before = _launches()
     out = bench.main(["--nlay", "1", "--nrow", "64", "--ncol", "64"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["metric"] == "ims_cell_iters_per_s" and line["value"] > 0
     assert all(out["convs"]) and out["head"].is_cuda
-    assert stencil.stencil7.launches >= out["inner_total"] > 0
+    assert _launches() - before >= out["inner_total"] > 0
     assert not any(on_cuda)
 
 
