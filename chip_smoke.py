@@ -1,7 +1,10 @@
 """GPU smoke run of modflow6_torch: builds the CUDA stencil kernel, checks
 it against its plain PyTorch version (at the bench shape, at odd shapes and
 at every level shape of the multigrid hierarchy) and times one CSR product
-of the same system (cuSPARSE through ``torch.mv``) as its yardstick, checks
+of the same system (cuSPARSE through ``torch.mv``) as its yardstick, builds
+the fused Jacobi-CG kernels and checks each against its plain version
+(``pcg``: direction, product with dot, update, finish, in f64 and f32) and
+times them at the bench shape and at 1x2048x2048, checks
 the fused transient solve on the card against the CPU and a direct solve,
 runs the bench configuration (4x1024x1024 cells, 3 steps) in ``mixed``
 and ``f64`` through ``modflow6_torch.bench``'s build and timed run (the
@@ -122,8 +125,9 @@ Usage: python3 chip_smoke.py            (one CUDA device; exits non-zero
                                          ``--grid disv`` profiles the
                                          general path)
 
-Output of the smoke run, in order: the device, the kernel build,
-kernel-vs-plain checks with times, the small-model checks, the bench
+Output of the smoke run, in order: the device, the kernel builds,
+kernel-vs-plain checks with times, the fused Jacobi-CG kernels' checks
+with times, the small-model checks, the bench
 runs, the preconditioner runs, the deck runs, the Newton runs, the
 general-path runs, the property-package runs, the advanced-package runs,
 the coupling runs, the utilities runs, the transport runs, the apt runs,
@@ -134,6 +138,7 @@ the entry runs, one JSON line
 """
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -175,6 +180,7 @@ from modflow6_torch.models.gwt.apt import AugmentedGwtModel  # noqa: E402
 from modflow6_torch.models.gwt.builder import build_gwt      # noqa: E402
 from modflow6_torch.models.simulation import Simulation      # noqa: E402
 from modflow6_torch.ops import stencil                       # noqa: E402
+from modflow6_torch.ops.solvers import pcg_jacobi            # noqa: E402
 from modflow6_torch.ops.solvers.mg import make_mg_preconditioner  # noqa: E402
 from modflow6_torch.ops.solvers.precond import (             # noqa: E402
     chebyshev_precondition)
@@ -373,6 +379,165 @@ def check_kernel(device):
     return worst, times
 
 
+# shapes at which the fused Jacobi-CG kernels are timed: the bench grid
+# and the benchmark cell's one-layer grid
+PCG_TIMED_SHAPES = (BENCH_SHAPE, (1, 2048, 2048))
+# bytes a cell that each fused kernel moves in float64 (half in float32):
+# direction reads inv, d, p and writes p; the product reads diag, the six
+# coefficients and p and writes q; the update reads inv, p, q, x, d and
+# writes x and d
+PCG_BYTES_F64 = {"direction": 32, "product": 72, "update": 56}
+
+
+def _pcg_state(shape, dtype, device, seed):
+    """Inputs for one fused iteration: the system, D^-1, random x, d, p,
+    and the kernels' and the plain versions' buffers holding the same
+    scalars (rho0, rho)."""
+    diag, off, x = stencil_inputs(shape, dtype, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    inv = 1.0 / diag
+    system = (shape, diag, off)
+    bufs = {}
+    for name, ops in (("kernel", pcg_jacobi.Kernels),
+                      ("plain", pcg_jacobi.Plain)):
+        nparts = ops.nparts(diag.numel(), dtype, device)
+        buf = pcg_jacobi.Buffers(system, x.clone(), torch.zeros_like(x), inv,
+                                 nparts, torch.tensor(1e-3, device=device,
+                                                      dtype=torch.float64))
+        bufs[name] = buf
+    d = torch.randn(x.shape, dtype=dtype, device=device, generator=gen)
+    p = torch.randn(x.shape, dtype=dtype, device=device, generator=gen)
+    for buf in bufs.values():
+        buf.x.copy_(x)
+        buf.d.copy_(d)
+        buf.p.copy_(p)
+        buf.s[pcg_jacobi.RHO0] = 3.0
+        buf.s[pcg_jacobi.RHO] = 2.0
+    ops = {name: cls(system, inv, bufs[name], 0, 1e-12, 1e-12)
+           for name, cls in (("kernel", pcg_jacobi.Kernels),
+                             ("plain", pcg_jacobi.Plain))}
+    return system, inv, bufs, ops
+
+
+def _sum_bar(terms, dtype):
+    """How far two orders of one sum may differ: 1e-12 (float64) or 1e-4
+    (float32) of the sum of the terms' magnitudes, far above the
+    (log2 N + N / threads) u of either order."""
+    return (1e-12 if dtype == torch.float64 else 1e-4) * float(terms)
+
+
+def check_pcg(device):
+    """The fused Jacobi-CG kernels against their plain versions, one by one
+    from the same state: the vectors bitwise (the same products and sums,
+    rounded alike), the reductions within ``_sum_bar`` of the plain sums,
+    the maxima and their choice exactly.  Then the time of each kernel and
+    of a whole iteration (the four back to back, no flag read) at
+    ``PCG_TIMED_SHAPES``.  Returns the times by (shape, dtype)."""
+    P = pcg_jacobi
+    times = {}
+    shapes = KERNEL_SHAPES + tuple(s for s in PCG_TIMED_SHAPES
+                                   if s not in KERNEL_SHAPES)
+    cases = [(s, dt) for s in shapes for dt in (torch.float64, torch.float32)]
+    for seed, (shape, dtype) in enumerate(cases):
+        system, inv, bufs, ops = _pcg_state(shape, dtype, device, 100 + seed)
+        k, pl = bufs["kernel"], bufs["plain"]
+        name = "f64" if dtype == torch.float64 else "f32"
+        for first in (True, False):
+            ops["kernel"].direction(first)
+            ops["plain"].direction(first)
+            if not torch.equal(k.p, pl.p):
+                raise AssertionError(f"pcg direction (first={first}) "
+                                     f"differs from its plain version at "
+                                     f"{shape} {name}")
+        before = profiler.launches["stencil7"]
+        ops["kernel"].product()
+        ops["plain"].product()
+        if profiler.launches["stencil7"] != before + 1:
+            raise AssertionError("the product was not counted as stencil7")
+        y = stencil.stencil7(shape, system[1], system[2], k.p)
+        pq_err = abs(float(k.parts[P.PQ].sum() - pl.parts[P.PQ, 0]))
+        pq_bar = _sum_bar((k.p * k.q).abs().sum(), dtype)
+        if not (torch.equal(k.q, pl.q) and torch.equal(k.q, y)
+                and pq_err <= pq_bar):
+            raise AssertionError(f"pcg product differs at {shape} {name}: "
+                                 f"p.q off by {pq_err} (bar {pq_bar})")
+        # the update from one p.q: the plain sum in the kernel's first
+        # partial, zeros in the rest, so both take the same alpha
+        k.parts[P.PQ].zero_()
+        k.parts[P.PQ, 0] = pl.parts[P.PQ, 0]
+        ops["kernel"].update()
+        ops["plain"].update()
+        dd_err = abs(float(k.parts[P.DD].sum() - pl.parts[P.DD, 0]))
+        rd_err = abs(float(k.parts[P.RD].sum() - pl.parts[P.RD, 0]))
+        dd_bar = _sum_bar((k.d * k.d).sum(), dtype)
+        rd_bar = _sum_bar((k.d * (inv * k.d)).abs().sum(), dtype)
+        maxima = [P._absmax_of_parts(k.parts[row], k.iparts[irow])
+                  for row, irow in ((P.TV, P.TV_IDX), (P.D, P.D_IDX))]
+        if not (torch.equal(k.x, pl.x) and torch.equal(k.d, pl.d)
+                and torch.equal(maxima[0], pl.parts[P.TV, 0])
+                and torch.equal(maxima[1], pl.parts[P.D, 0])
+                and dd_err <= dd_bar and rd_err <= rd_bar):
+            raise AssertionError(f"pcg update differs at {shape} {name}: "
+                                 f"d.d off by {dd_err} (bar {dd_bar}), "
+                                 f"rho by {rd_err} (bar {rd_bar})")
+        # the finish from the kernel's partials, in both versions
+        pl.parts, pl.iparts = k.parts.clone(), k.iparts.clone()
+        ops["kernel"].finish(1)
+        ops["plain"].finish(1)
+        s_err = float((k.s - pl.s).abs().max())
+        s_bar = _sum_bar(pl.s.abs().max(), dtype)
+        if not (torch.equal(k.flags, pl.flags) and s_err <= s_bar
+                and torch.equal(k.s[P.DVMAX:P.RMAX + 1],
+                                pl.s[P.DVMAX:P.RMAX + 1])):
+            raise AssertionError(f"pcg finish differs at {shape} {name}: "
+                                 f"{k.s.tolist()} {k.flags.tolist()} vs "
+                                 f"{pl.s.tolist()} {pl.flags.tolist()}")
+        line = (f"pcg {name} shape={shape} nparts={k.parts.shape[1]} "
+                f"checks passed: p, q, x, d bitwise; p.q err={pq_err!r} "
+                f"d.d err={dd_err!r} rho err={rd_err!r}")
+        if shape in PCG_TIMED_SHAPES:
+            kops = ops["kernel"]
+            k.s.fill_(1.0)      # beta = 1: p stays finite
+            n = shape[0] * shape[1] * shape[2]
+            es = torch.empty((), dtype=dtype).element_size() / 8
+            row = {}
+            for kname, fn in (("direction", lambda: kops.direction(False)),
+                              ("product", kops.product),
+                              ("update", kops.update),
+                              ("finish", lambda: kops.finish(1))):
+                ms = back_to_back_ms(fn)
+                bound = (PCG_BYTES_F64[kname] * es * n / HBM_BYTES_PER_S
+                         * 1e3 if kname in PCG_BYTES_F64 else None)
+                row[kname] = (ms, bound)
+                line += (f" {kname}_ms={ms!r}" + (
+                    f" {kname}_bound_ms={bound!r} {kname}_share="
+                    f"{bound / ms!r}" if bound else ""))
+
+            def iteration():
+                kops.direction(False)
+                kops.product()
+                kops.update()
+                kops.finish(1)
+            row["iteration"] = (back_to_back_ms(iteration), sum(
+                b for _, b in row.values() if b))
+            pops = ops["plain"]
+            pl.s.fill_(1.0)
+
+            def plain_iteration():
+                pops.direction(False)
+                pops.product()
+                pops.update()
+                pops.finish(1)
+            plain_ms = back_to_back_ms(plain_iteration, launches=10,
+                                       runs=5, warmup=2)
+            line += (f" iteration_ms={row['iteration'][0]!r} "
+                     f"iteration_bound_ms={row['iteration'][1]!r} "
+                     f"plain_iteration_ms={plain_ms!r}")
+            times[(shape, name)] = row
+        print(line)
+    return times
+
+
 def csr_of_planes(shape, diag, off):
     """The 7-point system as one CSR tensor on the planes' device: int32
     row and column indices, each row's structural entries (its neighbours
@@ -497,12 +662,24 @@ def check_small_model(device):
         raise AssertionError("the card's step disagrees with spsolve")
 
 
+# the phase that is running (set as each starts) and, by phase, the
+# launches of its counted runs: the fused Jacobi-CG kernels
+# (``pcg_jacobi``, four an iteration) and ``stencil7_kernel`` alone (the
+# ``stencil7`` count less the fused products, which it also counts)
+PATH_NOW = ["kernel"]
+PATH_LAUNCHES = collections.defaultdict(collections.Counter)
+# counted runs open now: a run inside another is tallied with the outer
+_COUNTED_DEPTH = [0]
+
+
 @contextlib.contextmanager
 def counted_run(counts=None):
     """Counts of one run of a main path: the kernel's launches (from the
-    program's counter, ``profiler.launches``) and the calls of the kernel's
-    plain version on a CUDA tensor, which no path on the card may make; in
-    ``counts`` when given."""
+    program's counter, ``profiler.launches``; with the fused iterations'
+    products), the fused Jacobi-CG kernels' launches, and the calls of the
+    kernel's plain version on a CUDA tensor, which no path on the card may
+    make; in ``counts`` when given, and added to the running phase's
+    ``PATH_LAUNCHES``."""
     counts = {} if counts is None else counts
     counts["plain_on_cuda"] = 0
     plain = stencil.spmv_structured
@@ -513,11 +690,22 @@ def counted_run(counts=None):
 
     stencil.spmv_structured = counting_plain
     before = profiler.launches["stencil7"]
+    fused_before = profiler.launches["pcg_jacobi"]
+    _COUNTED_DEPTH[0] += 1
     try:
         yield counts
     finally:
         stencil.spmv_structured = plain
+        _COUNTED_DEPTH[0] -= 1
     counts["launches"] = profiler.launches["stencil7"] - before
+    counts["pcg_jacobi"] = profiler.launches["pcg_jacobi"] - fused_before
+    if counts["pcg_jacobi"] % 4:
+        raise AssertionError(f"{counts['pcg_jacobi']} fused Jacobi-CG "
+                             "launches: not four an iteration")
+    if not _COUNTED_DEPTH[0]:
+        PATH_LAUNCHES[PATH_NOW[0]].update(
+            pcg_jacobi=counts["pcg_jacobi"],
+            stencil7_kernel=counts["launches"] - counts["pcg_jacobi"] // 4)
 
 
 def run_bench(device, precision, preconditioner="jacobi", jacobi=None,
@@ -6245,10 +6433,16 @@ SHARDS = 4
 # settings: the reference tests' bars (tests/test_parallel.py:45-165,
 # tests/test_parallel_augmented.py, tests/test_parallel_transport.py),
 # which hold at their tight closures and where the two marches take the
-# same iterations, as (q1)'s do.  Where the reductions' order moves a
-# march by a few iterations ((q2)-(q4) at the bench closures), two solves
-# closed at outer_dvclose agree to CLOSURE_FACTOR x outer_dvclose, the
-# bar of this script's other pairs of solves; the lines print both.
+# same iterations, as (q1)'s f64 runs do.  Where the reductions' order
+# moves a march by a few iterations ((q2)-(q4) at the bench closures), two
+# solves closed at outer_dvclose agree to CLOSURE_FACTOR x outer_dvclose,
+# the bar of this script's other pairs of solves; the lines print both.
+# (q1) in mixed precision: the single-device run sums its float32 passes
+# in the fused Jacobi-CG kernels' order, the shards in the plain loop's,
+# and where that moves a step's count the two runs are held to
+# outer_dvclose itself (the plain loop against the shards read 5.8e-7 at
+# equal counts, the fused kernels 4.3e-6 at [1529, 1578, 1175] against
+# [1529, 1513, 1208] inner iterations: 0.43 of it).
 SHARDED_ATOL = {"f64": 1e-7, "mixed": 1e-6, "augmented": 5e-7,
                 "transport": 1e-7}
 
@@ -6310,9 +6504,12 @@ def sharded_steps(label, solve, nsteps, device):
 def run_parallel_rows(device, precision, oracle):
     """(q1) the bench configuration (3 steps of 5.0, CG, Jacobi) as
     ``SHARDS`` row shards through ``ShardedSolution``, held against
-    ``oracle``, the bench phase's single-device heads of ``precision``;
-    each product one stencil7 launch per shard, and shard 0's product
-    bitwise equal to the plain one.  Returns the launches."""
+    ``oracle`` = (heads, inner iterations by step), the bench phase's
+    single-device run of ``precision``: to ``SHARDED_ATOL`` where the
+    steps' counts are equal, else to outer_dvclose (above
+    ``SHARDED_ATOL``); each product one stencil7 launch per shard, and
+    shard 0's product bitwise equal to the plain one.  Returns the
+    launches."""
     label = f"parallel (q1) rows {precision}"
     model = flagship(*BENCH_SHAPE, device)
     t0 = time.perf_counter()
@@ -6331,17 +6528,22 @@ def run_parallel_rows(device, precision, oracle):
 
     infos, seconds, counts, peak = sharded_steps(label, solve, 3, device)
     head = ssol.gather_heads(state["h"])
+    oracle, oracle_inners = oracle
     err = float(np.abs(head - oracle.cpu().numpy()).max())
-    inner = sum(i["inner"] for i in infos)
+    inners = [i["inner"] for i in infos]
+    inner = sum(inners)
     launches = counts["launches"]
     same, b1_err = shard_b1_bitwise(ssol, 5.0)
-    bar = SHARDED_ATOL[precision]
+    bar = (SHARDED_ATOL[precision] if inners == list(oracle_inners)
+           else BENCH["outer_dvclose"])
     print(f"{label}: shards={SHARDS} local_grid={part.local_row_shape()} "
           f"outers={[i['outer'] for i in infos]} "
-          f"inners={[i['inner'] for i in infos]} partition_s={t1 - t0!r} "
+          f"inners={inners} single-device inners={list(oracle_inners)} "
+          f"partition_s={t1 - t0!r} "
           f"setup_s={t2 - t1!r} run_s={seconds!r} "
           f"ms_per_inner={seconds / inner * 1e3!r} "
-          f"max|dh| vs single-device={err!r} bar={bar!r} "
+          f"max|dh| vs single-device={err!r} bar={bar!r} reference test "
+          f"bar={SHARDED_ATOL[precision]!r} "
           f"stencil7_launches={launches} (at least {SHARDS} x {inner}) "
           f"shard0 b1 vs plain bitwise={same} max|dy|={b1_err!r} "
           f"peak_bytes={peak}")
@@ -6481,7 +6683,8 @@ def run_parallel(device, bench_heads, brick=None, advanced_first=None,
     """The parallel phase: (q1) the bench configuration as row shards in
     ``f64`` and ``mixed``, (q2) the brick DISV grid, (q3) the advanced
     model's first step, (q4) the plume; each held against the earlier
-    phases' single-device runs (``bench_heads`` {precision: heads};
+    phases' single-device runs (``bench_heads`` {precision: (heads, inner
+    iterations by step)};
     ``brick`` (model, heads); ``advanced_first``; ``plume``), which it
     runs itself when those phases did not run.  Returns the stencil7
     launches of (q1)."""
@@ -6838,7 +7041,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
           f"make_matvec={bound_us!r} stencil7={once_us!r}")
 
 
-PHASES = ("kernel", "small", "bench", "precond", "deck", "newton",
+PHASES = ("kernel", "pcg", "small", "bench", "precond", "deck", "newton",
           "unstructured", "properties", "advanced", "coupling", "utilities",
           "transport", "apt", "gwe", "swf", "prt", "parallel", "api",
           "entry")
@@ -6880,6 +7083,11 @@ def main():
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
     for line in log.strip().splitlines():
         print(f"  nvcc: {line}")
+    t0 = time.perf_counter()
+    lib_path, log = pcg_jacobi.build()
+    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in log.strip().splitlines():
+        print(f"  nvcc: {line}")
     if args.profile:
         profile_bench(device, args.preconditioner, args.grid)
         return
@@ -6892,10 +7100,14 @@ def main():
 
     def mark(name):
         marks.append((name, time.perf_counter()))
+        PATH_NOW[0] = name
 
     mark("kernel")
     if "kernel" in phases:
         worst, times = check_kernel(device)
+    mark("pcg")
+    if "pcg" in phases:
+        pcg_times = check_pcg(device)
     mark("small")
     if "small" in phases:
         t_small = time.perf_counter()
@@ -6944,7 +7156,7 @@ def main():
             or "parallel" in phases) and "bench" not in phases:
         _, fused_head, kiters, inners, _ = run_bench(device, "f64")
     if "parallel" in phases and "bench" not in phases:
-        mixed_head = run_bench(device, "mixed")[1]
+        _, mixed_head, _, mixed_inners, _ = run_bench(device, "mixed")
     mark("unstructured")
     if "unstructured" in phases:
         run_disv_oracle(device, fused_head, list(zip(kiters, inners)))
@@ -6981,7 +7193,8 @@ def main():
     mark("parallel")
     if "parallel" in phases:
         launches["parallel"] = run_parallel(
-            device, {"f64": fused_head, "mixed": mixed_head}, brick,
+            device, {"f64": (fused_head, inners),
+                     "mixed": (mixed_head, mixed_inners)}, brick,
             advanced_first, plume)
     del brick, plume
     mark("api")
@@ -7003,6 +7216,11 @@ def main():
     if not all(launches.values()):
         raise AssertionError(f"a main path launched no stencil7 kernel: "
                              f"{launches}")
+    fused_by_path = {name: PATH_LAUNCHES[name]["pcg_jacobi"]
+                     for name in PHASES if name in PATH_LAUNCHES}
+    if not (fused_by_path.get("bench") and fused_by_path.get("deck")):
+        raise AssertionError(f"the bench or deck path ran no fused Jacobi-CG "
+                             f"iteration: {fused_by_path}")
 
     ms, plain_ms, one_call_ms, library_ms = times["f64"]
     ms32, plain_ms32, one_call_ms32, library_ms32 = times["f32"]
@@ -7037,7 +7255,25 @@ def main():
         "ms_one_call_host_inclusive": one_call_ms,
         "ms_f32": ms32, "plain_ms_f32": plain_ms32,
         "bound_ms_f32": stencil_bound_ms(BENCH_SHAPE, torch.float32),
-        "ms_f32_one_call_host_inclusive": one_call_ms32}]}))
+        "ms_f32_one_call_host_inclusive": one_call_ms32,
+        # the counted runs of each phase: stencil7_kernel alone, without
+        # the fused iterations' products that the counts above include
+        "launches_stencil7_kernel_by_phase": {
+            name: PATH_LAUNCHES[name]["stencil7_kernel"]
+            for name in PHASES if name in PATH_LAUNCHES}}, {
+        "name": "pcg_jacobi", "route": "cuda",
+        "source": "modflow6_torch/csrc/pcg_jacobi.cu", "replaces": None,
+        # the counted runs of the main paths (not the pcg phase's checks
+        # and timing loops), by phase; four an iteration
+        "launches": sum(fused_by_path.values()),
+        "launches_by_phase": fused_by_path,
+        "ms_by_kernel": {f"{shape[0]}x{shape[1]}x{shape[2]} {name}": {
+            k: ms for k, (ms, _) in row.items()}
+            for (shape, name), row in pcg_times.items()},
+        "bound_ms_by_kernel": {f"{shape[0]}x{shape[1]}x{shape[2]} {name}": {
+            k: b for k, (_, b) in row.items()}
+            for (shape, name), row in pcg_times.items()},
+        "bound_by": "bytes"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -20,6 +20,13 @@ and returns them stacked, without a further host read per iteration.
 runners (``parallel/``) pass the owned-row partial sums and maxima combined
 over the shards, so one loop serves one device and P shards.  The
 reference's ``max_passes`` knob is left out (``MAX_PASSES``).
+
+``cg`` on CUDA tensors with a bound ``stencil7`` product, the Jacobi
+preconditioner, the default ``dot`` and ``absmax``, no trace and
+``north == 0`` runs each iteration as four hand-written kernels
+(``pcg_jacobi.solve``; ``_fused_operands`` decides from what it is
+given); everything else runs the plain loop below, which is also the
+kernels' oracle.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from ...constants import DPREC
 from ...utils.profiler import exit_flag, iteration_ranges, krylov_solve
+from . import pcg_jacobi
 
 # f32 passes of refined_solve before it gives up (the reference's default)
 MAX_PASSES = 8
@@ -104,6 +112,20 @@ def epfact(icnvgopt: int, kstp: int) -> float:
     return 1.0
 
 
+def _fused_operands(matvec, precond, b, dot, absmax, trace, north):
+    """(system, inv) where ``cg`` can run as the fused Jacobi-CG kernels:
+    a bound stencil7 product (``matvec.stencil7``), the Jacobi apply
+    (``precond.jacobi_inv``), the default ``dot`` and ``absmax``, no trace,
+    ``north == 0`` and CUDA tensors.  Else None: the plain loop runs."""
+    system = getattr(matvec, "stencil7", None)
+    inv = getattr(precond, "jacobi_inv", None)
+    if (system is None or inv is None or dot is not vector_dot
+            or absmax is not _signed_absmax or trace or north != 0
+            or b.device.type != "cuda"):
+        return None
+    return system, inv
+
+
 @krylov_solve
 def cg(
     matvec: Callable,
@@ -126,6 +148,11 @@ def cg(
 
     ``trace=True`` records (dvmax, rmax, l2norm) per inner iteration
     (CSV_INNER_OUTPUT role)."""
+    fused = _fused_operands(matvec, precond, b, dot, absmax, trace, north)
+    if fused is not None:
+        return KrylovResult(*pcg_jacobi.solve(
+            *fused, b, x0, itmax=itmax, dvclose=dvclose, rclose=rclose,
+            icnvgopt=icnvgopt, l2norm0=l2norm0, epfact_val=epfact_val))
     x = x0
     d = b - matvec(x0)
     p = torch.zeros_like(b)

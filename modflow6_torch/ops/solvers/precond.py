@@ -36,12 +36,15 @@ def _inverse_diagonal(diag):
 
 
 def jacobi_precondition(diag):
-    """Return apply(r) -> D^{-1} r. Safe for zero diagonals (identity there)."""
+    """Return apply(r) -> D^{-1} r. Safe for zero diagonals (identity there).
+    ``apply.jacobi_inv`` is D^{-1}, which marks the Jacobi apply for
+    krylov.cg's fused path."""
     inv = _inverse_diagonal(diag)
 
     def apply(r):
         return inv * r
 
+    apply.jacobi_inv = inv
     return apply
 
 

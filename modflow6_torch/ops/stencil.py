@@ -74,26 +74,33 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel library if this source has not been built yet.
+def compile_library(source_path: Path, stem: str) -> tuple[Path, str]:
+    """Compile ``source_path`` with ``NVCC_FLAGS`` into
+    ``BUILD_DIR/<stem>-<hash>.so`` if this source has not been built yet.
 
     Returns (library path, compiler output); the output is empty when the
     library was already built.
     """
-    source = SOURCE.read_bytes()
+    source = source_path.read_bytes()
     key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"libstencil7-{key[:16]}.so"
+    lib_path = BUILD_DIR / f"{stem}-{key[:16]}.so"
     if lib_path.exists():
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
+                           str(source_path)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)
     return lib_path, proc.stdout + proc.stderr
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernel library if this source has not been built yet
+    (``compile_library``)."""
+    return compile_library(SOURCE, "libstencil7")
 
 
 def _load():
@@ -140,12 +147,15 @@ def bind_stencil7(shape, diag, off):
     and the kernel is bound once here; each call checks only x, launches
     the sm_90a kernel on the current stream of diag's device (which must be
     the current device) and counts it (``utils.profiler.launches``).
+    Either way the product carries its system as ``matvec.stencil7 =
+    ((nlay, nrow, ncol), diag, off)``.
     """
     if diag.device.type == "cpu":
         def matvec(x):
             if x.device.type != "cpu":
                 raise ValueError(f"x is on {x.device}, diag on the CPU")
             return spmv_structured(shape, diag, off, x)
+        matvec.stencil7 = (tuple(int(s) for s in shape), diag, off)
         return matvec
     if diag.device.type != "cuda":
         raise ValueError(f"stencil7 runs on CUDA or CPU, not {diag.device}")
@@ -170,8 +180,10 @@ def bind_stencil7(shape, diag, off):
         launches["stencil7"] += 1
         return y
 
-    # holds diag and off, so their memory outlives the pointers bound above
-    matvec.operands = (diag, off)
+    # the bound system, which marks the product for krylov.cg's fused
+    # path; it holds diag and off, so their memory outlives the pointers
+    # bound above
+    matvec.stencil7 = ((nlay, nrow, ncol), diag, off)
     return matvec
 
 

@@ -14,7 +14,9 @@ package, two merged GWE models), and the sharded runners (row shards,
 whose products launch the kernel once a shard, and the general split), the
 ``Mf6Api`` XMI loop and a checkpointed run resumed, on the card against
 the CPU, and the entry scripts (``modflow6_torch.bench``'s run through the
-kernel, ``entry.dryrun_multichip`` against its single-device solves).
+kernel, ``entry.dryrun_multichip`` against its single-device solves), and
+the fused Jacobi-CG kernels (ops/solvers/pcg_jacobi.py) against the plain
+loop on the card.
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -28,8 +30,12 @@ the fused step on the card and on the CPU differ only in the order of the
 reductions, so heads agree to 1e-10 with equal iteration counts; the
 same holds for every step of the deck run in ``f64``, whose output files
 must hold the same records.  In ``mixed`` the deck run's heads agree to
-1e-7 and its inner counts to 10%.
+1e-7 and its inner counts to 10%.  The fused Jacobi-CG kernels and the
+plain loop on the card differ only in the order of their sums: equal
+counts, x within 1e-10 in float64 and within 1e-4 of max|x| in float32.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -39,10 +45,13 @@ from modflow6_torch.models.discretization import DisGrid
 from modflow6_torch.models.gwf.builder import build_gwf
 from modflow6_torch.models.gwf.npf import DeviceTopology
 from modflow6_torch.ops import stencil
+from modflow6_torch.ops.solvers import krylov, pcg_jacobi
+from modflow6_torch.ops.solvers.precond import jacobi_precondition
 from modflow6_torch.ops.system import make_matvec
 from modflow6_torch.solution import ImsSettings
 from modflow6_torch.solution.fused import make_fused_step
 from modflow6_torch.utils import profiler
+from test_torch_pcg_jacobi import system as pcg_system
 
 pytestmark = pytest.mark.cuda
 
@@ -460,10 +469,14 @@ def test_series_obs_deck_with_ats_retries_on_card_matches_cpu(cuda,
     drawdown and flow observations, a NetCDF export) at 4 x 32 x 32 with
     the inner maximum cut to 30, period 1 stepping adaptively from a step
     of the whole period with an outer maximum of 13, which makes the first
-    attempts fail: the card through the kernel and the CPU through the
-    plain version take the same steps (retries among them) with equal
+    attempts fail: the card through the kernels and the CPU through the
+    plain versions take the same steps (retries among them) with equal
     counts, heads within 1e-10 and observation CSV files with the same
-    header and times and values within 1e-10 relative."""
+    header and times, each file the exact print of its run's values, and
+    those values within 1e-10 relative.  The values are compared before
+    they are printed: at 10 significant digits a value that sits on a
+    rounding boundary prints one unit apart (up to 1e-9 relative) for any
+    change in the order of the solver's sums, however small."""
     import dataclasses
 
     from chip_smoke import UTIL_PERIODS, write_utilities_deck
@@ -493,8 +506,9 @@ def test_series_obs_deck_with_ats_retries_on_card_matches_cpu(cuda,
             assert _launches() - before >= sum(r.inner for r in recs)
         else:
             assert _launches() - before == 0
-        runs[name] = (ws, recs)
-    (ws, card), (cws, cpu) = runs["card"], runs["cpu"]
+        runs[name] = (ws, recs, {os.path.basename(m.csv_path): m
+                                 for m in sim.obs.managers})
+    (ws, card, obs), (cws, cpu, cobs) = runs["card"], runs["cpu"]
     assert [(r.kper, r.kstp, r.totim, r.retries) for r in card] == [
         (r.kper, r.kstp, r.totim, r.retries) for r in cpu]
     assert [(r.outer, r.inner) for r in card] == [(r.outer, r.inner)
@@ -505,9 +519,12 @@ def test_series_obs_deck_with_ats_retries_on_card_matches_cpu(cuda,
         got = (ws / csv).read_text().splitlines()
         want = (cws / csv).read_text().splitlines()
         assert got[0] == want[0] and len(got) == len(want) == len(card) + 1
-        g = np.array([[float(v) for v in line.split(",")] for line in got[1:]])
-        w = np.array([[float(v) for v in line.split(",")]
-                      for line in want[1:]])
+        for lines, m in ((got, obs[csv]), (want, cobs[csv])):
+            assert lines[1:] == [",".join(f"{v:.{m.digits}g}"
+                                          for v in [t, *vals])
+                                 for t, vals in m._rows]
+        g = np.array([[t, *vals] for t, vals in obs[csv]._rows])
+        w = np.array([[t, *vals] for t, vals in cobs[csv]._rows])
         np.testing.assert_array_equal(g[:, 0], w[:, 0])
         np.testing.assert_allclose(g, w, rtol=1e-10, atol=1e-10)
 
@@ -721,3 +738,76 @@ def test_dryrun_multichip_on_card_converges(cuda):
         np.testing.assert_allclose(run.heads, heads, atol=bars[name])
         if conc is not None:
             np.testing.assert_allclose(run.conc, conc, atol=bars[name])
+
+
+PCG_SHAPES = [(1, 20, 24), (2, 20, 24), (3, 37, 45)]
+
+
+def _pcg_solve(shape, dtype, device, plain=False, icnvgopt=0):
+    """``krylov.cg`` with Jacobi on the system of ``pcg_system`` at
+    ``shape`` on ``device``: the fused kernels, or (``plain``) the plain
+    loop, which ``trace=True`` chooses with the same arithmetic."""
+    nlay, nrow, ncol = shape
+    cpu = pcg_system(nlay, dtype, nrow=nrow, ncol=ncol)
+    grid, (diag, off, b, x0) = cpu[0], (t.to(device) for t in cpu[1:])
+    matvec = make_matvec(DeviceTopology(grid_shape=grid), diag, off)
+    r0 = b - matvec(x0)
+    return krylov.cg(matvec, b, x0, jacobi_precondition(diag), itmax=2000,
+                     dvclose=1e-10 if dtype == torch.float64 else 1e-6,
+                     rclose=1e-6, icnvgopt=icnvgopt,
+                     l2norm0=torch.sqrt(torch.sum(r0 * r0)),
+                     epfact_val=krylov.epfact(icnvgopt, 1), trace=plain)
+
+
+@pytest.mark.parametrize("icnvgopt", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", PCG_SHAPES)
+def test_fused_cg_matches_plain_loop_on_card(cuda, shape, dtype, icnvgopt):
+    fused = _pcg_solve(shape, dtype, cuda, icnvgopt=icnvgopt)
+    plain = _pcg_solve(shape, dtype, cuda, plain=True, icnvgopt=icnvgopt)
+    assert plain.trace is not None and fused.trace is None
+    assert fused.iters == plain.iters > 3
+    assert bool(fused.converged) == bool(plain.converged)
+    atol = (1e-10 if dtype == torch.float64
+            else 1e-4 * float(plain.x.abs().max()))
+    assert float((fused.x - plain.x).abs().max()) <= atol
+
+
+def test_fused_cg_runs_are_bitwise_equal(cuda):
+    runs = [_pcg_solve((3, 37, 45), torch.float64, cuda) for _ in range(2)]
+    assert runs[0].iters == runs[1].iters
+    for name in ("x", "dvmax", "rmax", "l2norm"):
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+
+
+def test_fused_cg_launches_and_host_syncs(cuda):
+    """Four launches and one host read an iteration; the product is
+    counted as stencil7, as is the start residual's."""
+    profiler.take()
+    res = _pcg_solve((2, 20, 24), torch.float64, cuda)
+    _, counters = profiler.take()
+    n = res.iters
+    assert n > 3
+    assert counters["launches"]["pcg_jacobi"] == 4 * n
+    # the start residual in _pcg_solve and in the solve, then one an
+    # iteration
+    assert counters["launches"]["stencil7"] == n + 2
+    # the exit flags, and no other read
+    assert counters["host_syncs"] == n
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "device"])
+def test_fused_cg_wrapper_raises(cuda, case):
+    shape, diag, off, b, x0 = (t if isinstance(t, tuple) else t.to(cuda)
+                               for t in pcg_system(1, nrow=20, ncol=24))
+    inv = 1.0 / diag
+    if case == "dtype":
+        inv = inv.to(torch.float32)
+    elif case == "shape":
+        b = b[:-1]
+    else:
+        x0 = x0.cpu()
+    with pytest.raises(ValueError):
+        pcg_jacobi.solve((shape, diag, off), inv, b, x0, itmax=10,
+                         dvclose=1e-10, rclose=1e-6)
