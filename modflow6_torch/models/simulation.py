@@ -56,8 +56,10 @@ when that record is saved.  On the general path the same holds with the
 per-edge flows in place of the planes.
 
 Each ``do_step`` is a ``step`` span holding a ``solve`` span (the flow
-solve up to the device's end of it) and an ``output`` span (everything
-after it); the step's record carries its spans and counters
+solve up to the device's end of it), with a GWT model a ``transport``
+span (FMI and the transport solve; see ``_solve_transport``), and an
+``output`` span (everything after them: budget, record, the transport's
+commit, files); the step's record carries its spans and counters
 (``utils.profiler``), and the listing's profile is built from them.
 """
 
@@ -81,7 +83,8 @@ from ..utils.binary import BudgetFileWriter, HeadFileWriter
 from ..utils.budget import Budget
 from ..utils.csvout import OuterCsvWriter
 from ..utils.memreport import memory_report
-from ..utils.profiler import Profiler, host_read, span, synchronize, take
+from ..utils.profiler import (Profiler, count, host_read, span,
+                              synchronize, take)
 from .gwf import csub as csub_mod
 from .gwf import uzf as uzf_mod
 from .gwt import adv as adv_mod
@@ -430,6 +433,13 @@ class Simulation:
                         self.solution = NumericalSolution(model,
                                                           self.solution.s)
                 self._sync()
+            if self.gwt is not None and transport is None:
+                # ---- the sequentially coupled transport step (flow → FMI
+                # → GWT) in its own span, after the flow's, before the
+                # output
+                transport = self._solve_transport(
+                    head, head_old, aux, pkgs, kstp, delt, iss,
+                    uzf_step=uzf_step)
             with span("output"):
                 # ---- explicit PRT models track over the accepted step
                 for drv in self.prt_drivers:
@@ -489,13 +499,8 @@ class Simulation:
                                  uzf_resolves=self._uzf_resolves)
                 self.records.append(rec)
 
-                # ---- the sequentially coupled transport step
-                # (flow → FMI → GWT)
+                # ---- the transport step's commit and record
                 if self.gwt is not None:
-                    if transport is None:
-                        transport = self._solve_transport(
-                            head, head_old, aux, pkgs, kstp, delt, iss,
-                            uzf_step=uzf_step)
                     self._commit_transport(rec, transport, aux["ibound"],
                                            kper, kstp, delt)
 
@@ -575,45 +580,48 @@ class Simulation:
         step-start concentration; commits nothing.  With APT rows, FMI
         runs on the grid rows of the base flow model and
         ``extract_apt_flows`` adds the features' flows (with UZT rows, from
-        ``uzf_step``: the step's march and its step-start water content)."""
+        ``uzf_step``: the step's march and its step-start water content).
+        A ``transport`` span holds an ``fmi`` span (with an ``apt`` span
+        for the features' flows) and the transport solution's own
+        ``outer`` spans; their host seconds, which wait for nothing, are
+        the ``_Transport``'s, and its inner iterations go to the
+        ``transport_inner`` count."""
         gwt = self.gwt
-        t0 = time.perf_counter()
-        apt_s = 0.0
-        if self._apt:
-            if gwt.gwf is not self.model:
-                raise NotImplementedError(
-                    "APT rows over a flow model rebuilt at a later period "
-                    "(the reference's transport keeps the first period's "
-                    "features)")
-            N = gwt.n_grid
-            fields = from_gwf_step(self.model.base, head[:N], head_old[:N],
-                                   aux["ibound"][:N], None, delt, iss,
-                                   pkgs=pkgs, ssm_spec=gwt.base.ssm_spec,
-                                   gwt=gwt.base)
-            self._sync()
-            t_apt = time.perf_counter()
-            res, theta_old = uzf_step if uzf_step is not None \
-                else (None, None)
-            fields = extract_apt_flows(
-                gwt, head, head_old, fields, delt, iss, pkgs=pkgs,
-                ext_conc=self.apt_ext_conc, uzf_res=res,
-                uzf_theta_old=theta_old)
-            self._sync()
-            apt_s = time.perf_counter() - t_apt
-        else:
-            fields = from_gwf_step(self.model, head, head_old,
-                                   aux["ibound"], aux["cond"], delt, iss,
-                                   pkgs=pkgs, ssm_spec=gwt.ssm_spec, gwt=gwt)
-            if gwt.ist is not None:
-                fields = dataclasses.replace(fields, cim=gwt.cim)
-            gwt.set_flows(fields)
-        self._sync()
-        t1 = time.perf_counter()
-        conc, info, _ = self.gwt_solution.solve_timestep(
-            self.conc, delt, kstp=kstp, iss=False, pkgs=fields)
-        self._sync()
-        return _Transport(fields, conc, info, t1 - t0 - apt_s, apt_s,
-                          time.perf_counter() - t1, passes)
+        with span("transport") as whole:
+            apt = None
+            with span("fmi") as fmi:
+                if self._apt:
+                    if gwt.gwf is not self.model:
+                        raise NotImplementedError(
+                            "APT rows over a flow model rebuilt at a later "
+                            "period (the reference's transport keeps the "
+                            "first period's features)")
+                    N = gwt.n_grid
+                    fields = from_gwf_step(
+                        self.model.base, head[:N], head_old[:N],
+                        aux["ibound"][:N], None, delt, iss, pkgs=pkgs,
+                        ssm_spec=gwt.base.ssm_spec, gwt=gwt.base)
+                    with span("apt") as apt:
+                        res, theta_old = uzf_step if uzf_step is not None \
+                            else (None, None)
+                        fields = extract_apt_flows(
+                            gwt, head, head_old, fields, delt, iss,
+                            pkgs=pkgs, ext_conc=self.apt_ext_conc,
+                            uzf_res=res, uzf_theta_old=theta_old)
+                else:
+                    fields = from_gwf_step(
+                        self.model, head, head_old, aux["ibound"],
+                        aux["cond"], delt, iss, pkgs=pkgs,
+                        ssm_spec=gwt.ssm_spec, gwt=gwt)
+                    if gwt.ist is not None:
+                        fields = dataclasses.replace(fields, cim=gwt.cim)
+                    gwt.set_flows(fields)
+            conc, info, _ = self.gwt_solution.solve_timestep(
+                self.conc, delt, kstp=kstp, iss=False, pkgs=fields)
+        count("transport_inner", info.inner_iterations)
+        apt_s = apt.seconds if apt is not None else 0.0
+        return _Transport(fields, conc, info, fmi.seconds - apt_s, apt_s,
+                          whole.seconds - fmi.seconds, passes)
 
     def _group_picard(self, head, info, aux, head_old, pkgs, kstp, delt,
                       iss):

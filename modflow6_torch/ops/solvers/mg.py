@@ -9,7 +9,12 @@ gathers.
 Design (aggregation MG, cf. Notay's AGMG family):
 
 - hierarchy: 2×2 aggregation in the (row, col) plane (semi-coarsening: the
-  layer axis is kept, since nlay is small and vertical coupling stiff);
+  layer axis is kept, since nlay is small and vertical coupling stiff).
+  A one-row cross-section with more than two layers, (nlay, 1, ncol), is
+  viewed as (1, nlay, ncol), its up/down slots in the north/south places:
+  the same memory, so the aggregation runs over (layer, column) and every
+  level's product is the same stencil launch.  Every other grid is
+  coarsened as before;
 - transfer: piecewise-constant prolongation P (aggregate broadcast),
   restriction R = Pᵀ (aggregate sum), so the Galerkin coarse operator RAP
   of a 7-point stencil is again a 7-point stencil, computed exactly by
@@ -28,7 +33,9 @@ product of each level, fine or coarse, is one launch of the stencil kernel
 (which takes any shape in float32 and float64), on CPU tensors the plain
 version.  The reference's shape gate and its fallback to shifted
 multiplies on levels that do not tile have no counterpart here.  An
-application reads nothing on the host.
+application reads nothing on the host.  Each application is an
+``mg_apply`` span, and each hierarchy built adds its levels to the
+``mg_levels`` count and one to ``mg_builds`` (``utils.profiler``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiler import count, span
 from .. import stencil
 from ..stencil import bind_stencil7
 
@@ -45,6 +53,17 @@ from ..stencil import bind_stencil7
 _LMAX = 2.05
 _SMOOTH_LO = _LMAX / 4.0
 _COARSE_LO = _LMAX / 64.0
+
+# the slots [E, W, N, S, U, D] of a (1, nlay, ncol) view of a one-row
+# section, taken from its own slots: up and down become north and south
+_SECTION_SLOTS = [0, 1, 4, 5, 2, 3]
+
+
+def section_view(shape):
+    """The (1, nlay, ncol) view that MG coarsens a one-row section with
+    more than two layers in, else None."""
+    nlay, nrow, ncol = shape
+    return (1, nlay, ncol) if nrow == 1 and nlay > 2 else None
 
 
 def _matvec3(diag3, c, x3):
@@ -166,10 +185,15 @@ def make_mg_preconditioner(shape, diag, off, *, nsmooth=2, coarse_size=512,
     """Build apply(r) -> z ≈ A⁻¹ r for the structured system (diag, off).
 
     ``off`` is the flat [N, 6] slot array of ops.system; ``shape`` the
-    (nlay, nrow, ncol) grid.  The hierarchy is rebuilt from the current
+    (nlay, nrow, ncol) grid, which a one-row section replaces by its
+    ``section_view``.  The hierarchy is rebuilt from the current
     coefficients on every call (each outer iteration): pure pooling.
     ``apply.levels`` holds (diag3, c, matvec, inv) per level, finest first.
     """
+    view = section_view(shape)
+    if view is not None:
+        shape = view
+        off = off.reshape(-1, 6)[:, _SECTION_SLOTS]
     nlay, nrow, ncol = shape
     levels = []
     diag3 = diag.reshape(shape)
@@ -198,7 +222,10 @@ def make_mg_preconditioner(shape, diag, off, *, nsmooth=2, coarse_size=512,
         return _chebyshev(mv, inv, r3, z, nsmooth, _SMOOTH_LO, _LMAX)
 
     def apply(r):
-        return vcycle(0, r.reshape(shape)).reshape(-1)
+        with span("mg_apply"):
+            return vcycle(0, r.reshape(shape)).reshape(-1)
 
+    count("mg_levels", len(levels))
+    count("mg_builds")
     apply.levels = levels
     return apply

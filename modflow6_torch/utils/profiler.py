@@ -20,7 +20,10 @@ host clock reads:
 - **Counters**: ``host_syncs``, every blocking device-to-host read
   (``host_read``) and explicit synchronisation (``synchronize``), of
   which ``explicit_syncs`` are the latter; ``launches``, the launches of
-  the port's own kernels by name.
+  the port's own kernels by name; and named counts (``count``): the
+  levels of each multigrid hierarchy built (``mg_levels``, over
+  ``mg_builds``) and the transport's inner iterations
+  (``transport_inner``).
 - ``take()`` hands over the spans closed since the last call and the
   counters' growth since then.  ``Simulation.do_step`` calls it once as
   a step starts, discarding what ran before (a solve outside any step,
@@ -77,7 +80,8 @@ _ids = itertools.count()
 _open: list = []
 _closed: collections.deque = collections.deque(maxlen=MAX_SPANS)
 launches: collections.Counter = collections.Counter()
-_taken = (0, 0, collections.Counter())
+counts: collections.Counter = collections.Counter()
+_taken = (0, 0, collections.Counter(), collections.Counter())
 
 
 def _profiling() -> bool:
@@ -169,18 +173,25 @@ def iteration_ranges():
     return _Ranges("mf6::krylov_iter") if _profiling() else None
 
 
+def count(name: str, n: int = 1):
+    """Add ``n`` to the named count ``name``."""
+    counts[name] += n
+
+
 def take():
     """(spans, counters): the spans closed since the last call, in the
     order they opened, and the counters' growth since then
-    (``host_syncs``, ``explicit_syncs``, ``launches`` by kernel)."""
+    (``host_syncs``, ``explicit_syncs``, ``launches`` by kernel, and each
+    named count that grew, under its name)."""
     global _taken
     spans = sorted(_closed, key=lambda s: s.id)
     _closed.clear()
-    syncs, explicit, seen = _taken
+    syncs, explicit, seen, counted = _taken
     counters = dict(host_syncs=_Counts.host_syncs - syncs,
                     explicit_syncs=_Counts.explicit_syncs - explicit,
-                    launches=dict(launches - seen))
-    _taken = (_Counts.host_syncs, _Counts.explicit_syncs, launches.copy())
+                    launches=dict(launches - seen), **(counts - counted))
+    _taken = (_Counts.host_syncs, _Counts.explicit_syncs, launches.copy(),
+              counts.copy())
     return spans, counters
 
 

@@ -242,6 +242,35 @@ def test_mg_apply_on_card_launches_the_kernel_on_every_level(cuda, shape,
     assert float((got.cpu() - want).abs().max()) <= bar
 
 
+def test_section_mg_levels_on_card_are_the_plain_products(cuda):
+    """A one-row section (nlay, 1, ncol) is coarsened over (layer, column)
+    on the card: several levels, each level's product one kernel launch
+    whose result is bitwise the plain version's on the same card, and the
+    application within 1e-12 of the CPU's."""
+    from modflow6_torch.ops.solvers.mg import make_mg_preconditioner
+    shape = (96, 1, 320)
+    diag, off, r = _inputs(shape, torch.float64, "cpu", seed=3)
+    diag = -(off.sum(dim=1) + 0.1)
+    want = make_mg_preconditioner(shape, diag, off)(r)
+    apply = make_mg_preconditioner(shape, diag.to(cuda), off.to(cuda))
+    assert len(apply.levels) >= 4
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for d3, c, mv, _ in apply.levels:
+        level = tuple(d3.shape)
+        assert level[0] == 1
+        x = torch.randn(level, dtype=torch.float64, device=cuda,
+                        generator=gen)
+        before = _launches()
+        got = mv(x)
+        assert _launches() - before == 1
+        plain = stencil.spmv_structured(level, d3.reshape(-1),
+                                        c.reshape(-1, 6), x.reshape(-1))
+        assert torch.equal(got.reshape(-1), plain)
+    got = apply(r.to(cuda))
+    bar = 1e-12 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= bar
+
+
 @pytest.mark.parametrize("pc", ["neumann", "chebyshev", "mg"])
 def test_preconditioned_fused_step_on_card_matches_cpu(cuda, pc):
     def model(device):
