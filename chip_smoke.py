@@ -4,7 +4,11 @@ at every level shape of the multigrid hierarchy) and times one CSR product
 of the same system (cuSPARSE through ``torch.mv``) as its yardstick, builds
 the fused Jacobi-CG kernels and checks each against its plain version
 (``pcg``: direction, product with dot, update, finish, in f64 and f32) and
-times them at the bench shape and at 1x2048x2048, checks
+times them at the bench shape and at 1x2048x2048, builds the fused
+Jacobi-BiCGSTAB kernels on the ELL system and checks each against its plain
+version (``bicgstab``: direction, the two products with their dots,
+half-step, update, finish, in f64 and f32) and times them at 1024x1x2048
+(the Henry cell's section) and at the bench shape, checks
 the fused transient solve on the card against the CPU and a direct solve,
 runs the bench configuration (4x1024x1024 cells, 3 steps) in ``mixed``
 and ``f64`` through ``modflow6_torch.bench``'s build and timed run (the
@@ -180,7 +184,7 @@ from modflow6_torch.models.gwt.apt import AugmentedGwtModel  # noqa: E402
 from modflow6_torch.models.gwt.builder import build_gwt      # noqa: E402
 from modflow6_torch.models.simulation import Simulation      # noqa: E402
 from modflow6_torch.ops import stencil                       # noqa: E402
-from modflow6_torch.ops.solvers import pcg_jacobi            # noqa: E402
+from modflow6_torch.ops.solvers import bicgstab_ell, pcg_jacobi  # noqa: E402
 from modflow6_torch.ops.solvers.mg import make_mg_preconditioner  # noqa: E402
 from modflow6_torch.ops.solvers.precond import (             # noqa: E402
     chebyshev_precondition)
@@ -538,6 +542,187 @@ def check_pcg(device):
     return times
 
 
+
+# shapes at which the fused Jacobi-BiCGSTAB kernels are timed: the Henry
+# cell's section and the bench grid
+BICG_TIMED_SHAPES = ((1024, 1, 2048), BENCH_SHAPE)
+# widths of random ELL tables on which the products are held to spmv: every
+# number of lanes of the products' row order (1 to 32)
+BICG_WIDTHS = (1, 2, 3, 5, 7, 12, 18, 40, 127)
+
+
+def bicg_bytes(step, k, es, ib):
+    """Bytes a cell that a step of the fused Jacobi-BiCGSTAB iteration
+    moves (its kernel and its sums), with K = k slots, values of es bytes
+    and indices of ib: direction reads inv, d, p, v and writes p, phat;
+    product_v reads diag, the slots' coefficients and indices, phat and
+    dhat, writes v and w, and sums w; the half-step reads inv, d, v and
+    writes q, qhat; product_t reads diag, the slots, qhat and q, writes t,
+    w and w2, and sums both; the update reads phat, qhat, q, t, dhat and x,
+    writes x, d, w and w2, and sums both."""
+    return {"direction": 6 * es, "product_v": 6 * es + k * (es + ib),
+            "half_step": 5 * es, "product_t": 8 * es + k * (es + ib),
+            "update": 12 * es}.get(step)
+
+
+def ell_inputs(shape, dtype, device, seed):
+    """The random system of ``stencil_inputs`` as an ELL table: (nbr, diag,
+    off, x), the slots [E, W, N, S, U, D], a slot without a neighbour
+    pointing at its own row with coefficient 0."""
+    diag, off, x = stencil_inputs(shape, dtype, device, seed)
+    nlay, nrow, ncol = shape
+    idx = torch.arange(diag.numel(), device=device)
+    coords = ((idx // (nrow * ncol), nlay, nrow * ncol),
+              (idx // ncol % nrow, nrow, ncol), (idx % ncol, ncol, 1))
+    cols = []
+    for axis, d in SLOTS:
+        coord, size, step = coords[axis]
+        inside = (coord + d >= 0) & (coord + d < size)
+        cols.append(torch.where(inside, idx + d * step, idx))
+    return torch.stack(cols, dim=1).contiguous(), diag, off, x
+
+
+def _bicg_state(ell, x, dtype, device, seed):
+    """The kernels' and the plain versions' buffers and steps for one
+    fused iteration on the ELL system ``ell``, holding the same random
+    vectors and scalars."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    inv = 1.0 / ell[1]
+    n, k = ell[0].shape
+    vecs = {name: torch.randn(x.shape, dtype=dtype, device=device,
+                              generator=gen)
+            for name in ("d", "dhat", "p", "v")}
+    bufs, ops = {}, {}
+    for name, cls in (("kernel", bicgstab_ell.Kernels),
+                      ("plain", bicgstab_ell.Plain)):
+        buf = bicgstab_ell.Buffers(
+            ell, x.clone(), torch.zeros_like(x),
+            cls.nparts(n, k, dtype, device),
+            torch.tensor(1e-3, device=device, dtype=torch.float64))
+        for vname, vec in vecs.items():
+            getattr(buf, vname).copy_(vec)
+        buf.x.copy_(x)
+        buf.s[:6] = torch.tensor([3.0, 2.0, 0.5, 0.75, 0.25, 0.5])
+        bufs[name] = buf
+        ops[name] = cls(ell, inv, buf, 0, 1e-12, 1e-12)
+    return bufs, ops
+
+
+# each step of the fused iteration and the buffers it writes
+BICG_STEPS = (("direction", ("p", "phat")), ("product_v", ("v", "w", "sums")),
+              ("half_step", ("q", "qhat", "s")),
+              ("product_t", ("t", "w", "w2", "sums")),
+              ("update", ("x", "d", "w", "w2", "sums", "s")),
+              ("finish", ("s", "flags")))
+
+
+def _bicg_steps(bufs, ops, where):
+    """Each step of the kernels and of the plain versions from the same
+    state: every buffer it writes bitwise alike (the maxima by block
+    combined as the finish combines them)."""
+    k, pl = bufs["kernel"], bufs["plain"]
+    B = bicgstab_ell
+    for first in (True, False):
+        for step, names in BICG_STEPS:
+            for o in ops.values():
+                fn = getattr(o, step)
+                fn(first) if step == "direction" else (
+                    fn(0) if step == "finish" else fn())
+            same = [n for n in names
+                    if torch.equal(getattr(k, n), getattr(pl, n))]
+            if step == "update":
+                same += ["maxima"] if all(torch.equal(
+                    B._absmax_of_parts(k.parts[row], k.iparts[row]),
+                    pl.parts[row, 0]) for row in (B.TV, B.D)) else []
+                names = names + ("maxima",)
+            if len(same) != len(names):
+                raise AssertionError(
+                    f"bicgstab {step} (first iteration: {first}) differs "
+                    f"from its plain version {where}: "
+                    f"{sorted(set(names) - set(same))}")
+
+
+def check_bicgstab(device):
+    """The fused Jacobi-BiCGSTAB kernels against their plain versions, step
+    by step from the same state through two iterations: every buffer
+    bitwise (the products add their slots in torch.sum's order; the dot
+    products are torch.sum's), on 7-point systems and on random ELL tables
+    of every width in ``BICG_WIDTHS``.  Then the time of each step (its
+    kernel and its sums) and of a whole iteration (the six back to back,
+    no flag read) at ``BICG_TIMED_SHAPES``, with their bounds at
+    ``HBM_BYTES_PER_S``.  Returns the times by (shape, dtype)."""
+    times = {}
+    shapes = ((3, 37, 45), (1, 5, 129)) + BICG_TIMED_SHAPES
+    cases = [(s, dt) for s in shapes for dt in (torch.float64, torch.float32)]
+    for seed, (shape, dtype) in enumerate(cases):
+        nbr, diag, off, x = ell_inputs(shape, dtype, device, 200 + seed)
+        ell = (nbr, diag, off)
+        name = "f64" if dtype == torch.float64 else "f32"
+        bufs, ops = _bicg_state(ell, x, dtype, device, 200 + seed)
+        _bicg_steps(bufs, ops, f"at {shape} {name}")
+        kops = ops["kernel"]
+        line = (f"bicgstab {name} shape={shape} nparts={kops.nparts} "
+                f"index={kops.nbr.dtype} checks passed: every step "
+                f"bitwise its plain version over two iterations")
+        if shape in BICG_TIMED_SHAPES:
+            k = bufs["kernel"]
+            k.s.fill_(1.0)      # beta = alpha = omega = 1: bounded vectors
+            n, nk = nbr.shape
+            es = torch.empty((), dtype=dtype).element_size()
+            ib = kops.nbr.element_size()
+            row = {}
+            for step, _ in BICG_STEPS:
+                fn = getattr(kops, step)
+                call = ((lambda fn=fn: fn(False)) if step == "direction"
+                        else (lambda fn=fn: fn(1)) if step == "finish"
+                        else fn)
+                ms = back_to_back_ms(call)
+                per_cell = bicg_bytes(step, nk, es, ib)
+                bound = (per_cell * n / HBM_BYTES_PER_S * 1e3
+                         if per_cell else None)
+                row[step] = (ms, bound)
+                line += (f" {step}_ms={ms!r}" + (
+                    f" {step}_bound_ms={bound!r} {step}_share="
+                    f"{bound / ms!r}" if bound else ""))
+
+            def iteration(o):
+                o.direction(False)
+                o.product_v()
+                o.half_step()
+                o.product_t()
+                o.update()
+                o.finish(1)
+            row["iteration"] = (back_to_back_ms(lambda: iteration(kops)),
+                                sum(b for _, b in row.values() if b))
+            bufs["plain"].s.copy_(k.s)
+            plain_ms = back_to_back_ms(lambda: iteration(ops["plain"]),
+                                       launches=10, runs=5, warmup=2)
+            it_ms, it_bound = row["iteration"]
+            line += (f" iteration_ms={it_ms!r} iteration_bound_ms="
+                     f"{it_bound!r} iteration_share={it_bound / it_ms!r} "
+                     f"plain_iteration_ms={plain_ms!r}")
+            times[(shape, name)] = row
+        print(line)
+    for seed, width in enumerate(BICG_WIDTHS):
+        for dtype in (torch.float64, torch.float32):
+            n = 50_000
+            gen = torch.Generator(device=device).manual_seed(300 + seed)
+            nbr = torch.randint(0, n, (n, width), device=device,
+                                generator=gen)
+            off = torch.randn(n, width, dtype=dtype, device=device,
+                              generator=gen) * torch.exp(4.0 * torch.randn(
+                                  n, width, dtype=dtype, device=device,
+                                  generator=gen))
+            diag = torch.randn(n, dtype=dtype, device=device,
+                               generator=gen) - 7.0
+            x = torch.randn(n, dtype=dtype, device=device, generator=gen)
+            bufs, ops = _bicg_state((nbr, diag, off), x, dtype, device,
+                                    300 + seed)
+            _bicg_steps(bufs, ops, f"at K = {width} {dtype}")
+    print(f"bicgstab random ELL tables of widths {BICG_WIDTHS} in f64 and "
+          "f32: every step bitwise its plain version over two iterations")
+    return times
+
 def csr_of_planes(shape, diag, off):
     """The 7-point system as one CSR tensor on the planes' device: int32
     row and column indices, each row's structural entries (its neighbours
@@ -691,6 +876,7 @@ def counted_run(counts=None):
     stencil.spmv_structured = counting_plain
     before = profiler.launches["stencil7"]
     fused_before = profiler.launches["pcg_jacobi"]
+    bicg_before = profiler.launches["bicgstab_ell"]
     _COUNTED_DEPTH[0] += 1
     try:
         yield counts
@@ -699,12 +885,18 @@ def counted_run(counts=None):
         _COUNTED_DEPTH[0] -= 1
     counts["launches"] = profiler.launches["stencil7"] - before
     counts["pcg_jacobi"] = profiler.launches["pcg_jacobi"] - fused_before
+    counts["bicgstab_ell"] = profiler.launches["bicgstab_ell"] - bicg_before
     if counts["pcg_jacobi"] % 4:
         raise AssertionError(f"{counts['pcg_jacobi']} fused Jacobi-CG "
                              "launches: not four an iteration")
+    if counts["bicgstab_ell"] % bicgstab_ell.LAUNCHES:
+        raise AssertionError(f"{counts['bicgstab_ell']} fused "
+                             "Jacobi-BiCGSTAB launches: not six an "
+                             "iteration")
     if not _COUNTED_DEPTH[0]:
         PATH_LAUNCHES[PATH_NOW[0]].update(
             pcg_jacobi=counts["pcg_jacobi"],
+            bicgstab_ell=counts["bicgstab_ell"],
             stencil7_kernel=counts["launches"] - counts["pcg_jacobi"] // 4)
 
 
@@ -7041,7 +7233,7 @@ def profile_bench(device, preconditioner="jacobi", grid="dis"):
           f"make_matvec={bound_us!r} stencil7={once_us!r}")
 
 
-PHASES = ("kernel", "pcg", "small", "bench", "precond", "deck", "newton",
+PHASES = ("kernel", "pcg", "bicgstab", "small", "bench", "precond", "deck", "newton",
           "unstructured", "properties", "advanced", "coupling", "utilities",
           "transport", "apt", "gwe", "swf", "prt", "parallel", "api",
           "entry")
@@ -7088,6 +7280,11 @@ def main():
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
     for line in log.strip().splitlines():
         print(f"  nvcc: {line}")
+    t0 = time.perf_counter()
+    lib_path, log = bicgstab_ell.build()
+    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in log.strip().splitlines():
+        print(f"  nvcc: {line}")
     if args.profile:
         profile_bench(device, args.preconditioner, args.grid)
         return
@@ -7108,6 +7305,9 @@ def main():
     mark("pcg")
     if "pcg" in phases:
         pcg_times = check_pcg(device)
+    mark("bicgstab")
+    if "bicgstab" in phases:
+        bicg_times = check_bicgstab(device)
     mark("small")
     if "small" in phases:
         t_small = time.perf_counter()
@@ -7218,6 +7418,8 @@ def main():
                              f"{launches}")
     fused_by_path = {name: PATH_LAUNCHES[name]["pcg_jacobi"]
                      for name in PHASES if name in PATH_LAUNCHES}
+    bicg_by_path = {name: PATH_LAUNCHES[name]["bicgstab_ell"]
+                    for name in PHASES if name in PATH_LAUNCHES}
     if not (fused_by_path.get("bench") and fused_by_path.get("deck")):
         raise AssertionError(f"the bench or deck path ran no fused Jacobi-CG "
                              f"iteration: {fused_by_path}")
@@ -7273,6 +7475,19 @@ def main():
         "bound_ms_by_kernel": {f"{shape[0]}x{shape[1]}x{shape[2]} {name}": {
             k: b for k, (_, b) in row.items()}
             for (shape, name), row in pcg_times.items()},
+        "bound_by": "bytes"}, {
+        "name": "bicgstab_ell", "route": "cuda",
+        "source": "modflow6_torch/csrc/bicgstab_ell.cu", "replaces": None,
+        # the counted runs of the main paths (not the bicgstab phase's
+        # checks and timing loops), by phase; six an iteration
+        "launches": sum(bicg_by_path.values()),
+        "launches_by_phase": bicg_by_path,
+        "ms_by_kernel": {f"{shape[0]}x{shape[1]}x{shape[2]} {name}": {
+            k: ms for k, (ms, _) in row.items()}
+            for (shape, name), row in bicg_times.items()},
+        "bound_ms_by_kernel": {f"{shape[0]}x{shape[1]}x{shape[2]} {name}": {
+            k: b for k, (_, b) in row.items()}
+            for (shape, name), row in bicg_times.items()},
         "bound_by": "bytes"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,9 +24,12 @@ reference's ``max_passes`` knob is left out (``MAX_PASSES``).
 ``cg`` on CUDA tensors with a bound ``stencil7`` product, the Jacobi
 preconditioner, the default ``dot`` and ``absmax``, no trace and
 ``north == 0`` runs each iteration as four hand-written kernels
-(``pcg_jacobi.solve``; ``_fused_operands`` decides from what it is
-given); everything else runs the plain loop below, which is also the
-kernels' oracle.
+(``pcg_jacobi.solve``); ``bicgstab`` with the same but the ELL gather
+product (``matvec.ell``, under ``bicgstab_ell.MAX_SLOTS`` slots a row)
+runs each iteration as six, bitwise the plain loop
+(``bicgstab_ell.solve``).  ``_fused_operands`` decides from what it is
+given; everything else runs the plain loops below, which are also the
+kernels' oracles.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 
 from ...constants import DPREC
 from ...utils.profiler import exit_flag, iteration_ranges, krylov_solve
-from . import pcg_jacobi
+from . import bicgstab_ell, pcg_jacobi
 
 # f32 passes of refined_solve before it gives up (the reference's default)
 MAX_PASSES = 8
@@ -112,12 +115,15 @@ def epfact(icnvgopt: int, kstp: int) -> float:
     return 1.0
 
 
-def _fused_operands(matvec, precond, b, dot, absmax, trace, north):
-    """(system, inv) where ``cg`` can run as the fused Jacobi-CG kernels:
-    a bound stencil7 product (``matvec.stencil7``), the Jacobi apply
-    (``precond.jacobi_inv``), the default ``dot`` and ``absmax``, no trace,
-    ``north == 0`` and CUDA tensors.  Else None: the plain loop runs."""
-    system = getattr(matvec, "stencil7", None)
+def _fused_operands(matvec, precond, b, dot, absmax, trace, north,
+                    product="stencil7"):
+    """(system, inv) where a loop can run as fused Jacobi kernels: the
+    product that ``matvec`` marks with the attribute ``product`` (for
+    ``cg`` a bound stencil7, ``matvec.stencil7``; for ``bicgstab`` the ELL
+    gather, ``matvec.ell``), the Jacobi apply (``precond.jacobi_inv``), the
+    default ``dot`` and ``absmax``, no trace, ``north == 0`` and CUDA
+    tensors.  Else None: the plain loop runs."""
+    system = getattr(matvec, product, None)
     inv = getattr(precond, "jacobi_inv", None)
     if (system is None or inv is None or dot is not vector_dot
             or absmax is not _signed_absmax or trace or north != 0
@@ -229,6 +235,14 @@ def bicgstab(
 ) -> KrylovResult:
     """Preconditioned BiCGSTAB, IMS semantics (for systems that are not
     symmetric); two matvecs per iteration."""
+    fused = _fused_operands(matvec, precond, b, dot, absmax, trace, north,
+                            product="ell")
+    # fused = ((nbr, diag, off), inv); the kernels add rows of fewer than
+    # MAX_SLOTS slots as the plain product does
+    if fused is not None and fused[0][0].shape[1] < bicgstab_ell.MAX_SLOTS:
+        return KrylovResult(*bicgstab_ell.solve(
+            *fused, b, x0, itmax=itmax, dvclose=dvclose, rclose=rclose,
+            icnvgopt=icnvgopt, l2norm0=l2norm0, epfact_val=epfact_val))
     x = x0
     d = b - matvec(x0)
     dhat = d

@@ -179,18 +179,15 @@ def _absmax_of_parts(vals, idx):
     return vals[torch.argmin(torch.where(top, idx, last))]
 
 
-def finish(parts, iparts, s, flags, lim, dvclose, rclose, icnvgopt, iiter0):
-    """Sum the partials; dvmax, rmax, l2norm, IMS's inner convergence test
-    (``krylov._test_cnvg``), the rcnvg == 0 rule and the stagnation of rho
-    into ``flags`` (exit, icnvg); rho0 <- rho <- the next rho in ``s``."""
-    dvmax = _absmax_of_parts(parts[TV], iparts[TV_IDX])
-    rmax = _absmax_of_parts(parts[D], iparts[D_IDX])
-    l2 = torch.sqrt(parts[DD].sum())
+def inner_test(dvmax, rmax, l2, lim, dvclose, rclose, icnvgopt, iiter0):
+    """IMS's inner convergence test (``krylov._test_cnvg``) with the
+    rcnvg == 0 rule, on the iteration's dvmax, rmax and l2norm, against
+    ``lim`` (``_limit``): icnvg in {-1, 0, 1} as a 0-d int32 tensor."""
     rcnvg = l2 if icnvgopt in (2, 3, 4) else rmax
     advclose = dvmax.abs() <= dvclose
     rclosed = (rcnvg.abs() if icnvgopt in (0, 1) else rcnvg) <= rclose
     under_lim = rcnvg.to(torch.float64) <= lim
-    one = torch.ones((), dtype=torch.int32, device=s.device)
+    one = torch.ones((), dtype=torch.int32, device=dvmax.device)
     if icnvgopt in (0, 1):
         hit = one if icnvgopt == 0 or iiter0 == 0 else -one
         icnvg = torch.where(advclose & rclosed, hit, 0)
@@ -199,13 +196,28 @@ def finish(parts, iparts, s, flags, lim, dvclose, rclose, icnvgopt, iiter0):
     else:
         closed = advclose | rclosed if icnvgopt == 2 else advclose & rclosed
         icnvg = torch.where(closed, one, torch.where(under_lim, -one, 0))
-    icnvg = torch.where(rcnvg == 0.0, one, icnvg)
+    return torch.where(rcnvg == 0.0, one, icnvg)
+
+
+def stagnant(a, a0):
+    """``krylov._is_close(a, a0)``: equal, or within 100 machine epsilons
+    of the larger magnitude."""
+    rtol = 100.0 * torch.finfo(a.dtype).eps
+    return (a == a0) | ((a - a0).abs() <= rtol * torch.maximum(a.abs(),
+                                                               a0.abs()))
+
+
+def finish(parts, iparts, s, flags, lim, dvclose, rclose, icnvgopt, iiter0):
+    """Sum the partials; dvmax, rmax, l2norm, IMS's inner convergence test
+    (``inner_test``) and the stagnation of rho into ``flags`` (exit,
+    icnvg); rho0 <- rho <- the next rho in ``s``."""
+    dvmax = _absmax_of_parts(parts[TV], iparts[TV_IDX])
+    rmax = _absmax_of_parts(parts[D], iparts[D_IDX])
+    l2 = torch.sqrt(parts[DD].sum())
+    icnvg = inner_test(dvmax, rmax, l2, lim, dvclose, rclose, icnvgopt,
+                       iiter0)
     rho, rho0 = s[RHO].clone(), s[RHO0].clone()
-    rtol = 100.0 * torch.finfo(s.dtype).eps
-    stagnant = (rho == rho0) | ((rho - rho0).abs()
-                                <= rtol * torch.maximum(rho.abs(),
-                                                        rho0.abs()))
-    flags[0] = (icnvg != 0) | stagnant | (rho == 0.0)
+    flags[0] = (icnvg != 0) | stagnant(rho, rho0) | (rho == 0.0)
     flags[1] = icnvg
     s[RHO0] = rho
     s[RHO] = parts[RD].sum()

@@ -37,11 +37,18 @@ def make_matvec(dtopo, diag, off):
     """A·v for the topology.  With a grid shape (a DIS grid, whichever way
     it was assembled): the stencil kernel on CUDA tensors, the plain
     version on CPU tensors (see ops.stencil.bind_stencil7).  Without one:
-    the gather product over the neighbour table."""
+    the gather product over the neighbour table, which carries its system
+    as ``matvec.ell = (nbr, diag, off)``."""
     if dtopo.grid_shape is not None:
         return bind_stencil7(dtopo.grid_shape, diag, off)
     nbr = dtopo.nbr
-    return lambda v: spmv(nbr, diag, off, v)
+
+    def matvec(v):
+        return spmv(nbr, diag, off, v)
+
+    # the system, which marks the product for krylov.bicgstab's fused path
+    matvec.ell = (nbr, diag, off)
+    return matvec
 
 
 def to_scipy_csr(topo, diag, off):

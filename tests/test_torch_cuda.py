@@ -15,8 +15,9 @@ whose products launch the kernel once a shard, and the general split), the
 ``Mf6Api`` XMI loop and a checkpointed run resumed, on the card against
 the CPU, and the entry scripts (``modflow6_torch.bench``'s run through the
 kernel, ``entry.dryrun_multichip`` against its single-device solves), and
-the fused Jacobi-CG kernels (ops/solvers/pcg_jacobi.py) against the plain
-loop on the card.
+the fused Jacobi-CG kernels (ops/solvers/pcg_jacobi.py) and the fused
+Jacobi-BiCGSTAB kernels on the ELL system (ops/solvers/bicgstab_ell.py)
+against the plain loops on the card.
 
 They skip where there is no CUDA device.  This file imports no JAX, so it
 also runs where JAX is not installed:
@@ -33,6 +34,10 @@ must hold the same records.  In ``mixed`` the deck run's heads agree to
 1e-7 and its inner counts to 10%.  The fused Jacobi-CG kernels and the
 plain loop on the card differ only in the order of their sums: equal
 counts, x within 1e-10 in float64 and within 1e-4 of max|x| in float32.
+The fused Jacobi-BiCGSTAB kernels take every sum in the plain loop's
+order (its dot products are the same torch.sum's, its products add their
+slots in torch.sum(dim=1)'s order), so on the card they give the plain
+loop's iterates bitwise: equal counts and equal bits.
 """
 
 import os
@@ -45,12 +50,15 @@ from modflow6_torch.models.discretization import DisGrid
 from modflow6_torch.models.gwf.builder import build_gwf
 from modflow6_torch.models.gwf.npf import DeviceTopology
 from modflow6_torch.ops import stencil
-from modflow6_torch.ops.solvers import krylov, pcg_jacobi
+from modflow6_torch.ops.solvers import bicgstab_ell, krylov, pcg_jacobi
 from modflow6_torch.ops.solvers.precond import jacobi_precondition
 from modflow6_torch.ops.system import make_matvec
 from modflow6_torch.solution import ImsSettings
 from modflow6_torch.solution.fused import make_fused_step
 from modflow6_torch.utils import profiler
+from test_torch_bicgstab_ell import SYSTEMS as ELL_SYSTEMS
+from test_torch_bicgstab_ell import henry_transport
+from test_torch_bicgstab_ell import system as ell_system
 from test_torch_pcg_jacobi import system as pcg_system
 
 pytestmark = pytest.mark.cuda
@@ -840,3 +848,109 @@ def test_fused_cg_wrapper_raises(cuda, case):
     with pytest.raises(ValueError):
         pcg_jacobi.solve((shape, diag, off), inv, b, x0, itmax=10,
                          dvclose=1e-10, rclose=1e-6)
+
+
+# the ELL systems of tests/test_torch_bicgstab_ell.py, and the transport of
+# a 64 x 1 x 128 Henry section
+BICG_SYSTEMS = [*ELL_SYSTEMS, "henry 64x128"]
+
+
+def _bicg_operands(name, dtype, device):
+    """(ell, b, x0) of ``name`` on ``device``; in float32 the system of
+    ``refined_solve``'s passes (the residual from zero)."""
+    if name == "henry 64x128":
+        (nbr, diag, off), b, x0 = _henry_64x128()
+        if dtype == torch.float32:
+            r = b - make_matvec(DeviceTopology(nbr=nbr), diag, off)(x0)
+            diag, off, b = diag.to(dtype), off.to(dtype), r.to(dtype)
+            x0 = torch.zeros_like(b)
+    else:
+        (nbr, diag, off), b, x0 = ell_system(name, dtype)
+    return tuple(t.to(device) for t in (nbr, diag, off)), b.to(device), \
+        x0.to(device)
+
+
+_HENRY = []
+
+
+def _henry_64x128():
+    if not _HENRY:
+        _HENRY.append(henry_transport(64, 128))
+    return _HENRY[0]
+
+
+def _bicg_solve(name, dtype, device, plain=False, icnvgopt=0):
+    """``krylov.bicgstab`` with Jacobi on the ELL system ``name`` on
+    ``device``: the fused kernels, or (``plain``) the plain loop, which
+    ``trace=True`` chooses with the same arithmetic."""
+    (nbr, diag, off), b, x0 = _bicg_operands(name, dtype, device)
+    matvec = make_matvec(DeviceTopology(nbr=nbr), diag, off)
+    r0 = b - matvec(x0)
+    return krylov.bicgstab(
+        matvec, b, x0, jacobi_precondition(diag), itmax=2000,
+        dvclose=_bicg_dvclose(dtype), rclose=1e-6, icnvgopt=icnvgopt,
+        l2norm0=torch.sqrt(torch.sum(r0 * r0)),
+        epfact_val=krylov.epfact(icnvgopt, 1), trace=plain)
+
+
+def _bicg_dvclose(dtype):
+    return 1e-10 if dtype == torch.float64 else 1e-6
+
+
+@pytest.mark.parametrize("icnvgopt", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("name", BICG_SYSTEMS)
+def test_fused_bicgstab_matches_plain_loop_on_card(cuda, name, dtype,
+                                                    icnvgopt):
+    fused = _bicg_solve(name, dtype, cuda, icnvgopt=icnvgopt)
+    plain = _bicg_solve(name, dtype, cuda, plain=True, icnvgopt=icnvgopt)
+    assert plain.trace is not None and fused.trace is None
+    assert plain.iters >= 3
+    assert fused.iters == plain.iters
+    assert bool(fused.converged) == bool(plain.converged)
+    for field in ("x", "dvmax", "rmax", "l2norm"):
+        assert torch.equal(getattr(fused, field), getattr(plain, field)), (
+            field, float((fused.x - plain.x).abs().max()))
+
+
+def test_fused_bicgstab_runs_are_bitwise_equal(cuda):
+    runs = [_bicg_solve("henry 64x128", torch.float64, cuda)
+            for _ in range(2)]
+    assert runs[0].iters == runs[1].iters
+    for name in ("x", "dvmax", "rmax", "l2norm"):
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+
+
+def test_fused_bicgstab_launches_and_host_syncs(cuda):
+    """Six launches and one host read an iteration, and no stencil7."""
+    profiler.take()
+    res = _bicg_solve("dis edge list", torch.float64, cuda)
+    _, counters = profiler.take()
+    n = res.iters
+    assert n > 3
+    assert counters["launches"]["bicgstab_ell"] == bicgstab_ell.LAUNCHES * n
+    assert "stencil7" not in counters["launches"]
+    # the exit flags, and no other read
+    assert counters["host_syncs"] == n
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "device", "layout",
+                                  "width"])
+def test_fused_bicgstab_wrapper_raises(cuda, case):
+    (nbr, diag, off), b, x0 = _bicg_operands("disv k4", torch.float64, cuda)
+    inv = 1.0 / diag
+    if case == "dtype":
+        inv = inv.to(torch.float32)
+    elif case == "shape":
+        b = b[:-1]
+    elif case == "device":
+        x0 = x0.cpu()
+    elif case == "layout":
+        off = off.t().contiguous().t()
+    else:
+        nbr = nbr[:, :1].repeat(1, bicgstab_ell.MAX_SLOTS)
+        off = torch.zeros(nbr.shape, dtype=diag.dtype, device=cuda)
+    with pytest.raises(ValueError):
+        bicgstab_ell.solve((nbr, diag, off), inv, b, x0, itmax=10,
+                           dvclose=1e-10, rclose=1e-6)
